@@ -1,17 +1,18 @@
 """
 bayeslim_tpu_torch: the PyTorch/CUDA port of bayeslim_tpu.
 
-A differentiable RIME forward simulator with a Gaussian posterior, for
-NVIDIA GPUs (the fused RIME reduction is a hand-written CUDA kernel for
-Hopper, csrc/rime_fwd.cu). The layout mirrors bayeslim_tpu module for
-module:
+A differentiable RIME forward simulator with antenna-gain calibration
+and a Gaussian posterior, for NVIDIA GPUs (the fused RIME reduction and
+its delay cotangent are hand-written CUDA kernels for Hopper,
+csrc/rime_fwd.cu and csrc/rime_dtau.cu). The layout mirrors
+bayeslim_tpu module for module:
 
-- utils/     : dtype/device policy, ParamDict, nn.Module base, indexing,
-               HEALPix
-- ops/       : fringe phase math, the RIME reduction, its CUDA kernel
+- utils/     : dtype/device policy, ParamDict, nn.Module base and
+               Sequential, indexing, HEALPix
+- ops/       : fringe phase math, the RIME reduction, its CUDA kernels
 - data/      : VisData / MapData containers
-- models/    : telescope/array, sky, beam, RIME
-- inference/ : LogProb and the Trainer
+- models/    : telescope/array, sky, beam, RIME, Jones gains
+- inference/ : LogProb, the Adam Trainer, BFGS and L-BFGS
 
 Device rule: constructors and entry points take device=None, meaning
 "cuda", and raise when no GPU is present; pass device="cpu" to run on
@@ -22,9 +23,10 @@ dtype is float32.
 __version__ = "0.1.0"
 
 from . import utils, ops, data, models, inference
-from .utils import (ParamDict, Module, model2pdict, load_numpy_pdict,
-                    set_default_dtype, resolve_device)
+from .utils import (ParamDict, Module, Sequential, model2pdict,
+                    load_numpy_pdict, set_default_dtype, resolve_device)
 from .data import VisData, MapData
 from .models import (RIME, TelescopeModel, ArrayModel, PixelBeam,
-                     AiryResponse, PixelSky, PixelSkyResponse)
-from .inference import LogProb, Trainer
+                     AiryResponse, PixelSky, PixelSkyResponse, JonesModel,
+                     JonesResponse)
+from .inference import LogProb, Trainer, BFGS, LBFGS, DiagMat

@@ -28,13 +28,16 @@ def apply_icov(data, icov):
 
 class LogProb(Module):
     """Negative log-posterior under a flat prior: the Gaussian chi^2 of
-    model() against a target, -ln L = chi^2 + n ln(pi) + ln det C for
-    complex circular data."""
+    model() against a target. complex_circular=True (the default) gives
+    -ln L = chi^2 + n ln(pi) + ln det C; False gives the real Gaussian
+    -ln L = chi^2 / 2 + (n ln(2 pi) + ln det C) / 2. The model may be a
+    Sequential chain."""
 
-    def __init__(self, model, target, name=None):
+    def __init__(self, model, target, complex_circular=True, name=None):
         super().__init__(name=name)
         self.model = model
         self.target = target
+        self.complex_circular = complex_circular
 
     def collect_main_params(self):
         """ParamDict of the model's trainable leaves, keyed like the JAX
@@ -55,8 +58,12 @@ class LogProb(Module):
             chisq = chisq.real
         norm = 0.0
         if icov is not None and tgt.cov_logdet is not None:
-            norm = tgt.cov_ndim * np.log(np.pi) + tgt.cov_logdet
-        return chisq + norm
+            if self.complex_circular:
+                norm = tgt.cov_ndim * np.log(np.pi) + tgt.cov_logdet
+            else:
+                norm = 0.5 * (tgt.cov_ndim * np.log(2 * np.pi)
+                              + tgt.cov_logdet)
+        return (chisq if self.complex_circular else 0.5 * chisq) + norm
 
     def value_and_grad(self, pdict=None):
         """Loss and the ParamDict of its gradients with respect to

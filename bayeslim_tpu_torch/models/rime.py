@@ -24,6 +24,7 @@ import torch
 from ..data.containers import VisData
 from ..ops.rime_kernel import rime_reduce
 from ..utils.dtypes import C_MS
+from ..utils.indexing import ants2blnum
 from ..utils.module import Module
 from .beam import cut_sky_fov
 
@@ -66,15 +67,19 @@ class RIME(Module):
         self.data_bls = list(self.sim_bls)
         if data_bls is not None:
             data_bls = [tuple(b) for b in data_bls]
-            sim_red = [self.array.bl2red[bl] for bl in self.sim_bls]
-            dbls = [bl for bl in data_bls if self.array.bl2red[bl] in sim_red]
-            data_red = [self.array.bl2red[bl] for bl in dbls]
-            if set(sim_red) != set(data_red):
+            bl2red = self.array.bl2red
+            # group -> first simulated baseline of that group
+            sim_of = {}
+            for i, bl in enumerate(self.sim_bls):
+                sim_of.setdefault(bl2red[bl], i)
+            dbls = [bl for bl in data_bls if bl2red[bl] in sim_of]
+            if set(sim_of) != {bl2red[bl] for bl in dbls}:
                 raise ValueError(
                     "non-overlapping bl type(s) in data_bls and sim_bls")
             self.data_bls = dbls
             self._sim2data = torch.as_tensor(
-                [sim_red.index(i) for i in data_red], device=dev)
+                [sim_of[bl2red[bl]] for bl in dbls], device=dev)
+        self._data_blnums = ants2blnum(self.data_bls)
 
     def precompute(self):
         """Per time: zen/az of the sky pixels, the padded FOV cut and
@@ -124,6 +129,6 @@ class RIME(Module):
             pol = f"{self.beam.pol}{self.beam.pol}"
         vd = VisData()
         vd.setup_meta(self.telescope, self.array.to_antpos())
-        vd.setup_data(self.data_bls, self.times, self.freqs, pol=pol,
+        vd.setup_data(self._data_blnums, self.times, self.freqs, pol=pol,
                       data=vis, history=f"RIME forward ({self.name})")
         return vd

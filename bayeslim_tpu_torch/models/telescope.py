@@ -391,8 +391,10 @@ class ArrayModel(Module):
     """Antenna layout on the device plus host baseline bookkeeping.
 
     antvecs (Nants, 3) [m] is a buffer, or a trainable nn.Parameter with
-    parameter=True (its gradient needs the tau-cotangent kernel on
-    CUDA, which is not ported yet).
+    parameter=True; its gradient flows through tau = b.s/c (on CUDA
+    through the tau-cotangent kernel, csrc/rime_dtau.cu). Baseline
+    bookkeeping (redundant groups, get_bls) uses the positions given at
+    construction.
     """
 
     def __init__(self, antpos, freqs=None, parameter=False, redtol=1.0,
@@ -421,7 +423,14 @@ class ArrayModel(Module):
             else np.asarray(freqs, dtype=np.float64)
 
     def to_antpos(self):
-        return AntposDict(self.ants, self._antvecs_np)
+        """The current (possibly trained) antenna positions."""
+        return AntposDict(self.ants, self.antvecs)
+
+    def get_antpos(self, ant):
+        """Position(s) of one antenna or a list of them; differentiable."""
+        if isinstance(ant, (int, np.integer)):
+            return self.antvecs[self._ant_idx[int(ant)]]
+        return self.antvecs[[self._ant_idx[int(a)] for a in ant]]
 
     def bl_index(self, bls):
         """(ant1_idx, ant2_idx) integer arrays for a list of bl tuples."""
@@ -430,6 +439,12 @@ class ArrayModel(Module):
         a1 = np.asarray([self._ant_idx[bl[0]] for bl in bls])
         a2 = np.asarray([self._ant_idx[bl[1]] for bl in bls])
         return a1, a2
+
+    def get_blvecs(self, bls):
+        """Baseline vectors ant2 - ant1 in ENU [m], (Nbls, 3);
+        differentiable."""
+        a1, a2 = self.bl_index(bls)
+        return self.antvecs[a2] - self.antvecs[a1]
 
     @staticmethod
     def s_vector(zen, az):

@@ -1,9 +1,9 @@
 """
-The fused RIME kernel on the card, its plain PyTorch version, and the
-autograd Function that puts it on the RIME path.
+The fused RIME kernels on the card, their plain PyTorch versions, and
+the autograd Function that puts them on the RIME path.
 
 Counterpart of bayeslim_tpu/ops/rime_pallas.py (`_fwd_pallas` :619,
-`rime_fused_bs` :941-1018).
+`_dtau_pallas` :773, `rime_fused_bs` :941-1018).
 
 Contract (`rime_fwd`): for ps rows (R, K), real or complex, and
 tauT (K, N) float,
@@ -12,13 +12,24 @@ tauT (K, N) float,
     f_r = f0 + (r mod nf) df          (R = nstack * nf stacked rows)
 
 returned complex (R, N), or real (R, N) holding only the real plane
-when ``out_imag=False``. A CUDA tensor launches the hand-written kernel
-in ``csrc/rime_fwd.cu`` (float32 / complex64 only; anything else
-raises); a CPU tensor runs ``rime_fwd_plain``. There is no fallback
-from one to the other.
+when ``out_imag=False``.
 
-The kernel is compiled with nvcc for sm_90a into ``build/kernels/`` at
-first use and loaded with ctypes; ``launches`` counts its launches.
+Contract (`rime_dtau`, the delay cotangent): for ct (R, N) complex,
+
+    dtauT[c, n] = sum_r w_r Im(ct[r, n] ps[r, c] E[r, c, n]),
+    E = exp(i s 2 pi f_r tauT[c, n]),  w_r = -s 2 pi f_r,
+
+with s = -1 if conj else +1, returned real (K, N). The backward passes
+ct = conj(g) for PyTorch's incoming gradient g.
+
+A CUDA tensor launches the hand-written kernel (``csrc/rime_fwd.cu``,
+``csrc/rime_dtau.cu``; float32 / complex64 only, anything else
+raises); a CPU tensor runs the plain version. There is no fallback from
+one to the other.
+
+The kernels are compiled with nvcc for sm_90a into ``build/kernels/``
+at first use and loaded with ctypes; ``launches`` and ``dtau_launches``
+count their launches.
 """
 from __future__ import annotations
 
@@ -37,15 +48,17 @@ from torch.autograd.function import once_differentiable
 
 from .phase import fringe_cycles
 
-__all__ = ["rime_fwd", "rime_fwd_plain", "rime_fused_bs", "RimeFusedBS",
-           "build", "launches", "no_tf32"]
+__all__ = ["rime_fwd", "rime_fwd_plain", "rime_dtau", "rime_dtau_plain",
+           "rime_fused_bs", "RimeFusedBS", "build", "launches",
+           "dtau_launches", "no_tf32"]
 
-# launches of the CUDA kernel (incremented once per launch, nowhere else)
+# launches of each CUDA kernel (incremented once per launch, nowhere else)
 launches = 0
+dtau_launches = 0
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("rime_fwd.cu",)
+SOURCES = ("rime_fwd.cu", "rime_dtau.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _LIB = {}
@@ -75,14 +88,16 @@ def _nvcc():
 def build(sources=SOURCES):
     """Compile each CUDA source into its own shared library, all nvcc
     processes started together. Libraries are named by a hash of their
-    source and flags, so a built one is reused. Returns
+    source, every header in csrc/ and the flags, so a built one is
+    reused and a changed header rebuilds. Returns
     {source: (path, seconds, ptxas report)}."""
     _BUILD.mkdir(parents=True, exist_ok=True)
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     jobs = {}
     for src in sources:
         path = _CSRC / src
-        key = hashlib.sha1(path.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                           ).hexdigest()[:12]
+        key = hashlib.sha1(path.read_bytes() + headers
+                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
         lib = _BUILD / f"{path.stem}-{key}.so"
         tmp = _BUILD / f"{path.stem}-{key}.{os.getpid()}.tmp"
         proc = None
@@ -103,19 +118,25 @@ def build(sources=SOURCES):
     return out
 
 
-def _lib():
-    if "rime_fwd" not in _LIB:
-        path = build(("rime_fwd.cu",))["rime_fwd.cu"][0]
-        lib = ctypes.CDLL(str(path))
-        fn = lib.rime_fwd_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_double, ctypes.c_double,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+# argument types of each kernel's C launcher (pointers and the stream
+# as c_void_p, so ctypes does not cut them to 32 bits)
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_ARGTYPES = {
+    "rime_fwd": [_P, _P, _P, _I, _I, _I, _I, _D, _D, _I, _I, _I, _P],
+    "rime_dtau": [_P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _I, _I, _P],
+}
+
+
+def _lib(name):
+    """The C launcher ``{name}_launch`` of csrc/{name}.cu, built at
+    first use."""
+    if name not in _LIB:
+        path = build((f"{name}.cu",))[f"{name}.cu"][0]
+        fn = getattr(ctypes.CDLL(str(path)), f"{name}_launch")
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        _LIB["rime_fwd"] = fn
-    return _LIB["rime_fwd"]
+        _LIB[name] = fn
+    return _LIB[name]
 
 
 def rime_fwd(ps, tauT, f0, df, nf, conj=False, out_imag=True):
@@ -137,31 +158,79 @@ def rime_fwd(ps, tauT, f0, df, nf, conj=False, out_imag=True):
     N = tauT.shape[1]
     if R % nf:
         raise ValueError(f"rime_fwd: {R} rows are not a multiple of nf={nf}")
-    ps = ps.contiguous()
+    # a conjugate view shares its memory with the unconjugated tensor:
+    # resolve it before the kernel reads the raw buffer
+    ps = ps.resolve_conj().contiguous()
     tauT = tauT.contiguous()
     ps_real = not ps.is_complex()
     out = torch.empty((R, N), device=ps.device,
                       dtype=torch.complex64 if out_imag else torch.float32)
     stream = torch.cuda.current_stream(ps.device).cuda_stream
-    rc = _lib()(ps.data_ptr(), tauT.data_ptr(), out.data_ptr(), R, K, N,
-                int(nf), float(f0), float(df), int(bool(conj)),
-                int(ps_real), int(bool(out_imag)), stream)
+    rc = _lib("rime_fwd")(ps.data_ptr(), tauT.data_ptr(), out.data_ptr(),
+                          R, K, N, int(nf), float(f0), float(df),
+                          int(bool(conj)), int(ps_real), int(bool(out_imag)),
+                          stream)
     if rc != 0:
         raise RuntimeError(f"rime_fwd kernel launch failed: CUDA error {rc}")
     launches += 1
     return out
 
 
-# elements of one (chunk, N, nf) cos/sin block in the plain version
+def rime_dtau(ct, ps, tauT, f0, df, nf, conj=False):
+    """The delay cotangent (contract in the module docstring)."""
+    if not ps.is_cuda:
+        return rime_dtau_plain(ct, ps, tauT, f0, df, nf, conj=conj)
+    global dtau_launches
+    if not (ct.is_cuda and tauT.is_cuda) \
+            or not ct.device == tauT.device == ps.device:
+        raise ValueError("rime_dtau: ct, ps and tauT must be on one CUDA "
+                         "device")
+    if ct.dtype != torch.complex64 or tauT.dtype != torch.float32 \
+            or ps.dtype not in (torch.float32, torch.complex64):
+        raise TypeError(f"rime_dtau kernel takes complex64 ct, float32/"
+                        f"complex64 ps and float32 tauT, got {ct.dtype}, "
+                        f"{ps.dtype}, {tauT.dtype}")
+    if ct.ndim != 2 or ps.ndim != 2 or tauT.ndim != 2 \
+            or ps.shape != (ct.shape[0], tauT.shape[0]) \
+            or ct.shape[1] != tauT.shape[1]:
+        raise ValueError(f"rime_dtau: bad shapes {tuple(ct.shape)}, "
+                         f"{tuple(ps.shape)}, {tuple(tauT.shape)}")
+    R, K = ps.shape
+    N = tauT.shape[1]
+    if R % nf:
+        raise ValueError(f"rime_dtau: {R} rows are not a multiple of "
+                         f"nf={nf}")
+    ct = ct.resolve_conj().contiguous()
+    ps = ps.resolve_conj().contiguous()
+    tauT = tauT.contiguous()
+    out = torch.empty((K, N), device=ps.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(ps.device).cuda_stream
+    rc = _lib("rime_dtau")(ct.data_ptr(), ps.data_ptr(), tauT.data_ptr(),
+                           out.data_ptr(), R, K, N, int(nf), float(f0),
+                           float(df), int(bool(conj)), int(not ps.is_complex()),
+                           stream)
+    if rc != 0:
+        raise RuntimeError(f"rime_dtau kernel launch failed: CUDA error {rc}")
+    dtau_launches += 1
+    return out
+
+
+# elements of one (chunk, N, nf) cos/sin block in the plain versions
 _PLAIN_ELEMS = 1 << 24
+
+
+def _phasors(tauT, freqs, sgn, dtype):
+    """cos and sgn * sin of 2 pi f tau, (K, N, nf): the phases f tau mod 1
+    and their cos/sin are formed in float64 (the kernels also reduce
+    phases in double), then cast to the working dtype."""
+    ang = (2 * np.pi) * fringe_cycles(tauT.double(), freqs)
+    return torch.cos(ang).to(dtype), (sgn * torch.sin(ang)).to(dtype)
 
 
 def rime_fwd_plain(ps, tauT, f0, df, nf, conj=False, out_imag=True):
     """Plain PyTorch version of ``rime_fwd``: chunked over K, it
     materialises cos/sin of each chunk's phases and contracts them in
-    the inputs' dtype (true fp32 or fp64). The phases f tau mod 1 and
-    their cos/sin are formed in float64 (the kernel also reduces phases
-    in double), then cast to the working dtype. Differentiable."""
+    the inputs' dtype (true fp32 or fp64). Differentiable."""
     R, K = ps.shape
     N = tauT.shape[1]
     nstack = R // nf
@@ -172,10 +241,8 @@ def rime_fwd_plain(ps, tauT, f0, df, nf, conj=False, out_imag=True):
     re = im = None
     with no_tf32():
         for i in range(0, K, chunk):
-            ang = (2 * np.pi) * fringe_cycles(tauT[i:i + chunk].double(),
-                                              freqs)
-            cosf = torch.cos(ang).to(tauT.dtype)        # (C, N, nf)
-            sinf = (sgn * torch.sin(ang)).to(tauT.dtype)
+            cosf, sinf = _phasors(tauT[i:i + chunk], freqs, sgn,
+                                  tauT.dtype)           # (C, N, nf)
             p = ps3[..., i:i + chunk]                   # (S, nf, C)
 
             def es(a, b):
@@ -191,6 +258,40 @@ def rime_fwd_plain(ps, tauT, f0, df, nf, conj=False, out_imag=True):
                 im = m if im is None else im + m
     re = re.reshape(R, N)
     return torch.complex(re, im.reshape(R, N)) if out_imag else re
+
+
+def rime_dtau_plain(ct, ps, tauT, f0, df, nf, conj=False):
+    """Plain PyTorch version of ``rime_dtau``: chunked over K, the sum
+    over the stacked blocks is a batched product per frequency,
+    A[k, c, n] = sum_s ps[s, k, c] (w ct)[s, k, n], and the phasors
+    contract A's real and imaginary planes: Im(A E) = Re A sin + Im A cos."""
+    R, K = ps.shape
+    N = tauT.shape[1]
+    nstack = R // nf
+    freqs = float(f0) + np.arange(nf) * float(df)
+    sgn = -1.0 if conj else 1.0
+    rdt = tauT.dtype
+    w = torch.as_tensor(np.tile(-sgn * 2 * np.pi * freqs, nstack),
+                        dtype=rdt, device=ct.device)
+    ctw = ct * w[:, None]
+
+    def by_freq(x, n):                                  # (R, n) -> (nf, S, n)
+        return x.reshape(nstack, nf, n).transpose(0, 1)
+    cr, ci = by_freq(ctw.real, N), by_freq(ctw.imag, N)
+    chunk = max(1, _PLAIN_ELEMS // max(N * nf, 1))
+    out = []
+    with no_tf32():
+        for i in range(0, K, chunk):
+            cosf, sinf = _phasors(tauT[i:i + chunk], freqs, sgn, rdt)
+            p = by_freq(ps[:, i:i + chunk], cosf.shape[0]).transpose(1, 2)
+            if p.is_complex():                          # (nf, C, S)
+                are = p.real @ cr - p.imag @ ci
+                aim = p.real @ ci + p.imag @ cr
+            else:
+                are, aim = p @ cr, p @ ci               # (nf, C, N)
+            out.append(torch.einsum("kcn,cnk->cn", are, sinf)
+                       + torch.einsum("kcn,cnk->cn", aim, cosf))
+    return torch.cat(out, dim=0)
 
 
 # cap on transient delay-matrix elements: chunk the pixel axis so no
@@ -220,13 +321,16 @@ class RimeFusedBS(torch.autograd.Function):
     ps2d : (nstack * nf, Npix) real or complex; blvecs : (Nbls, 3);
     s_c : (3, Npix). Returns (nstack * nf, Nbls) complex.
 
-    Backward: dps[r, c] = sum_b g[r, b] conj(E[b, c, r]) is the same
-    kernel with baselines and pixels swapped and ``conj`` flipped
-    (PyTorch hands the backward dL/dz-bar; the JAX custom_vjp receives
-    the conjugate convention and uses E itself). Gradients for blvecs /
-    s_c need the tau-cotangent kernel (rime_pallas.py::_dtau_kernel),
-    not yet ported: on CUDA they raise; on the CPU they come from
-    autograd through the plain version.
+    Backward, per pixel chunk, each kernel launched only for a gradient
+    that is asked for (rime_pallas.py::_bs_bwd :984):
+
+    - dps[r, c] = sum_b g[r, b] conj(E[b, c, r]) is ``rime_fwd`` with
+      baselines and pixels swapped and ``conj`` flipped (PyTorch hands
+      the backward dL/dz-bar; the JAX custom_vjp receives the conjugate
+      convention and uses E itself);
+    - the delay cotangent dtauT = ``rime_dtau`` with ct = conj(g),
+      contracted at once to dblvecs = (s_c dtauT)^T and
+      ds_c = (dtauT blvecs)^T in true fp32 / fp64.
     """
 
     @staticmethod
@@ -246,32 +350,25 @@ class RimeFusedBS(torch.autograd.Function):
         ps2d, blvecs, s_c = ctx.saved_tensors
         f0, df, nf, conj = ctx.meta
         need_ps, need_bv, need_sc = ctx.needs_input_grad[:3]
-        if (need_bv or need_sc) and ps2d.is_cuda:
-            raise NotImplementedError(
-                "RimeFusedBS: gradients for blvecs / s_c (trainable antenna "
-                "positions) need the port of the tau-cotangent kernel "
-                "rime_pallas.py::_dtau_kernel, which is not done yet")
         g = g.contiguous()
-        chunks = _pix_chunks(blvecs.shape[0], ps2d.shape[1])
-        dps = dbv = dsc = None
-        if need_ps:
-            parts = [rime_fwd(g, _mm(blvecs, s_c[:, sl]), f0, df, nf,
-                              conj=not conj, out_imag=ps2d.is_complex())
-                     for sl in chunks]
-            dps = torch.cat(parts, dim=1).to(ps2d.dtype)
-        if need_bv or need_sc:
-            with torch.enable_grad():
-                bv = blvecs.detach().requires_grad_(need_bv)
-                sc = s_c.detach().requires_grad_(need_sc)
-                out = sum(rime_fwd_plain(ps2d.detach()[:, sl],
-                                         _mm(sc[:, sl].t(), bv.t()), f0, df,
-                                         nf, conj=conj)
-                          for sl in chunks)
-                wrt = [x for x, need in ((bv, need_bv), (sc, need_sc))
-                       if need]
-                grads = list(torch.autograd.grad(out, wrt, g))
-            dbv = grads.pop(0) if need_bv else None
-            dsc = grads.pop(0) if need_sc else None
+        ct = g.conj_physical() if (need_bv or need_sc) else None
+        dps_parts, dbv, dsc_parts = [], None, []
+        for sl in _pix_chunks(blvecs.shape[0], ps2d.shape[1]):
+            tauT = _mm(s_c[:, sl].t(), blvecs.t())      # (C, Nbls)
+            if need_ps:
+                dps_parts.append(rime_fwd(g, tauT.t(), f0, df, nf,
+                                          conj=not conj,
+                                          out_imag=ps2d.is_complex()))
+            if need_bv or need_sc:
+                dtauT = rime_dtau(ct, ps2d[:, sl], tauT, f0, df, nf,
+                                  conj=conj).to(blvecs.dtype)
+                if need_bv:
+                    db = _mm(s_c[:, sl], dtauT).t()
+                    dbv = db if dbv is None else dbv + db
+                if need_sc:
+                    dsc_parts.append(_mm(dtauT, blvecs).t())
+        dps = torch.cat(dps_parts, dim=1).to(ps2d.dtype) if need_ps else None
+        dsc = torch.cat(dsc_parts, dim=1) if need_sc else None
         return dps, dbv, dsc, None, None, None, None
 
 

@@ -3,6 +3,6 @@ from . import dtypes, healpix, indexing, module, paramdict
 from .dtypes import (_float, set_default_dtype, resolve_device,
                      viewreal, viewcomp, D2R, R2D, C_MS)
 from .paramdict import ParamDict, load_numpy_pdict
-from .module import Module, model2pdict
+from .module import Module, Sequential, model2pdict
 from .indexing import (AntposDict, ants2blnum, blnum2ants, make_hex,
                        flatten, gauss_taper)

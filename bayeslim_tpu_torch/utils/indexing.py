@@ -16,14 +16,20 @@ __all__ = ["AntposDict", "blnum2ants", "ants2blnum", "make_hex",
 
 class AntposDict:
     """Dict-like antenna-position store: ``ants`` is a list of ints,
-    ``antvecs`` an (Nants, 3) float64 numpy array of ENU positions [m]."""
+    ``antvecs`` an (Nants, 3) array of ENU positions [m]: float64 numpy,
+    or a tensor (trainable antenna positions), kept as given."""
 
     def __init__(self, ants, antvecs):
         self.ants = [int(a) for a in ants]
         self._ant_idx = {a: i for i, a in enumerate(self.ants)}
-        self.antvecs = np.asarray(antvecs, dtype=np.float64)
+        if not isinstance(antvecs, torch.Tensor):
+            antvecs = np.asarray(antvecs, dtype=np.float64)
+        self.antvecs = antvecs
 
     def asnumpy(self):
+        """Host float64 numpy copy of antvecs."""
+        if isinstance(self.antvecs, torch.Tensor):
+            return self.antvecs.detach().cpu().numpy().astype(np.float64)
         return self.antvecs
 
     def keys(self):

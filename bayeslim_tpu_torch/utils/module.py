@@ -7,6 +7,10 @@ name; here trainable leaves are ``nn.Parameter``s, so
 ``model.named_parameters()`` gives the same dotted keys as the JAX
 package's ``model2pdict`` ("sky.params", "beam.params", ...).
 
+``Sequential`` chains models; it holds them in an ``nn.ModuleDict``
+named ``models``, so its parameter keys read "models.rime.array.antvecs",
+"models.cal.params", as the JAX package's do.
+
 ``updated(pdict)`` is the functional update of the JAX package: it
 returns a copy of the module tree whose leaves at pdict's paths are the
 given tensors (gradients then flow into those tensors), sharing every
@@ -20,7 +24,7 @@ from torch import nn
 
 from .paramdict import ParamDict
 
-__all__ = ["Module", "model2pdict"]
+__all__ = ["Module", "Sequential", "model2pdict"]
 
 
 def _shallow(mod):
@@ -67,6 +71,51 @@ class Module(nn.Module):
             obj._buffers.pop(last, None)
             obj.__dict__[last] = value
         return new
+
+
+class Sequential(Module):
+    """Ordered chain of models threading one input through each
+    (counterpart of bayeslim_tpu/utils/module.py:389). ``models`` maps
+    name -> Module in call order; named sub-models are also attributes.
+    The first model carries the minibatching (Nbatch / batch_idx)."""
+
+    def __init__(self, models, name=None):
+        super().__init__(name=name)
+        self.models = nn.ModuleDict(models)
+
+    def forward(self, inp=None, **kwargs):
+        out = inp
+        for model in self.models.values():
+            out = model(out, **kwargs)
+        return out
+
+    def __getattr__(self, key):
+        try:
+            return super().__getattr__(key)
+        except AttributeError:
+            models = self._modules.get("models")
+            if models is not None and key in models._modules:
+                return models._modules[key]
+            raise
+
+    def _first(self):
+        return next(iter(self.models.values()))
+
+    @property
+    def Nbatch(self):
+        return getattr(self._first(), "Nbatch", 1)
+
+    @property
+    def batch_idx(self):
+        return getattr(self._first(), "batch_idx", 0)
+
+    @batch_idx.setter
+    def batch_idx(self, val):
+        first = self._first()
+        if hasattr(first, "batch_idx"):
+            first.batch_idx = val
+        elif val > 0:
+            raise ValueError("first model in the chain is not batched")
 
 
 def model2pdict(model, clone=False):

@@ -74,6 +74,23 @@ class ParamDict:
         """Apply func to every value, returning a new ParamDict."""
         return ParamDict({k: func(v) for k, v in self.items()})
 
+    def copy(self):
+        """New ParamDict holding the same tensors."""
+        return ParamDict(self.params)
+
+    def ravel(self):
+        """Concatenate all values, in key order, into one flat vector."""
+        return torch.cat([v.reshape(-1) for v in self.values()])
+
+    def unravel(self, flat):
+        """Inverse of ravel given this ParamDict's shapes and dtypes."""
+        out, i = {}, 0
+        for k, v in self.items():
+            n = v.numel()
+            out[k] = flat[i:i + n].reshape(v.shape).to(v.dtype)
+            i += n
+        return ParamDict(out)
+
     def __repr__(self):
         body = ", ".join(f"{k}: {tuple(v.shape)}" for k, v in self.items())
         return f"ParamDict({body})"

@@ -8,22 +8,34 @@ GPU. Run from the repository root:
 Phases, one line each; any failure exits non-zero:
 
 1. the card (nvidia-smi name and power limit), versions, and the nvcc
-   build of the CUDA kernels from csrc/;
-2. the RIME kernel against its plain PyTorch version in float64 (of
-   the same float32 inputs) at a small shape and at the hera-stat
-   forward and backward shapes, every ps / conj / out_imag case;
-3. the autograd Function on the card against the CPU float64 plain
-   path: values and the psky gradient;
-4. the main path at full width, hera-stat: a 331-antenna hex array
-   (630 redundant groups), 1024 frequencies, an nside-32 sky cut to the
+   build of the CUDA kernels from csrc/ (all sources at once);
+2. the RIME kernel (rime_fwd) against its plain PyTorch version in
+   float64 (of the same float32 inputs) at small shapes and at the
+   hera-stat forward and backward shapes, every ps / conj / out_imag
+   case;
+3. the delay-cotangent kernel (rime_dtau) against its plain version the
+   same way, at nf=5 (rows wrap), nstack=3 x nf=24 and the hera-cal
+   shape, every ps / conj case;
+4. the autograd Function on the card against the CPU float64 plain
+   path: the value and the gradients of psky, blvecs and s_c;
+5. main path 1, hera-stat at full width: a 331-antenna hex array (630
+   redundant groups), 1024 frequencies, an nside-32 sky cut to the
    180 deg field of view, 2 times, an Airy power beam and a power-law
    sky, fitted to the redundant-group sufficient statistics by 3 Adam
-   steps; the kernel launch count must be exactly 2 x Ntimes x pixel
-   chunks per step; then one more step under torch.profiler (device
-   time by kernel, device busy share);
-5. the posterior at small shapes on the card (float32, kernel) against
-   the port on the CPU (float64, plain version): loss and gradients;
-6. kernel and plain-version times at the main path's shapes, the
+   steps; rime_fwd launches must be exactly 2 x Ntimes x pixel chunks
+   per step; then one more step under torch.profiler;
+6. main path 2, hera-cal at full width: the same array, sky and beam
+   (fixed), the 630 groups simulated and expanded to all 54,615 cross
+   baselines, then per-antenna complex gains (JonesModel); antenna
+   positions and gains are trainable, fitted by 3 L-BFGS steps with a
+   strong-Wolfe line search to a target made from moved antennas and
+   perturbed gains plus noise; rime_fwd and rime_dtau launches must each
+   be exactly Ntimes x pixel chunks x function evaluations; then one
+   function evaluation under torch.profiler;
+7. small posteriors on the card (float32, kernels) against the port on
+   the CPU (float64, plain versions): a small sky/beam posterior and
+   the hera-cal chain, loss and gradients;
+8. kernel and plain-version times at the main paths' shapes, each
    kernel's bound, and the JSON line of kernels.
 
 The last line is {"ok": true, "device": {...}}. Exits non-zero without
@@ -42,6 +54,12 @@ TOL = 1e-4
 # published H100 SXM peaks (NVIDIA data sheet, at 700 W)
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+LOC = (21.428305555, -30.72152777, 1073.0)
+ANTVECS = "models.rime.array.antvecs"
+GAINS = "models.cal.params"
+# the full-width configuration of both main paths
+HERA = dict(hexN=11, nside=32, nfreq=1024, fmax=200e6, ntime=2,
+            pix_chunk=2048)
 
 
 def check(ok, msg):
@@ -62,35 +80,47 @@ def smi():
         check=True).stdout.strip()
 
 
+def build_sky_beam(bt, hexN, nside, nfreq, fmax, redtol, antpos_param,
+                   device, dtype, rng, amp=1.0):
+    """Telescope, array, power-law pixel sky (amplitudes amp x U(1, 10)
+    from the numpy Generator rng) and Airy power beam through the port's
+    public API. Returns (T, arr, sky, beam, freqs)."""
+    from bayeslim_tpu_torch.utils import AntposDict, healpix as hp, make_hex
+    T = bt.TelescopeModel(LOC)
+    ants, antvecs = make_hex(hexN, D=15.0)
+    freqs = np.linspace(100e6, fmax, nfreq)
+    arr = bt.ArrayModel(AntposDict(ants, antvecs), freqs=freqs,
+                        redtol=redtol, parameter=antpos_param, device=device,
+                        dtype=dtype)
+    npix = hp.nside2npix(nside)
+    theta, phi = hp.pix2ang(nside, np.arange(npix))
+    angs = np.stack([phi * 180 / np.pi, 90 - theta * 180 / np.pi])
+    params = np.zeros((1, 1, 2, npix))
+    params[0, 0, 0] = amp * rng.uniform(1, 10, npix)
+    params[0, 0, 1] = -2.5
+    R = bt.PixelSkyResponse(freqs, spatial_mode="pixel",
+                            freq_mode="powerlaw", f0=float(freqs[0]),
+                            device=device, dtype=dtype)
+    # the sky and the beam are trainable unless the antennas are
+    sky = bt.PixelSky(params, angs, hp.nside2pixarea(nside), R=R,
+                      parameter=not antpos_param, device=device, dtype=dtype)
+    beam = bt.PixelBeam(np.ones((1, 1, 1, 1, 2)) * 14.0, freqs,
+                        R=bt.AiryResponse(), pol="e", powerbeam=True,
+                        fov=180.0, parameter=not antpos_param, device=device,
+                        dtype=dtype)
+    return T, arr, sky, beam, freqs
+
+
 def build_posterior(bt, hexN, nside, nfreq, fmax, ntime, stat, pix_chunk,
                     device, dtype, seed=0):
     """The hera-stat (stat=True) or the small all-baseline posterior
     through the port's public API. Returns (prob, sim_bls)."""
     import torch
-    from bayeslim_tpu_torch.utils import AntposDict, healpix as hp, make_hex
     device = bt.resolve_device(device)
-    loc = (21.428305555, -30.72152777, 1073.0)
-    T = bt.TelescopeModel(loc)
-    ants, antvecs = make_hex(hexN, D=15.0)
-    freqs = np.linspace(100e6, fmax, nfreq)
-    arr = bt.ArrayModel(AntposDict(ants, antvecs), freqs=freqs,
-                        redtol=0.5 if stat else 1.0, device=device,
-                        dtype=dtype)
-    npix = hp.nside2npix(nside)
-    theta, phi = hp.pix2ang(nside, np.arange(npix))
-    angs = np.stack([phi * 180 / np.pi, 90 - theta * 180 / np.pi])
     rng = np.random.default_rng(seed)
-    params = np.zeros((1, 1, 2, npix))
-    params[0, 0, 0] = rng.uniform(1, 10, npix)
-    params[0, 0, 1] = -2.5
-    R = bt.PixelSkyResponse(freqs, spatial_mode="pixel",
-                            freq_mode="powerlaw", f0=float(freqs[0]),
-                            device=device, dtype=dtype)
-    sky = bt.PixelSky(params, angs, hp.nside2pixarea(nside), R=R,
-                      device=device, dtype=dtype)
-    beam = bt.PixelBeam(np.ones((1, 1, 1, 1, 2)) * 14.0, freqs,
-                        R=bt.AiryResponse(), pol="e", powerbeam=True,
-                        fov=180.0, device=device, dtype=dtype)
+    T, arr, sky, beam, freqs = build_sky_beam(
+        bt, hexN, nside, nfreq, fmax, 0.5 if stat else 1.0, False, device,
+        dtype, rng)
     times = 2458168.3 + np.arange(ntime) * 5e-4
     if stat:
         reds = [r for r in arr.reds if r[0][0] != r[0][1]]
@@ -118,6 +148,74 @@ def build_posterior(bt, hexN, nside, nfreq, fmax, ntime, stat, pix_chunk,
     return bt.LogProb(rime, tgt), bls
 
 
+def cal_truth(ants, antvecs, nfreq, ant_sigma, gain_sigma, seed=1):
+    """Truth of the hera-cal chain (numpy): antenna positions moved by
+    N(0, ant_sigma) [m] in E and N, gains 1 + gain_sigma (N + iN) as real
+    pairs with the first antenna's phase zeroed (it is the refant)."""
+    rng = np.random.default_rng(seed)
+    av = np.array(antvecs, dtype=np.float64)
+    av[:, :2] += ant_sigma * rng.standard_normal((len(ants), 2))
+    g = 1 + gain_sigma * (rng.standard_normal((1, 1, len(ants), 1, nfreq))
+                          + 1j * rng.standard_normal((1, 1, len(ants), 1,
+                                                      nfreq)))
+    g = g * np.exp(-1j * np.angle(g[:, :, :1]))
+    return {ANTVECS: av, GAINS: np.stack([g.real, g.imag], axis=-1)}
+
+
+def build_cal(bt, hexN, nside, nfreq, fmax, ntime, pix_chunk, device,
+              dtype, ant_sigma=0.01, gain_sigma=0.05, amp=1e4, seed=0):
+    """The hera-cal chain through the port's public API:
+    Sequential(RIME -> JonesModel) with trainable antenna positions and
+    per-antenna complex gains (1 pol, real pairs, refant the first
+    antenna), the redundant groups simulated and expanded to every cross
+    baseline. The target is the chain's forward at cal_truth plus complex
+    noise of unit variance (E|n|^2 = 1, from a seeded torch.Generator),
+    which is what icov = ones says. The sky is amp times the hera-stat
+    sky, so that the visibilities stand well above that noise (amp=1e4:
+    an rms of ~1e2 at hex-11). The start is the construction layout and
+    unit gains. Returns (prob, truth)."""
+    import torch
+    device = bt.resolve_device(device)
+    T, arr, sky, beam, freqs = build_sky_beam(
+        bt, hexN, nside, nfreq, fmax, 0.5, True, device, dtype,
+        np.random.default_rng(seed), amp=amp)
+    sim_bls = [r[0] for r in arr.reds if r[0][0] != r[0][1]]
+    times = 2458168.3 + np.arange(ntime) * 5e-4
+    rime = bt.RIME(sky, T, beam, arr, sim_bls, times, freqs,
+                   data_bls=arr.get_bls(keep_autos=False),
+                   pix_chunk=pix_chunk)
+    gains = np.zeros((1, 1, len(arr.ants), 1, nfreq, 2))
+    gains[..., 0] = 1.0
+    cal = bt.JonesModel(gains, arr.ants, refant=arr.ants[0],
+                        R=bt.JonesResponse(param_type="com"), device=device,
+                        dtype=dtype)
+    seq = bt.Sequential({"rime": rime, "cal": cal})
+    truth = cal_truth(arr.ants, arr.to_antpos().asnumpy(), nfreq, ant_sigma,
+                      gain_sigma)
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    with torch.no_grad():
+        data = seq.updated(bt.ParamDict({
+            k: torch.as_tensor(v, dtype=dtype, device=device)
+            for k, v in truth.items()}))().data
+        for part in (data.real, data.imag):
+            part += np.sqrt(0.5) * torch.randn(
+                data.shape, generator=gen, dtype=dtype, device=device)
+    tgt = bt.VisData()
+    tgt.setup_meta(T, arr.to_antpos())
+    tgt.setup_data(rime.data_bls, times, freqs, pol="ee", data=data,
+                   icov=torch.ones(data.shape, dtype=dtype, device=device))
+    return bt.LogProb(seq, tgt), truth
+
+
+def first_step_H0(bt, torch, grads, steps):
+    """Diagonal starting inverse Hessian for LBFGS: each parameter block
+    k gets steps[k] / max|g_k|, so the first trial step (lr = 1) moves
+    that block by at most steps[k]."""
+    return bt.DiagMat(bt.ParamDict({
+        k: torch.full_like(g, steps[k] / float(g.abs().max()))
+        for k, g in grads.items()}).ravel())
+
+
 def rand_case(rng, R, K, N, ps_real):
     ps = rng.standard_normal((R, K))
     if not ps_real:
@@ -139,29 +237,45 @@ def cuda_ms(torch, fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def kernel_bound_ms(R, K, N, ps_real, out_imag):
-    """Least time for one call: each input read once and each output
-    written once at the memory rate, against the contraction's FP32
-    multiply-adds at the FP32 rate (the phasor evaluation is left out,
-    so this is a lower bound)."""
-    fma = (1 if ps_real else 2) * (2 if out_imag else 1)
-    flops = 2.0 * fma * R * K * N
-    nbytes = 4.0 * (R * K * (1 if ps_real else 2) + K * N
-                    + R * N * (2 if out_imag else 1))
+def bound_ms(flops, nbytes):
+    """The larger of operations at the FP32 rate and bytes at the memory
+    rate, in ms, and which of the two it is."""
     t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), \
         ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def profile_step(torch, trainer):
-    """One more step under torch.profiler: device time by kernel and the
-    device's busy share of the step's wall time."""
+def kernel_bound_ms(R, K, N, ps_real, out_imag):
+    """Least time for one rime_fwd call: each input read once and each
+    output written once at the memory rate, against the contraction's
+    FP32 multiply-adds at the FP32 rate (the phasor evaluation is left
+    out, so this is a lower bound)."""
+    fma = (1 if ps_real else 2) * (2 if out_imag else 1)
+    return bound_ms(2.0 * fma * R * K * N,
+                    4.0 * (R * K * (1 if ps_real else 2) + K * N
+                           + R * N * (2 if out_imag else 1)))
+
+
+def dtau_bound_ms(R, K, N, ps_real):
+    """Least time for one rime_dtau call, by the same rule: per (r, c, n)
+    triple the contraction p Im(u E) costs 3 FP32 multiply-adds for real
+    ps and 6 for complex ps (u p is a complex product); bytes are ct
+    (complex), ps, tauT and the real output once each."""
+    fma = 3 if ps_real else 6
+    return bound_ms(2.0 * fma * R * K * N,
+                    4.0 * (2 * R * N + R * K * (1 if ps_real else 2)
+                           + 2 * K * N))
+
+
+def profile(torch, fn, label):
+    """Run fn once under torch.profiler: device time by kernel and the
+    device's busy share of the wall time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        trainer.step()
+        fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
     # device-side events only (CPU ops also carry their kernels' time)
@@ -172,15 +286,264 @@ def profile_step(torch, trainer):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     if not rows:
-        print("phase 4 profile: the profiler saw no device time (not "
-              "measured)", flush=True)
-        return
-    print(f"phase 4 profile: step wall {wall * 1e3:.1f} ms under the "
-          f"profiler, device busy {busy:.2f} ms ({busy / (wall * 1e3):.1%} "
-          f"of wall), {len(rows)} kernel names", flush=True)
-    for ms, n, key in rows[:10]:
-        print(f"phase 4 profile:   {ms:9.3f} ms {n:5d}x {key[:90]}",
+        print(f"{label}: the profiler saw no device time (not measured)",
               flush=True)
+        return
+    print(f"{label}: wall {wall * 1e3:.1f} ms under the profiler, device "
+          f"busy {busy:.2f} ms ({busy / (wall * 1e3):.1%} of wall), "
+          f"{len(rows)} kernel names", flush=True)
+    for ms, n, key in rows[:10]:
+        print(f"{label}:   {ms:9.3f} ms {n:5d}x {key[:90]}", flush=True)
+
+
+def phase_fwd_vs_plain(torch, rime_cuda, dev, rng, f0, df):
+    """Phase 2; returns the worst abs error by shape label."""
+    shapes = [("small", 5, 2 * 5, 300, 70),       # nf=5: rows wrap in runs
+              ("small", 24, 3 * 24, 100, 45),
+              ("hera-fwd", 1024, 1024, 6144, 630),
+              ("hera-bwd", 1024, 1024, 630, 6144)]
+    worst = {}
+    for label, nf, R, K, N in shapes:
+        for ps_real in (True, False):
+            ps, tauT = rand_case(rng, R, K, N, ps_real)
+            ps32 = torch.as_tensor(ps, dtype=torch.float32 if ps_real
+                                   else torch.complex64, device=dev)
+            tau32 = torch.as_tensor(tauT, dtype=torch.float32, device=dev)
+            for conj in (False, True):
+                for out_imag in (True, False):
+                    a = rime_cuda.rime_fwd(ps32, tau32, f0, df, nf, conj,
+                                           out_imag)
+                    b = rime_cuda.rime_fwd_plain(
+                        ps32.to(torch.complex128 if not ps_real
+                                else torch.float64),
+                        tau32.double(), f0, df, nf, conj, out_imag)
+                    torch.cuda.synchronize()
+                    a, b = a.cpu().numpy(), b.cpu().numpy()
+                    err = relerr(a, b)
+                    abs_err = float(np.abs(a - b).max())
+                    case = (f"{label} R={R} K={K} N={N} nf={nf} "
+                            f"ps_real={ps_real} conj={conj} "
+                            f"out_imag={out_imag}")
+                    print(f"phase 2 rime_fwd vs plain: {case}: rel "
+                          f"{err:.2e} (tol {TOL:g}) abs {abs_err:.2e}",
+                          flush=True)
+                    check(np.isfinite(err) and err <= TOL,
+                          f"rime_fwd vs plain {case}: {err:.2e}")
+                    worst[label] = max(worst.get(label, 0.0), abs_err)
+    return worst
+
+
+def phase_dtau_vs_plain(torch, rime_cuda, dev, rng, f0, df):
+    """Phase 3; returns the worst abs error at the hera-cal shape."""
+    shapes = [("small", 5, 2 * 5, 300, 70),       # nf=5: rows wrap
+              ("small", 24, 3 * 24, 100, 45),
+              ("hera-cal", 1024, 1024, 6144, 630)]
+    worst = 0.0
+    for label, nf, R, K, N in shapes:
+        for ps_real in (True, False):
+            ps, tauT = rand_case(rng, R, K, N, ps_real)
+            ct = rng.standard_normal((R, N)) + 1j * rng.standard_normal((R, N))
+            ps32 = torch.as_tensor(ps, dtype=torch.float32 if ps_real
+                                   else torch.complex64, device=dev)
+            tau32 = torch.as_tensor(tauT, dtype=torch.float32, device=dev)
+            ct32 = torch.as_tensor(ct, dtype=torch.complex64, device=dev)
+            for conj in (False, True):
+                a = rime_cuda.rime_dtau(ct32, ps32, tau32, f0, df, nf, conj)
+                b = rime_cuda.rime_dtau_plain(
+                    ct32.to(torch.complex128),
+                    ps32.to(torch.complex128 if not ps_real
+                            else torch.float64),
+                    tau32.double(), f0, df, nf, conj)
+                torch.cuda.synchronize()
+                a, b = a.cpu().numpy(), b.cpu().numpy()
+                err = relerr(a, b)
+                abs_err = float(np.abs(a - b).max())
+                case = (f"{label} R={R} K={K} N={N} nf={nf} "
+                        f"ps_real={ps_real} conj={conj}")
+                print(f"phase 3 rime_dtau vs plain: {case}: rel {err:.2e} "
+                      f"(tol {TOL:g}) abs {abs_err:.2e}", flush=True)
+                check(a.shape == (K, N) and np.isfinite(err) and err <= TOL,
+                      f"rime_dtau vs plain {case}: {err:.2e}")
+                if label == "hera-cal":
+                    worst = max(worst, abs_err)
+    return worst
+
+
+def phase_function(torch, rime_cuda, dev, rng, f0, df):
+    """Phase 4: RimeFusedBS on the card vs the CPU float64 plain path."""
+    nf, npx, nb = 16, 700, 37
+    for ps_real in (True, False):
+        for conj in (False, True):
+            ps, _ = rand_case(rng, 2 * nf, npx, 1, ps_real)
+            blvecs = rng.uniform(-30, 30, (nb, 3))
+            s = rng.standard_normal((3, npx))
+            s_c = s / np.linalg.norm(s, axis=0) / 2.99792458e8
+            d = rng.standard_normal((2 * nf, nb)) * 10
+            res = []
+            for device, rdt in ((dev, torch.float32), ("cpu", torch.float64)):
+                cdt = torch.complex64 if rdt == torch.float32 \
+                    else torch.complex128
+                args = [torch.as_tensor(x, dtype=dt, device=device)
+                        .requires_grad_(True) for x, dt in (
+                            (ps, rdt if ps_real else cdt), (blvecs, rdt),
+                            (s_c, rdt))]
+                out = rime_cuda.rime_fused_bs(*args, f0, df, nf, conj)
+                loss = torch.sum(torch.abs(out - torch.as_tensor(
+                    d, dtype=rdt, device=device)) ** 2)
+                loss.backward()
+                res.append([out.detach().cpu().numpy()]
+                           + [a.grad.cpu().numpy() for a in args])
+            errs = [relerr(a, b) for a, b in zip(*res)]
+            print(f"phase 4 autograd Function: ps_real={ps_real} "
+                  f"conj={conj}: value rel {errs[0]:.2e}, psky grad rel "
+                  f"{errs[1]:.2e}, blvecs grad rel {errs[2]:.2e}, s_c grad "
+                  f"rel {errs[3]:.2e} (tol {TOL:g})", flush=True)
+            check(all(e <= TOL for e in errs), "autograd Function vs plain")
+
+
+def phase_hera_stat(bt, torch, rime_cuda, pix_chunks):
+    """Phase 5: main path 1 at full width. Returns (rime, sim_bls,
+    launches)."""
+    t0 = time.time()
+    prob, sim_bls = build_posterior(bt, stat=True, device=None,
+                                    dtype=torch.float32, **HERA)
+    rime = prob.model
+    torch.cuda.synchronize()
+    print(f"phase 5 hera-stat build: {len(rime.array.ants)} antennas, "
+          f"{len(sim_bls)} redundant groups, {rime.Nfreqs} freqs, "
+          f"{len(rime.times)} times, {rime.Npix_cut} FOV pixels; "
+          f"{time.time() - t0:.1f} s", flush=True)
+    trainer = bt.Trainer(prob, lr=1e-3)
+    torch.cuda.reset_peak_memory_stats()
+    nchunks = len(pix_chunks(len(sim_bls), rime.Npix_cut))
+    expect = 3 * 2 * len(rime.times) * nchunks
+    rime_cuda.launches = rime_cuda.dtau_launches = 0
+    losses, step_s = [], []
+    for _ in range(3):
+        t1 = time.time()
+        loss = trainer.step()
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t1)
+        losses.append(float(loss))
+    launches = rime_cuda.launches
+    dtau = rime_cuda.dtau_launches
+    print(f"phase 5 hera-stat main path: losses {losses}; step wall first "
+          f"{step_s[0] * 1e3:.1f} ms, median of 3 "
+          f"{np.median(step_s) * 1e3:.1f} ms (steps {step_s}); rime_fwd "
+          f"launches {launches} (expected {expect}), rime_dtau launches "
+          f"{dtau} (expected 0: antenna positions are fixed); peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    check(all(np.isfinite(losses)), "non-finite hera-stat loss")
+    check(launches == expect, f"launch count {launches} != {expect}")
+    check(dtau == 0, f"hera-stat launched rime_dtau {dtau} times")
+    profile(torch, trainer.step, "phase 5 profile of one step")
+    return rime, sim_bls, launches
+
+
+def phase_hera_cal(bt, torch, rime_cuda, pix_chunks, size=HERA):
+    """Phase 6: main path 2, at full width unless given another size.
+    Returns (launches of rime_fwd, launches of rime_dtau)."""
+    t0 = time.time()
+    prob, truth = build_cal(bt, device=None, dtype=torch.float32, **size)
+    seq = prob.model
+    rime = seq.rime
+    nsim, ndata = len(rime.sim_bls), len(rime.data_bls)
+    nparams = sum(p.numel() for p in seq.parameters())
+    torch.cuda.synchronize()
+    print(f"phase 6 hera-cal build: {len(rime.array.ants)} antennas, "
+          f"{nsim} redundant groups simulated, expanded to {ndata} data "
+          f"baselines, {rime.Nfreqs} freqs, {len(rime.times)} times, "
+          f"{rime.Npix_cut} FOV pixels, {nparams} trainable parameters "
+          f"(antenna positions and gains); target {tuple(prob.target.data.shape)} "
+          f"{prob.target.data.dtype}; {time.time() - t0:.1f} s", flush=True)
+    start = {k: v.detach().clone() for k, v in seq.named_parameters()}
+
+    def ant_rms(av):
+        d = av.detach().cpu().double().numpy() - truth[ANTVECS]
+        return float(np.sqrt(np.mean(d[:, :2] ** 2)))
+    # starting inverse Hessian from the gradient at the start: the first
+    # trial step moves antennas by at most 1 mm and gains by at most 1e-3
+    loss0, g0 = prob.value_and_grad()
+    steps = {ANTVECS: 1e-3, GAINS: 1e-3}
+    opt = bt.LBFGS(prob, H0=first_step_H0(bt, torch, g0, steps))
+    nchunks = len(pix_chunks(nsim, rime.Npix_cut))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rime_cuda.launches = rime_cuda.dtau_launches = 0
+    losses, step_s, evals = [], [], []
+    for _ in range(3):
+        t1 = time.time()
+        losses.append(float(opt.step()))
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t1)
+        evals.append(opt.func_evals)
+    fwd, dtau = rime_cuda.launches, rime_cuda.dtau_launches
+    expect = len(rime.times) * nchunks * opt.func_evals
+    av = seq.rime.array.antvecs.detach()
+    moved = float((av - start[ANTVECS]).abs().max())
+    print(f"phase 6 hera-cal main path: L-BFGS (strong Wolfe, lr 1, H0 a "
+          f"DiagMat giving a first trial step of at most {steps[ANTVECS] * 1e3:g} "
+          f"mm for antennas and {steps[GAINS]:g} for gains): start loss "
+          f"{float(loss0)}, losses {losses}; step walls {step_s} s; "
+          f"function evaluations after each step {evals}; rime_fwd launches "
+          f"{fwd}, rime_dtau launches {dtau} (each expected {len(rime.times)} "
+          f"times x {nchunks} chunks x {opt.func_evals} evaluations = "
+          f"{expect}); antennas moved at most {moved * 1e3:.3f} mm, E/N rms "
+          f"error vs truth {ant_rms(start[ANTVECS]) * 1e3:.3f} -> "
+          f"{ant_rms(av) * 1e3:.3f} mm; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    check(np.isfinite(float(loss0)) and all(np.isfinite(losses)),
+          "non-finite hera-cal loss")
+    check(losses[-1] < float(loss0), "hera-cal loss did not decrease")
+    check(torch.cuda.max_memory_allocated() < 10 * 2**30,
+          "hera-cal step took 10 GiB or more of device memory")
+    check(fwd == expect and dtau == expect,
+          f"hera-cal launches rime_fwd {fwd}, rime_dtau {dtau} != {expect}")
+    profile(torch, prob.value_and_grad,
+            "phase 6 profile of one function evaluation")
+    return fwd, dtau
+
+
+def phase_small(bt, torch, rime_cuda, dev):
+    """Phase 7: small posteriors, card (float32) vs CPU (float64)."""
+    kw = dict(hexN=2, nside=8, nfreq=8, fmax=120e6, ntime=2, stat=False,
+              pix_chunk=512)
+    cpu_prob, _ = build_posterior(bt, device="cpu", dtype=torch.float64, **kw)
+    gpu_prob, _ = build_posterior(bt, device=dev, dtype=torch.float32, **kw)
+    gpu_prob.target.data = cpu_prob.target.data.to(torch.complex64).to(dev)
+    prng = np.random.default_rng(1)
+    pert = {k: v.detach().numpy() * (1 + 0.2 * prng.standard_normal(v.shape))
+            for k, v in cpu_prob.collect_main_params().items()}
+    # (label, CPU prob, card prob, parameters, antenna positions train)
+    pairs = [("sky/beam posterior", cpu_prob, gpu_prob, pert, False)]
+
+    # the hera-cal chain at hex-2: truth 5 cm / 10 % away from the start
+    kw = dict(hexN=2, nside=8, nfreq=8, fmax=120e6, ntime=2, pix_chunk=512,
+              ant_sigma=0.05, gain_sigma=0.1)
+    cpu_cal, _ = build_cal(bt, device="cpu", dtype=torch.float64, **kw)
+    gpu_cal, _ = build_cal(bt, device=dev, dtype=torch.float32, **kw)
+    gpu_cal.target.data = cpu_cal.target.data.to(torch.complex64).to(dev)
+    start = {k: v.detach().numpy() for k, v in
+             cpu_cal.collect_main_params().items()}
+    pairs.append(("hera-cal chain", cpu_cal, gpu_cal, start, True))
+    for label, cpu, gpu, params, antpos in pairs:
+        bt.load_numpy_pdict(cpu.model, params)
+        bt.load_numpy_pdict(gpu.model, params)
+        rime_cuda.launches = rime_cuda.dtau_launches = 0
+        vg, gg = gpu.value_and_grad()
+        n = (rime_cuda.launches, rime_cuda.dtau_launches)
+        check(n[0] > 0 and (n[1] > 0) == antpos,
+              f"small {label}: launches rime_fwd {n[0]}, rime_dtau {n[1]}")
+        vc, gc = cpu.value_and_grad()
+        errs = {"loss": abs(float(vg) - float(vc)) / abs(float(vc))}
+        errs.update({k: relerr(gg[k].cpu().numpy(), gc[k].numpy())
+                     for k in gc})
+        print(f"phase 7 card vs CPU, {label} (launches rime_fwd {n[0]}, "
+              f"rime_dtau {n[1]}): " + ", ".join(
+                  f"{k} rel {v:.2e}" for k, v in errs.items())
+              + f" (tol {TOL:g})", flush=True)
+        check(all(v <= TOL for v in errs.values()), f"card vs CPU {label}")
 
 
 def main():
@@ -196,8 +559,7 @@ def main():
     sys.path.insert(0, ROOT)
     import bayeslim_tpu_torch as bt
     from bayeslim_tpu_torch.ops import rime_cuda
-    from bayeslim_tpu_torch.ops.rime_cuda import (rime_fwd, rime_fwd_plain,
-                                                  rime_fused_bs, _pix_chunks)
+    from bayeslim_tpu_torch.ops.rime_cuda import _pix_chunks
 
     dev = torch.device("cuda")
     card = smi()
@@ -213,130 +575,17 @@ def main():
               f"nvcc {secs:.1f} s; {' | '.join(regs)}", flush=True)
     print(f"phase 1 build total {time.time() - t0:.1f} s", flush=True)
 
-    # ---- 2. kernel vs plain float64 of the same float32 inputs
     f0, df = 100e6, 100e6 / 1023
     rng = np.random.default_rng(0)
-    shapes = [("small", 5, 2 * 5, 300, 70),       # nf=5: rows wrap in runs
-              ("small", 24, 3 * 24, 100, 45),
-              ("hera-fwd", 1024, 1024, 6144, 630),
-              ("hera-bwd", 1024, 1024, 630, 6144)]
-    worst = {}
-    for label, nf, R, K, N in shapes:
-        for ps_real in (True, False):
-            ps, tauT = rand_case(rng, R, K, N, ps_real)
-            ps32 = torch.as_tensor(ps, dtype=torch.float32 if ps_real
-                                   else torch.complex64, device=dev)
-            tau32 = torch.as_tensor(tauT, dtype=torch.float32, device=dev)
-            for conj in (False, True):
-                for out_imag in (True, False):
-                    a = rime_fwd(ps32, tau32, f0, df, nf, conj, out_imag)
-                    b = rime_fwd_plain(
-                        ps32.to(torch.complex128 if not ps_real
-                                else torch.float64),
-                        tau32.double(), f0, df, nf, conj, out_imag)
-                    torch.cuda.synchronize()
-                    a, b = a.cpu().numpy(), b.cpu().numpy()
-                    err = relerr(a, b)
-                    abs_err = float(np.abs(a - b).max())
-                    case = (f"{label} R={R} K={K} N={N} nf={nf} "
-                            f"ps_real={ps_real} conj={conj} "
-                            f"out_imag={out_imag}")
-                    print(f"phase 2 kernel vs plain: {case}: rel "
-                          f"{err:.2e} (tol {TOL:g}) abs {abs_err:.2e}",
-                          flush=True)
-                    check(np.isfinite(err) and err <= TOL,
-                          f"kernel vs plain {case}: {err:.2e}")
-                    worst[label] = max(worst.get(label, 0.0), abs_err)
+    worst_fwd = phase_fwd_vs_plain(torch, rime_cuda, dev, rng, f0, df)
+    worst_dtau = phase_dtau_vs_plain(torch, rime_cuda, dev, rng, f0, df)
+    phase_function(torch, rime_cuda, dev, rng, f0, df)
+    rime, sim_bls, stat_launches = phase_hera_stat(bt, torch, rime_cuda,
+                                                   _pix_chunks)
+    cal_fwd, cal_dtau = phase_hera_cal(bt, torch, rime_cuda, _pix_chunks)
+    phase_small(bt, torch, rime_cuda, dev)
 
-    # ---- 3. autograd Function on the card vs the CPU float64 plain path
-    nf, npx, nb = 16, 700, 37
-    for ps_real in (True, False):
-        for conj in (False, True):
-            ps, _ = rand_case(rng, 2 * nf, npx, 1, ps_real)
-            blvecs = rng.uniform(-30, 30, (nb, 3))
-            s_c = rng.standard_normal((3, npx)) / 2.99792458e8
-            d = rng.standard_normal((2 * nf, nb)) * 10
-            res = []
-            for device, rdt in ((dev, torch.float32), ("cpu", torch.float64)):
-                cdt = torch.complex64 if rdt == torch.float32 \
-                    else torch.complex128
-                p = torch.as_tensor(ps, dtype=rdt if ps_real else cdt,
-                                    device=device).requires_grad_(True)
-                out = rime_fused_bs(
-                    p, torch.as_tensor(blvecs, dtype=rdt, device=device),
-                    torch.as_tensor(s_c, dtype=rdt, device=device),
-                    f0, df, nf, conj)
-                loss = torch.sum(torch.abs(out - torch.as_tensor(
-                    d, dtype=rdt, device=device)) ** 2)
-                loss.backward()
-                res.append((out.detach().cpu().numpy(),
-                            p.grad.cpu().numpy()))
-            ev, eg = relerr(res[0][0], res[1][0]), relerr(res[0][1],
-                                                          res[1][1])
-            print(f"phase 3 autograd Function: ps_real={ps_real} "
-                  f"conj={conj}: value rel {ev:.2e}, psky grad rel "
-                  f"{eg:.2e} (tol {TOL:g})", flush=True)
-            check(ev <= TOL and eg <= TOL, "autograd Function vs plain")
-
-    # ---- 4. the main path at full width: hera-stat, 3 Adam steps
-    t0 = time.time()
-    prob, sim_bls = build_posterior(bt, hexN=11, nside=32, nfreq=1024,
-                                    fmax=200e6, ntime=2, stat=True,
-                                    pix_chunk=2048, device=None,
-                                    dtype=torch.float32)
-    rime = prob.model
-    torch.cuda.synchronize()
-    print(f"phase 4 build: {len(rime.array.ants)} antennas, "
-          f"{len(sim_bls)} redundant groups, {rime.Nfreqs} freqs, "
-          f"{len(rime.times)} times, {rime.Npix_cut} FOV pixels; "
-          f"{time.time() - t0:.1f} s", flush=True)
-    trainer = bt.Trainer(prob, lr=1e-3)
-    torch.cuda.reset_peak_memory_stats()
-    nchunks = len(_pix_chunks(len(sim_bls), rime.Npix_cut))
-    expect = 3 * 2 * len(rime.times) * nchunks
-    rime_cuda.launches = 0
-    losses, step_s = [], []
-    for _ in range(3):
-        t1 = time.time()
-        loss = trainer.step()
-        torch.cuda.synchronize()
-        step_s.append(time.time() - t1)
-        losses.append(float(loss))
-    main_launches = rime_cuda.launches
-    print(f"phase 4 main path: losses {losses}; step wall first "
-          f"{step_s[0] * 1e3:.1f} ms, median of 3 "
-          f"{np.median(step_s) * 1e3:.1f} ms (steps {step_s}); kernel "
-          f"launches {main_launches} (expected {expect}); peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
-          flush=True)
-    check(all(np.isfinite(losses)), "non-finite hera-stat loss")
-    check(main_launches == expect,
-          f"launch count {main_launches} != {expect}")
-    profile_step(torch, trainer)
-
-    # ---- 5. card (float32, kernel) vs CPU (float64, plain) at small shapes
-    kw = dict(hexN=2, nside=8, nfreq=8, fmax=120e6, ntime=2, stat=False,
-              pix_chunk=512)
-    cpu_prob, _ = build_posterior(bt, device="cpu", dtype=torch.float64, **kw)
-    gpu_prob, _ = build_posterior(bt, device=dev, dtype=torch.float32, **kw)
-    gpu_prob.target.data = cpu_prob.target.data.to(torch.complex64).to(dev)
-    prng = np.random.default_rng(1)
-    pert = {k: v.detach().numpy() * (1 + 0.2 * prng.standard_normal(v.shape))
-            for k, v in cpu_prob.collect_main_params().items()}
-    bt.load_numpy_pdict(cpu_prob.model, pert)
-    bt.load_numpy_pdict(gpu_prob.model, pert)
-    rime_cuda.launches = 0
-    vg, gg = gpu_prob.value_and_grad()
-    check(rime_cuda.launches > 0, "small posterior did not launch the kernel")
-    vc, gc = cpu_prob.value_and_grad()
-    errs = {"loss": abs(float(vg) - float(vc)) / abs(float(vc))}
-    errs.update({k: relerr(gg[k].cpu().numpy(), gc[k].numpy()) for k in gc})
-    print("phase 5 card vs CPU: " + ", ".join(
-        f"{k} rel {v:.2e}" for k, v in errs.items()) + f" (tol {TOL:g})",
-        flush=True)
-    check(all(v <= TOL for v in errs.values()), "card vs CPU posterior")
-
-    # ---- 6. times at the main path's shapes and the kernel's bound
+    # ---- 8. times at the main paths' shapes and the kernels' bounds
     R, K, N = rime.Nfreqs, rime.Npix_cut, len(sim_bls)
     timing = []
     for label, (Rr, Kk, Nn), ps_real, conj, out_imag in (
@@ -346,29 +595,54 @@ def main():
         ps32 = torch.as_tensor(ps, dtype=torch.float32 if ps_real
                                else torch.complex64, device=dev)
         tau32 = torch.as_tensor(tauT, dtype=torch.float32, device=dev)
-        ms = cuda_ms(torch, lambda: rime_fwd(ps32, tau32, f0, df, R, conj,
-                                             out_imag), 20)
-        pms = cuda_ms(torch, lambda: rime_fwd_plain(ps32, tau32, f0, df, R,
-                                                    conj, out_imag), 3)
+        ms = cuda_ms(torch, lambda: rime_cuda.rime_fwd(
+            ps32, tau32, f0, df, R, conj, out_imag), 20)
+        pms = cuda_ms(torch, lambda: rime_cuda.rime_fwd_plain(
+            ps32, tau32, f0, df, R, conj, out_imag), 3)
         bms, by = kernel_bound_ms(Rr, Kk, Nn, ps_real, out_imag)
         timing.append((ms, pms, bms, by))
-        print(f"phase 6 times: {label} R={Rr} K={Kk} N={Nn} "
+        print(f"phase 8 times: rime_fwd {label} R={Rr} K={Kk} N={Nn} "
               f"ps_real={ps_real} out_imag={out_imag}: kernel {ms:.4f} ms, "
               f"plain {pms:.3f} ms, bound {bms:.4f} ms ({by}), kernel at "
               f"{bms / ms:.1%} of bound; no single PyTorch call computes "
               f"this fused function, so no library time", flush=True)
-    # the main path launches the two shapes equally often: report the
-    # mean per launch
+    # hera-cal: real ps (a power beam on a Stokes-I sky), conj False
+    ps, tauT = rand_case(rng, R, K, N, True)
+    ct = rng.standard_normal((R, N)) + 1j * rng.standard_normal((R, N))
+    ps32 = torch.as_tensor(ps, dtype=torch.float32, device=dev)
+    tau32 = torch.as_tensor(tauT, dtype=torch.float32, device=dev)
+    ct32 = torch.as_tensor(ct, dtype=torch.complex64, device=dev)
+    dms = cuda_ms(torch, lambda: rime_cuda.rime_dtau(
+        ct32, ps32, tau32, f0, df, R), 20)
+    dpms = cuda_ms(torch, lambda: rime_cuda.rime_dtau_plain(
+        ct32, ps32, tau32, f0, df, R), 3)
+    dbms, dby = dtau_bound_ms(R, K, N, True)
+    print(f"phase 8 times: rime_dtau hera-cal R={R} K={K} N={N} "
+          f"ps_real=True: kernel {dms:.4f} ms, plain {dpms:.3f} ms, bound "
+          f"{dbms:.4f} ms ({dby}), kernel at {dbms / dms:.1%} of bound; no "
+          f"single PyTorch call computes this fused function, so no library "
+          f"time", flush=True)
+
+    # rime_fwd: the two shapes are launched equally often on hera-stat:
+    # report the mean per launch
     mean = [float(np.mean([t[i] for t in timing])) for i in range(3)]
     kernels = [{
         "name": "rime_fwd", "route": "cuda",
         "source": "bayeslim_tpu_torch/csrc/rime_fwd.cu",
         "replaces": "bayeslim_tpu/ops/rime_pallas.py:298",
-        "launches": main_launches,
-        "max_abs_err": max(worst["hera-fwd"], worst["hera-bwd"]),
+        "launches": stat_launches + cal_fwd,
+        "launches_by_path": {"hera-stat": stat_launches, "hera-cal": cal_fwd},
+        "max_abs_err": max(worst_fwd["hera-fwd"], worst_fwd["hera-bwd"]),
         "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[2],
         "bound_by": timing[0][3] if timing[0][3] == timing[1][3]
-        else "operations", "library_ms": None}]
+        else "operations", "library_ms": None}, {
+        "name": "rime_dtau", "route": "cuda",
+        "source": "bayeslim_tpu_torch/csrc/rime_dtau.cu",
+        "replaces": "bayeslim_tpu/ops/rime_pallas.py:693",
+        "launches": cal_dtau,
+        "launches_by_path": {"hera-stat": 0, "hera-cal": cal_dtau},
+        "max_abs_err": worst_dtau, "ms": dms, "plain_ms": dpms,
+        "bound_ms": dbms, "bound_by": dby, "library_ms": None}]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

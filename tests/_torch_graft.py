@@ -1,7 +1,14 @@
-"""The port's counterpart of __graft_entry__._build(): the same small
-posterior (hex array, power-law pixel sky, Airy power beam, RIME,
-LogProb) built through bayeslim_tpu_torch, on the CPU in float64
-unless told otherwise."""
+"""Small posteriors built the same way through both packages.
+
+- build_torch: the port's counterpart of __graft_entry__._build() (hex
+  array, power-law pixel sky, Airy power beam, RIME, LogProb), on the
+  CPU in float64 unless told otherwise;
+- build_cal_torch / build_cal_jax: a small hera-cal chain,
+  Sequential(RIME -> JonesModel) with trainable antenna positions and
+  per-antenna complex gains (real pairs, refant the first antenna), the
+  redundant groups simulated and expanded to every cross baseline, icov
+  ones; cal_truth and cal_target make its truth and noisy target.
+"""
 import numpy as np
 import torch
 
@@ -9,17 +16,14 @@ import bayeslim_tpu_torch as bt
 from bayeslim_tpu_torch.utils import AntposDict, healpix as hp, make_hex
 
 
-def build_torch(Ntimes=2, hexN=2, nfreq=8, nside=8, pix_chunk=512,
-                device="cpu", dtype=torch.float64, use_kernel="auto",
-                target=None):
-    """target: data tensor of the VisData target; default the model's
-    own forward, as _build() does."""
-    loc = (21.428305555, -30.72152777, 1073.0)
-    T = bt.TelescopeModel(loc)
-    ants, antvecs = make_hex(hexN, D=15.0)
-    freqs = np.linspace(100e6, 120e6, nfreq)
-    kw = dict(device=device, dtype=dtype)
-    arr = bt.ArrayModel(AntposDict(ants, antvecs), freqs=freqs, **kw)
+LOC = (21.428305555, -30.72152777, 1073.0)
+# the small hera-cal chain: hex-2, nside 8, 8 frequencies, 2 times
+HEXN, NSIDE, NFREQ, NTIMES, FMAX, PIX_CHUNK = 2, 8, 8, 2, 120e6, 512
+
+
+def _sky_params(nside):
+    """Power-law sky parameters (amplitudes U(1, 10), seed 0; index
+    -2.5), pixel angles [deg] and pixel area."""
     npix = hp.nside2npix(nside)
     theta, phi = hp.pix2ang(nside, np.arange(npix))
     angs = np.stack([phi * 180 / np.pi, 90 - theta * 180 / np.pi])
@@ -27,9 +31,23 @@ def build_torch(Ntimes=2, hexN=2, nfreq=8, nside=8, pix_chunk=512,
     params = np.zeros((1, 1, 2, npix))
     params[0, 0, 0] = rng.uniform(1, 10, npix)
     params[0, 0, 1] = -2.5
+    return params, angs, hp.nside2pixarea(nside)
+
+
+def build_torch(Ntimes=2, hexN=2, nfreq=8, nside=8, pix_chunk=512,
+                device="cpu", dtype=torch.float64, use_kernel="auto",
+                target=None):
+    """target: data tensor of the VisData target; default the model's
+    own forward, as _build() does."""
+    T = bt.TelescopeModel(LOC)
+    ants, antvecs = make_hex(hexN, D=15.0)
+    freqs = np.linspace(100e6, 120e6, nfreq)
+    kw = dict(device=device, dtype=dtype)
+    arr = bt.ArrayModel(AntposDict(ants, antvecs), freqs=freqs, **kw)
+    params, angs, px_area = _sky_params(NSIDE)
     R = bt.PixelSkyResponse(freqs, spatial_mode="pixel",
                             freq_mode="powerlaw", f0=float(freqs[0]), **kw)
-    sky = bt.PixelSky(params, angs, hp.nside2pixarea(nside), R=R, **kw)
+    sky = bt.PixelSky(params, angs, px_area, R=R, **kw)
     beam = bt.PixelBeam(np.ones((1, 1, 1, 1, 2)) * 14.0, freqs,
                         R=bt.AiryResponse(), pol="e", powerbeam=True,
                         fov=180.0, **kw)
@@ -44,3 +62,112 @@ def build_torch(Ntimes=2, hexN=2, nfreq=8, nside=8, pix_chunk=512,
     tgt.setup_meta(T, arr.to_antpos())
     tgt.setup_data(bls, times, freqs, pol="ee", data=target)
     return bt.LogProb(rime, tgt)
+
+
+def _cal_layout(arr):
+    """Redundant-group representatives (sim) and every cross baseline
+    (data)."""
+    sim_bls = [r[0] for r in arr.reds if r[0][0] != r[0][1]]
+    return sim_bls, arr.get_bls(keep_autos=False)
+
+
+def build_cal_torch(target=None, device="cpu", dtype=torch.float64):
+    """target: data of the VisData target (default: the chain's own
+    forward at its starting parameters)."""
+    ants, antvecs = make_hex(HEXN, D=15.0)
+    freqs = np.linspace(100e6, FMAX, NFREQ)
+    kw = dict(device=device, dtype=dtype)
+    T = bt.TelescopeModel(LOC)
+    arr = bt.ArrayModel(AntposDict(ants, antvecs), freqs=freqs, redtol=0.5,
+                        parameter=True, **kw)
+    params, angs, px_area = _sky_params(NSIDE)
+    R = bt.PixelSkyResponse(freqs, spatial_mode="pixel",
+                            freq_mode="powerlaw", f0=float(freqs[0]), **kw)
+    sky = bt.PixelSky(params, angs, px_area, R=R, parameter=False, **kw)
+    beam = bt.PixelBeam(np.ones((1, 1, 1, 1, 2)) * 14.0, freqs,
+                        R=bt.AiryResponse(), pol="e", powerbeam=True,
+                        fov=180.0, parameter=False, **kw)
+    sim_bls, data_bls = _cal_layout(arr)
+    times = 2458168.3 + np.arange(NTIMES) * 5e-4
+    rime = bt.RIME(sky, T, beam, arr, sim_bls, times, freqs,
+                   data_bls=data_bls, pix_chunk=PIX_CHUNK)
+    gains = np.zeros((1, 1, len(ants), 1, NFREQ, 2))
+    gains[..., 0] = 1.0
+    cal = bt.JonesModel(gains, ants, refant=ants[0],
+                        R=bt.JonesResponse(param_type="com"), **kw)
+    seq = bt.Sequential({"rime": rime, "cal": cal})
+    cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
+    if target is None:
+        with torch.no_grad():
+            target = seq().data
+    target = torch.as_tensor(target, dtype=cdt, device=device)
+    tgt = bt.VisData()
+    tgt.setup_meta(T, arr.to_antpos())
+    tgt.setup_data(rime.data_bls, times, freqs, pol="ee", data=target,
+                   icov=torch.ones(target.shape, dtype=dtype, device=device))
+    return bt.LogProb(seq, tgt)
+
+
+def build_cal_jax(target):
+    """The same chain through the JAX package (float64 under the test
+    configuration), against a numpy target."""
+    import jax.numpy as jnp
+    import bayeslim_tpu as bl
+    from bayeslim_tpu.models.calibration import JonesModel, JonesResponse
+    from bayeslim_tpu.models.sky import PixelSky, PixelSkyResponse
+    from bayeslim_tpu.utils import AntposDict as JAntposDict
+    from bayeslim_tpu.utils import Sequential, make_hex as jmake_hex
+
+    ants, antvecs = jmake_hex(HEXN, D=15.0)
+    freqs = np.linspace(100e6, FMAX, NFREQ)
+    T = bl.TelescopeModel(LOC)
+    arr = bl.ArrayModel(JAntposDict(ants, antvecs), freqs=freqs, redtol=0.5,
+                        parameter=True)
+    params, angs, px_area = _sky_params(NSIDE)
+    R = PixelSkyResponse(freqs, spatial_mode="pixel", freq_mode="powerlaw",
+                         f0=float(freqs[0]))
+    sky = PixelSky(jnp.asarray(params), angs, px_area, R=R, parameter=False)
+    beam = bl.PixelBeam(jnp.ones((1, 1, 1, 1, 2)) * 14.0, freqs,
+                        R=bl.beam_model.AiryResponse(), pol="e",
+                        powerbeam=True, fov=180.0, parameter=False)
+    sim_bls, data_bls = _cal_layout(arr)
+    times = 2458168.3 + np.arange(NTIMES) * 5e-4
+    rime = bl.RIME(sky, T, beam, arr, sim_bls, times, freqs,
+                   data_bls=data_bls, pix_chunk=PIX_CHUNK)
+    gains = np.zeros((1, 1, len(ants), 1, NFREQ, 2))
+    gains[..., 0] = 1.0
+    cal = JonesModel(jnp.asarray(gains), ants, refant=ants[0],
+                     R=JonesResponse(param_type="com"))
+    seq = Sequential({"rime": rime, "cal": cal})
+    tgt = bl.VisData()
+    tgt.setup_meta(T, arr.to_antpos())
+    tgt.setup_data(rime.data_bls, times, freqs, pol="ee",
+                   data=jnp.asarray(target),
+                   icov=jnp.ones(np.shape(target)))
+    return bl.inference.LogProb(seq, tgt)
+
+
+def cal_truth(antvecs, seed=1):
+    """Truth parameters: antenna positions moved by N(0, 1 cm) in E and
+    N, gains 1 + 0.05 (N + iN) as real pairs."""
+    rng = np.random.default_rng(seed)
+    antvecs = np.array(antvecs, dtype=np.float64)
+    antvecs[:, :2] += 0.01 * rng.standard_normal((len(antvecs), 2))
+    gains = np.zeros((1, 1, len(antvecs), 1, NFREQ, 2))
+    gains[..., 0] = 1.0 + 0.05 * rng.standard_normal(gains.shape[:-1])
+    gains[..., 1] = 0.05 * rng.standard_normal(gains.shape[:-1])
+    return {"models.rime.array.antvecs": antvecs, "models.cal.params": gains}
+
+
+def cal_target(prob, truth, noise=0.01, seed=2):
+    """numpy target: the chain's forward at the truth parameters plus
+    complex noise of the given fraction of the visibilities' rms."""
+    pd = bt.ParamDict({k: torch.as_tensor(v, dtype=prob.model.models.cal
+                                          .params.dtype)
+                       for k, v in truth.items()})
+    with torch.no_grad():
+        vis = prob.model.updated(pd)().data.numpy()
+    rng = np.random.default_rng(seed)
+    rms = np.sqrt(np.mean(np.abs(vis) ** 2))
+    return vis + noise * rms * (rng.standard_normal(vis.shape)
+                                + 1j * rng.standard_normal(vis.shape))

@@ -1,5 +1,5 @@
-"""The port's CUDA kernel on the card. Every test skips without an
-NVIDIA GPU (the kernel has no CPU mode). This file imports neither JAX
+"""The port's CUDA kernels on the card. Every test skips without an
+NVIDIA GPU (the kernels have no CPU mode). This file imports neither JAX
 nor the JAX package, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -17,7 +17,7 @@ F0, DF = 100e6, 20e6 / 7
 @pytest.fixture()
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode "
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode "
                     "(chip_smoke.py runs it on the card)")
     return torch.device("cuda")
 
@@ -84,6 +84,60 @@ def test_fused_function_backward_on_card(cuda, ps_real):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ps_real", [True, False])
+@pytest.mark.parametrize("nf,R,K,N", [(5, 10, 300, 70), (24, 72, 100, 45)])
+def test_dtau_kernel_vs_plain(cuda, ps_real, nf, R, K, N):
+    ps, tauT = _case(3, R, K, N, ps_real)
+    rng = np.random.default_rng(4)
+    ct = rng.standard_normal((R, N)) + 1j * rng.standard_normal((R, N))
+    cps = torch.as_tensor(ps, dtype=torch.float32 if ps_real
+                          else torch.complex64, device=cuda)
+    ctau = torch.as_tensor(tauT, dtype=torch.float32, device=cuda)
+    cct = torch.as_tensor(ct, dtype=torch.complex64, device=cuda)
+    for conj in (False, True):
+        n0 = rime_cuda.dtau_launches
+        a = rime_cuda.rime_dtau(cct, cps, ctau, F0, DF, nf, conj)
+        assert rime_cuda.dtau_launches == n0 + 1
+        assert a.dtype == torch.float32 and a.shape == (K, N)
+        b = rime_cuda.rime_dtau_plain(
+            cct.cpu().to(torch.complex128),
+            cps.cpu().to(torch.float64 if ps_real else torch.complex128),
+            ctau.cpu().double(), F0, DF, nf, conj)
+        assert _relerr(a.cpu().numpy(), b.numpy()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps_real", [True, False])
+@pytest.mark.parametrize("conj", [False, True])
+def test_fused_function_delay_grads_on_card(cuda, ps_real, conj):
+    """The blvecs and s_c gradients of RimeFusedBS through rime_dtau
+    (float32) against the CPU plain path (float64)."""
+    nf, npx, nb = 16, 300, 20
+    ps, _ = _case(5, 2 * nf, npx, 1, ps_real)
+    rng = np.random.default_rng(6)
+    blvecs = rng.uniform(-30, 30, (nb, 3))
+    s = rng.standard_normal((3, npx))
+    s_c = s / np.linalg.norm(s, axis=0) / C_MS
+    d = rng.standard_normal((2 * nf, nb)) * 5
+    res = []
+    for dev, rdt, cdt in ((cuda, torch.float32, torch.complex64),
+                          ("cpu", torch.float64, torch.complex128)):
+        p = torch.as_tensor(ps, dtype=rdt if ps_real else cdt, device=dev)
+        bv, sc = (torch.as_tensor(x, dtype=rdt, device=dev)
+                  .requires_grad_(True) for x in (blvecs, s_c))
+        n0 = rime_cuda.dtau_launches
+        out = rime_cuda.rime_fused_bs(p, bv, sc, F0, DF, nf, conj)
+        loss = torch.sum(torch.abs(out - torch.as_tensor(
+            d, dtype=rdt, device=dev)) ** 2)
+        res.append([g.cpu().numpy() for g in torch.autograd.grad(
+            loss, (bv, sc))])
+        if dev == cuda:
+            assert rime_cuda.dtau_launches == n0 + 1
+    assert _relerr(res[0][0], res[1][0]) <= 1e-4
+    assert _relerr(res[0][1], res[1][1]) <= 1e-4
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda):
     ps = torch.zeros(8, 4, device=cuda)
     tau = torch.zeros(4, 3, device=cuda)
@@ -93,10 +147,12 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         rime_cuda.rime_fwd(ps, tau, F0, DF, 3)          # 8 rows, nf=3
     with pytest.raises(ValueError):
         rime_cuda.rime_fwd(ps, tau.cpu(), F0, DF, 8)
-    # tau-cotangent kernel (trainable antenna positions) not ported yet
-    bv = torch.ones(3, 3, device=cuda, requires_grad=True)
-    out = rime_cuda.rime_fused_bs(ps.clone().requires_grad_(True), bv,
-                                  torch.ones(3, 4, device=cuda) / C_MS,
-                                  F0, DF, 8)
-    with pytest.raises(NotImplementedError, match="_dtau_kernel"):
-        out.abs().sum().backward()
+    ct = torch.zeros(8, 3, dtype=torch.complex64, device=cuda)
+    with pytest.raises(TypeError):
+        rime_cuda.rime_dtau(ct.to(torch.complex128), ps, tau, F0, DF, 8)
+    with pytest.raises(ValueError):
+        rime_cuda.rime_dtau(ct, ps, tau, F0, DF, 3)     # 8 rows, nf=3
+    with pytest.raises(ValueError):
+        rime_cuda.rime_dtau(ct[:, :2], ps, tau, F0, DF, 8)
+    with pytest.raises(ValueError):
+        rime_cuda.rime_dtau(ct.cpu(), ps, tau, F0, DF, 8)

@@ -115,6 +115,7 @@ def test_port_never_imports_jax():
     lambda: bt.PixelBeam(np.ones((1, 1, 1, 1, 2)), np.ones(2)),
     lambda: bt.PixelSky(np.ones((1, 1, 2, 3)), np.ones((2, 3)), 1.0,
                         R=None),
+    lambda: bt.JonesModel(np.ones((1, 1, 2, 1, 2, 2)), [0, 1]),
 ])
 def test_default_device_is_cuda(make):
     """device=None means CUDA; without a GPU that raises rather than
