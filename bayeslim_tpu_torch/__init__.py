@@ -13,6 +13,9 @@ bayeslim_tpu module for module:
 - data/      : VisData / MapData containers
 - models/    : telescope/array, sky, beam, RIME, Jones gains
 - inference/ : LogProb, the Adam Trainer, BFGS and L-BFGS
+- scripts/   : the microbenchmark spikes of scripts/mosaic_spike.py
+               (not imported here; run python -m
+               bayeslim_tpu_torch.scripts.mosaic_spike on the card)
 
 Device rule: constructors and entry points take device=None, meaning
 "cuda", and raise when no GPU is present; pass device="cpu" to run on

@@ -1,0 +1,403 @@
+// The seven contraction and phasor-rotation microbenchmarks of
+// scripts/mosaic_spike.py as kernels for NVIDIA Hopper (sm_90a).
+//
+// Each kernel computes the function of the TPU kernel of the same name
+// (k_nn :46, k_nt :65, k_vt :84, k_lr :100, k_bd :119, k_rot :147,
+// k_fwd :180), not its TPU block layout: the block-diagonal MXU product
+// of k_bd / k_fwd and the VMEM scratch have no counterpart here. All
+// arrays are float32, row-major and contiguous; sizes follow the script:
+// ps (NF, TC), ct (NF, TB), m and tau (TC, TB).
+//
+//   k_nn   out[j, b] = sum_c ps[j, c] m[c, b]                      (NF, TB)
+//   k_nt   out[j, c] = sum_b ct[j, b] m[c, b]                      (NF, TC)
+//   k_vt   out[c, b] = sum_j ps[j, c] m[c, b], one FMA per j       (TC, TB)
+//   k_lr   as k_nt, by a warp-shuffle reduction over b
+//   k_bd   out[j, b] = (1 + j mod G) sum_c ps[j, c] m[c, b]       (NF, TB)
+//   k_rot  (c, s) <- (c cd - s sd, s cd + c sd) NF times from (m, m/2),
+//          cd = 0.9 m, sd = 0.1 m; out = c + s                     (TC, TB)
+//   k_fwd  out_re/im[k, b] = sum_c ps[k, c] cos/sin(k tau[c, b])   (NF, TB)
+//
+// What bounds their functions on this card (FP32 at 67 TFLOP/s, bytes
+// at 3.35 TB/s): the products k_nn, k_nt, k_lr and k_bd are operations
+// (2 NF TC TB FLOP on ~1.6 MB); k_fwd is operations too, the
+// contraction's two FMAs per (k, c, b). k_vt needs only a column sum
+// and one product, and k_rot's result only ~11 complex products by
+// repeated squaring, so both are bytes. The kernels keep the TPU
+// bodies' loops all the same, as the spikes measure them: NF FMAs per
+// output in k_vt, a dependent chain of NF rotations (6 FLOP each) per
+// element in k_rot, a rotation and two FMAs per triple in k_fwd. Every
+// kernel uses plain FFMA: no TF32, no tensor cores.
+//
+// These are first, simple kernels: one owner thread per output (k_fwd
+// adds its c-slices with atomics), shared-memory tiles where operands
+// are reused, nothing asynchronous.
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+// ---- k_nn, k_nt, k_bd: a tiled FP32 SGEMM. A block computes a 64 x 64
+// tile of C, staging 16-deep slices of A (transposed) and B in shared
+// memory; each of its 256 threads keeps a 4 x 4 register block.
+constexpr int GM = 64, GN = 64, GK = 16, GT = 256;
+
+// C[M, N] = scale_r sum_k A[r, k] B[k, n]; B is stored (N, K) when B_T.
+// scale_r = 1 + (r mod G) for G > 0, else 1.
+template <bool B_T>
+__device__ __forceinline__ void sgemm_tile(
+    const float* __restrict__ A, const float* __restrict__ B,
+    float* __restrict__ C, int M, int N, int K, int G)
+{
+    __shared__ __align__(16) float As[GK][GM + 4];
+    __shared__ __align__(16) float Bs[GK][GN + 4];
+    const int tid = threadIdx.x;
+    const int tx = tid % 16, ty = tid / 16;
+    const int m0 = blockIdx.y * GM, n0 = blockIdx.x * GN;
+    float acc[4][4] = {};
+
+    for (int k0 = 0; k0 < K; k0 += GK) {
+        for (int i = tid; i < GM * GK; i += GT) {
+            const int r = i / GK, kk = i % GK;
+            const int gr = m0 + r, gk = k0 + kk;
+            As[kk][r] = (gr < M && gk < K) ? A[(size_t)gr * K + gk] : 0.f;
+        }
+        for (int i = tid; i < GN * GK; i += GT) {
+            const int kk = B_T ? i % GK : i / GN;
+            const int c = B_T ? i / GK : i % GN;
+            const int gc = n0 + c, gk = k0 + kk;
+            float v = 0.f;
+            if (gc < N && gk < K)
+                v = B_T ? B[(size_t)gc * K + gk] : B[(size_t)gk * N + gc];
+            Bs[kk][c] = v;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int kk = 0; kk < GK; ++kk) {
+            const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
+            const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
+            const float av[4] = {a.x, a.y, a.z, a.w};
+            const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        }
+        __syncthreads();
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int r = m0 + ty * 4 + i;
+        if (r >= M) continue;
+        const float s = G > 0 ? 1.f + (float)(r % G) : 1.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int c = n0 + tx * 4 + j;
+            if (c < N) C[(size_t)r * N + c] = s * acc[i][j];
+        }
+    }
+}
+
+__global__ void __launch_bounds__(GT)
+k_nn(const float* __restrict__ ps, const float* __restrict__ m,
+     float* __restrict__ out, int NF, int TC, int TB)
+{
+    sgemm_tile<false>(ps, m, out, NF, TB, TC, 0);
+}
+
+__global__ void __launch_bounds__(GT)
+k_nt(const float* __restrict__ ct, const float* __restrict__ m,
+     float* __restrict__ out, int NF, int TB, int TC)
+{
+    sgemm_tile<true>(ct, m, out, NF, TC, TB, 0);
+}
+
+__global__ void __launch_bounds__(GT)
+k_bd(const float* __restrict__ ps, const float* __restrict__ m,
+     float* __restrict__ out, int NF, int TC, int TB, int G)
+{
+    sgemm_tile<false>(ps, m, out, NF, TB, TC, G);
+}
+
+// ---- k_vt: one thread per (c, b), NF dependent FMAs; ps[j, c] is the
+// same word for the whole block (a broadcast load).
+constexpr int VT_T = 128;
+
+__global__ void __launch_bounds__(VT_T)
+k_vt(const float* __restrict__ ps, const float* __restrict__ m,
+     float* __restrict__ out, int NF, int TC, int TB)
+{
+    const int b = blockIdx.x * VT_T + threadIdx.x;
+    const int c = blockIdx.y;
+    if (b >= TB) return;
+    const float mv = m[(size_t)c * TB + b];
+    float acc = 0.f;
+#pragma unroll 8
+    for (int j = 0; j < NF; ++j)
+        acc = fmaf(ps[(size_t)j * TC + c], mv, acc);
+    out[(size_t)c * TB + b] = acc;
+}
+
+// ---- k_lr: a block takes one row j and 32 outputs c; each warp owns 4
+// of them, its lanes stride over b (coalesced rows of ct and m) and a
+// butterfly of shuffles sums the lanes.
+constexpr int LR_W = 8, LR_C = 4;
+
+__global__ void __launch_bounds__(LR_W * 32)
+k_lr(const float* __restrict__ ct, const float* __restrict__ m,
+     float* __restrict__ out, int NF, int TB, int TC)
+{
+    const int j = blockIdx.x;
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const int c0 = blockIdx.y * (LR_W * LR_C) + w * LR_C;
+    const float* crow = ct + (size_t)j * TB;
+    float acc[LR_C] = {};
+    for (int b = lane; b < TB; b += 32) {
+        const float x = crow[b];
+#pragma unroll
+        for (int q = 0; q < LR_C; ++q)
+            if (c0 + q < TC)
+                acc[q] = fmaf(x, m[(size_t)(c0 + q) * TB + b], acc[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < LR_C; ++q)
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+            acc[q] += __shfl_xor_sync(0xffffffffu, acc[q], off);
+    if (lane == 0)
+#pragma unroll
+        for (int q = 0; q < LR_C; ++q)
+            if (c0 + q < TC) out[(size_t)j * TC + c0 + q] = acc[q];
+}
+
+// ---- k_rot: one thread per element; the NF-step chain is serial, so
+// the card hides its latency only with many elements in flight.
+constexpr int ROT_T = 256;
+
+__global__ void __launch_bounds__(ROT_T)
+k_rot(const float* __restrict__ m, float* __restrict__ out, int n, int NF)
+{
+    const int i = blockIdx.x * ROT_T + threadIdx.x;
+    if (i >= n) return;
+    const float mv = m[i];
+    const float cd = mv * 0.9f, sd = mv * 0.1f;
+    float c = mv, s = mv * 0.5f;
+    for (int j = 0; j < NF; ++j) {
+        const float cn = c * cd - s * sd;
+        s = s * cd + c * sd;
+        c = cn;
+    }
+    out[i] = c + s;
+}
+
+// ---- k_fwd: the G-chain forward loop. A block owns 32 columns b and
+// 256 rows k, and one slice of c; each thread owns one column and 32
+// consecutive rows k0 .. k0 + 31, its 64 sums in registers. For every c
+// the thread seeds e^{i k0 t} (t = tau[c, b]) with one sincosf of the
+// exactly split product k0 t, fills G chains e^{i (k0 + g) t} by the
+// step D = e^{i t}, and advances all G by D^G = e^{i G t} (G a power of
+// two, so G t is exact) over its 32 / G chain steps: the JAX loop's G
+// independent chains, in registers instead of VMEM. ps tiles are staged
+// transposed in shared memory ([c][k], so a thread reads its rows as
+// float4 broadcasts) and tau tiles along b (coalesced), as
+// rime_fwd.cu stages its tiles. Slices of c run in separate blocks
+// (grid.z) so that the card has enough of them, and add into outputs
+// that the caller zeroed.
+constexpr int FW_TN = 32;              // columns per block (threads in x)
+constexpr int FW_RG = 8;               // row groups per block (threads in y)
+constexpr int FW_RT = 32;              // rows per thread
+constexpr int FW_TR = FW_RG * FW_RT;   // rows per block
+constexpr int FW_TK = 32;              // c tile
+
+template <int G>
+__global__ void __launch_bounds__(FW_TN * FW_RG)
+k_fwd(const float* __restrict__ tau, const float* __restrict__ ps,
+      float* __restrict__ ore, float* __restrict__ oim, int TC, int TB,
+      int NF, int cslice)
+{
+    static_assert(FW_RT % G == 0, "G must divide the rows of a thread");
+    __shared__ __align__(16) float ps_s[FW_TK][FW_TR + 4];
+    __shared__ float tau_s[FW_TK][FW_TN];
+
+    const int tx = threadIdx.x, ty = threadIdx.y;
+    const int tid = ty * FW_TN + tx;
+    const int b = blockIdx.x * FW_TN + tx;
+    const int row0 = blockIdx.y * FW_TR;
+    const int k0 = row0 + ty * FW_RT;
+    const float kf = (float)k0;
+    const int c_begin = blockIdx.z * cslice;
+    const int c_end = min(TC, c_begin + cslice);
+
+    float acc_re[FW_RT], acc_im[FW_RT];
+#pragma unroll
+    for (int r = 0; r < FW_RT; ++r) {
+        acc_re[r] = 0.f;
+        acc_im[r] = 0.f;
+    }
+
+    for (int ct = c_begin; ct < c_end; ct += FW_TK) {
+        for (int i = tid; i < FW_TR * FW_TK; i += FW_TN * FW_RG) {
+            const int rr = i / FW_TK, cc = i % FW_TK;
+            const int r = row0 + rr, c = ct + cc;
+            ps_s[cc][rr] = (r < NF && c < c_end) ? ps[(size_t)r * TC + c]
+                                                 : 0.f;
+        }
+        for (int i = tid; i < FW_TK * FW_TN; i += FW_TN * FW_RG) {
+            const int cc = i / FW_TN, nn = i % FW_TN;
+            const int c = ct + cc, col = blockIdx.x * FW_TN + nn;
+            tau_s[cc][nn] = (c < c_end && col < TB) ? tau[(size_t)c * TB + col]
+                                                    : 0.f;
+        }
+        __syncthreads();
+
+        if (k0 < NF) {                        // uniform over the warp
+            const int kmax = min(FW_TK, c_end - ct);
+            for (int cc = 0; cc < kmax; ++cc) {
+                const float t = tau_s[cc][tx];
+                float s1, c1, sg, cg, s0, c0;
+                sincosf(t, &s1, &c1);
+                sincosf((float)G * t, &sg, &cg);
+                // k0 t = x + xe exactly; e^{i(x + xe)} ~ e^{ix}(1 + i xe)
+                const float x = kf * t;
+                const float xe = fmaf(kf, t, -x);
+                sincosf(x, &s0, &c0);
+                float chc[G], chs[G];
+                chc[0] = fmaf(-s0, xe, c0);
+                chs[0] = fmaf(c0, xe, s0);
+#pragma unroll
+                for (int g = 1; g < G; ++g) {
+                    chc[g] = chc[g - 1] * c1 - chs[g - 1] * s1;
+                    chs[g] = chs[g - 1] * c1 + chc[g - 1] * s1;
+                }
+                const float* prow = &ps_s[cc][ty * FW_RT];
+#pragma unroll
+                for (int j = 0; j < FW_RT / G; ++j) {
+#pragma unroll
+                    for (int g = 0; g < G; ++g) {
+                        const float p = prow[j * G + g];
+                        acc_re[j * G + g] = fmaf(p, chc[g], acc_re[j * G + g]);
+                        acc_im[j * G + g] = fmaf(p, chs[g], acc_im[j * G + g]);
+                    }
+                    if (j + 1 < FW_RT / G) {
+#pragma unroll
+                        for (int g = 0; g < G; ++g) {
+                            const float cn = chc[g] * cg - chs[g] * sg;
+                            chs[g] = chs[g] * cg + chc[g] * sg;
+                            chc[g] = cn;
+                        }
+                    }
+                }
+            }
+        }
+        __syncthreads();
+    }
+
+    if (b < TB) {
+#pragma unroll
+        for (int r = 0; r < FW_RT; ++r) {
+            const int k = k0 + r;
+            if (k < NF) {
+                atomicAdd(&ore[(size_t)k * TB + b], acc_re[r]);
+                atomicAdd(&oim[(size_t)k * TB + b], acc_im[r]);
+            }
+        }
+    }
+}
+
+template <int G>
+void launch_fwd(const float* tau, const float* ps, float* ore, float* oim,
+                int TC, int TB, int NF, int cslice, cudaStream_t s)
+{
+    const dim3 block(FW_TN, FW_RG);
+    const dim3 grid((TB + FW_TN - 1) / FW_TN, (NF + FW_TR - 1) / FW_TR,
+                    (TC + cslice - 1) / cslice);
+    k_fwd<G><<<grid, block, 0, s>>>(tau, ps, ore, oim, TC, TB, NF, cslice);
+}
+
+inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+}  // namespace
+
+// C launchers: each launches on `stream` and returns cudaGetLastError()
+// (0 on success). Shapes as in the header.
+extern "C" int k_nn_launch(const void* ps, const void* m, void* out, int NF,
+                           int TC, int TB, void* stream)
+{
+    k_nn<<<dim3(cdiv(TB, GN), cdiv(NF, GM)), GT, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(ps), static_cast<const float*>(m),
+        static_cast<float*>(out), NF, TC, TB);
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int k_nt_launch(const void* ct, const void* m, void* out, int NF,
+                           int TB, int TC, void* stream)
+{
+    k_nt<<<dim3(cdiv(TC, GN), cdiv(NF, GM)), GT, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(ct), static_cast<const float*>(m),
+        static_cast<float*>(out), NF, TB, TC);
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int k_vt_launch(const void* ps, const void* m, void* out, int NF,
+                           int TC, int TB, void* stream)
+{
+    k_vt<<<dim3(cdiv(TB, VT_T), TC), VT_T, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(ps), static_cast<const float*>(m),
+        static_cast<float*>(out), NF, TC, TB);
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int k_lr_launch(const void* ct, const void* m, void* out, int NF,
+                           int TB, int TC, void* stream)
+{
+    k_lr<<<dim3(NF, cdiv(TC, LR_W * LR_C)), LR_W * 32, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(ct), static_cast<const float*>(m),
+        static_cast<float*>(out), NF, TB, TC);
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int k_bd_launch(const void* ps, const void* m, void* out, int NF,
+                           int TC, int TB, int G, void* stream)
+{
+    k_bd<<<dim3(cdiv(TB, GN), cdiv(NF, GM)), GT, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(ps), static_cast<const float*>(m),
+        static_cast<float*>(out), NF, TC, TB, G);
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int k_rot_launch(const void* m, void* out, int n, int NF,
+                            void* stream)
+{
+    k_rot<<<cdiv(n, ROT_T), ROT_T, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(m), static_cast<float*>(out), n, NF);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// ore and oim must hold zeros; cslice is the number of c per block
+// (grid.z = ceil(TC / cslice)). G is 1, 2, 4, 8, 16 or 32.
+extern "C" int k_fwd_launch(const void* tau, const void* ps, void* ore,
+                            void* oim, int TC, int TB, int NF, int G,
+                            int cslice, void* stream)
+{
+    const float* t = static_cast<const float*>(tau);
+    const float* p = static_cast<const float*>(ps);
+    float* re = static_cast<float*>(ore);
+    float* im = static_cast<float*>(oim);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (G) {
+    case 1: launch_fwd<1>(t, p, re, im, TC, TB, NF, cslice, s); break;
+    case 2: launch_fwd<2>(t, p, re, im, TC, TB, NF, cslice, s); break;
+    case 4: launch_fwd<4>(t, p, re, im, TC, TB, NF, cslice, s); break;
+    case 8: launch_fwd<8>(t, p, re, im, TC, TB, NF, cslice, s); break;
+    case 16: launch_fwd<16>(t, p, re, im, TC, TB, NF, cslice, s); break;
+    case 32: launch_fwd<32>(t, p, re, im, TC, TB, NF, cslice, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
+}

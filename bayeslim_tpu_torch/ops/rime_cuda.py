@@ -29,7 +29,8 @@ one to the other.
 
 The kernels are compiled with nvcc for sm_90a into ``build/kernels/``
 at first use and loaded with ctypes; ``launches`` and ``dtau_launches``
-count their launches.
+count their launches. ``SOURCES`` also lists ``csrc/mosaic_spike.cu``,
+the microbenchmark kernels wrapped by ``scripts/mosaic_spike.py``.
 """
 from __future__ import annotations
 
@@ -50,7 +51,7 @@ from .phase import fringe_cycles
 
 __all__ = ["rime_fwd", "rime_fwd_plain", "rime_dtau", "rime_dtau_plain",
            "rime_fused_bs", "RimeFusedBS", "build", "launches",
-           "dtau_launches", "no_tf32"]
+           "dtau_launches", "no_tf32", "roofline_ms"]
 
 # launches of each CUDA kernel (incremented once per launch, nowhere else)
 launches = 0
@@ -58,7 +59,7 @@ dtau_launches = 0
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("rime_fwd.cu", "rime_dtau.cu")
+SOURCES = ("rime_fwd.cu", "rime_dtau.cu", "mosaic_spike.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _LIB = {}
@@ -118,25 +119,37 @@ def build(sources=SOURCES):
     return out
 
 
-# argument types of each kernel's C launcher (pointers and the stream
-# as c_void_p, so ctypes does not cut them to 32 bits)
+# published H100 SXM peaks (NVIDIA data sheet, at 700 W)
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def roofline_ms(flops, nbytes):
+    """The least time of a call on an H100 SXM, in ms: the larger of its
+    FP32 operations at the FP32 rate and its bytes at the memory rate;
+    and which of the two it is ("operations" or "bytes")."""
+    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), \
+        ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# argument types of the C launchers (pointers and the stream as
+# c_void_p, so ctypes does not cut them to 32 bits)
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_ARGTYPES = {
-    "rime_fwd": [_P, _P, _P, _I, _I, _I, _I, _D, _D, _I, _I, _I, _P],
-    "rime_dtau": [_P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _I, _I, _P],
-}
+_FWD_ARGS = [_P, _P, _P, _I, _I, _I, _I, _D, _D, _I, _I, _I, _P]
+_DTAU_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _I, _I, _P]
 
 
-def _lib(name):
-    """The C launcher ``{name}_launch`` of csrc/{name}.cu, built at
-    first use."""
-    if name not in _LIB:
-        path = build((f"{name}.cu",))[f"{name}.cu"][0]
-        fn = getattr(ctypes.CDLL(str(path)), f"{name}_launch")
-        fn.argtypes = _ARGTYPES[name]
+def _lib(source, symbol, argtypes):
+    """The C launcher ``symbol`` of csrc/``source``, taking ``argtypes``
+    and returning a CUDA error code, built at first use."""
+    if (source, symbol) not in _LIB:
+        path = build((source,))[source][0]
+        fn = getattr(ctypes.CDLL(str(path)), symbol)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _LIB[name] = fn
-    return _LIB[name]
+        _LIB[source, symbol] = fn
+    return _LIB[source, symbol]
 
 
 def rime_fwd(ps, tauT, f0, df, nf, conj=False, out_imag=True):
@@ -166,10 +179,10 @@ def rime_fwd(ps, tauT, f0, df, nf, conj=False, out_imag=True):
     out = torch.empty((R, N), device=ps.device,
                       dtype=torch.complex64 if out_imag else torch.float32)
     stream = torch.cuda.current_stream(ps.device).cuda_stream
-    rc = _lib("rime_fwd")(ps.data_ptr(), tauT.data_ptr(), out.data_ptr(),
-                          R, K, N, int(nf), float(f0), float(df),
-                          int(bool(conj)), int(ps_real), int(bool(out_imag)),
-                          stream)
+    rc = _lib("rime_fwd.cu", "rime_fwd_launch", _FWD_ARGS)(
+        ps.data_ptr(), tauT.data_ptr(), out.data_ptr(), R, K, N, int(nf),
+        float(f0), float(df), int(bool(conj)), int(ps_real),
+        int(bool(out_imag)), stream)
     if rc != 0:
         raise RuntimeError(f"rime_fwd kernel launch failed: CUDA error {rc}")
     launches += 1
@@ -205,10 +218,10 @@ def rime_dtau(ct, ps, tauT, f0, df, nf, conj=False):
     tauT = tauT.contiguous()
     out = torch.empty((K, N), device=ps.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(ps.device).cuda_stream
-    rc = _lib("rime_dtau")(ct.data_ptr(), ps.data_ptr(), tauT.data_ptr(),
-                           out.data_ptr(), R, K, N, int(nf), float(f0),
-                           float(df), int(bool(conj)), int(not ps.is_complex()),
-                           stream)
+    rc = _lib("rime_dtau.cu", "rime_dtau_launch", _DTAU_ARGS)(
+        ct.data_ptr(), ps.data_ptr(), tauT.data_ptr(), out.data_ptr(), R, K,
+        N, int(nf), float(f0), float(df), int(bool(conj)),
+        int(not ps.is_complex()), stream)
     if rc != 0:
         raise RuntimeError(f"rime_dtau kernel launch failed: CUDA error {rc}")
     dtau_launches += 1

@@ -36,7 +36,16 @@ Phases, one line each; any failure exits non-zero:
    the CPU (float64, plain versions): a small sky/beam posterior and
    the hera-cal chain, loss and gradients;
 8. kernel and plain-version times at the main paths' shapes, each
-   kernel's bound, and the JSON line of kernels.
+   kernel's bound;
+9. main path 3, the microbenchmark spikes (bayeslim_tpu_torch/scripts/
+   mosaic_spike.py, the seven kernels of csrc/mosaic_spike.cu): each
+   kernel against its plain version in float64 at the script's sizes
+   and at a size that fills no tile (k_fwd there at every chain count G
+   it is built for); the spike's own entry point, main(), with every
+   kernel's launches counted (exactly 1 + 400 each); the plain
+   versions' times; and
+   k_rot and k_fwd timed at hera-stat's forward shape beside rime_fwd's
+   time there (phase 8). Then the JSON line of all nine kernels.
 
 The last line is {"ok": true, "device": {...}}. Exits non-zero without
 printing a result when no CUDA device or no package is present.
@@ -51,15 +60,15 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-4
-# published H100 SXM peaks (NVIDIA data sheet, at 700 W)
-PEAK_FP32 = 67e12
-PEAK_BYTES = 3.35e12
 LOC = (21.428305555, -30.72152777, 1073.0)
 ANTVECS = "models.rime.array.antvecs"
 GAINS = "models.cal.params"
 # the full-width configuration of both main paths
 HERA = dict(hexN=11, nside=32, nfreq=1024, fmax=200e6, ntime=2,
             pix_chunk=2048)
+# the TPU kernel each spike replaces (scripts/mosaic_spike.py)
+SPIKE_LINES = {"k_nn": 46, "k_nt": 65, "k_vt": 84, "k_lr": 100, "k_bd": 119,
+               "k_rot": 147, "k_fwd": 180}
 
 
 def check(ok, msg):
@@ -237,34 +246,27 @@ def cuda_ms(torch, fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def bound_ms(flops, nbytes):
-    """The larger of operations at the FP32 rate and bytes at the memory
-    rate, in ms, and which of the two it is."""
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), \
-        ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def kernel_bound_ms(R, K, N, ps_real, out_imag):
+def kernel_bound_ms(rime_cuda, R, K, N, ps_real, out_imag):
     """Least time for one rime_fwd call: each input read once and each
     output written once at the memory rate, against the contraction's
     FP32 multiply-adds at the FP32 rate (the phasor evaluation is left
     out, so this is a lower bound)."""
     fma = (1 if ps_real else 2) * (2 if out_imag else 1)
-    return bound_ms(2.0 * fma * R * K * N,
-                    4.0 * (R * K * (1 if ps_real else 2) + K * N
-                           + R * N * (2 if out_imag else 1)))
+    return rime_cuda.roofline_ms(2.0 * fma * R * K * N,
+                                 4.0 * (R * K * (1 if ps_real else 2) + K * N
+                                        + R * N * (2 if out_imag else 1)))
 
 
-def dtau_bound_ms(R, K, N, ps_real):
+def dtau_bound_ms(rime_cuda, R, K, N, ps_real):
     """Least time for one rime_dtau call, by the same rule: per (r, c, n)
     triple the contraction p Im(u E) costs 3 FP32 multiply-adds for real
     ps and 6 for complex ps (u p is a complex product); bytes are ct
     (complex), ps, tauT and the real output once each."""
     fma = 3 if ps_real else 6
-    return bound_ms(2.0 * fma * R * K * N,
-                    4.0 * (2 * R * N + R * K * (1 if ps_real else 2)
-                           + 2 * K * N))
+    return rime_cuda.roofline_ms(2.0 * fma * R * K * N,
+                                 4.0 * (2 * R * N + R * K * (1 if ps_real
+                                                             else 2)
+                                        + 2 * K * N))
 
 
 def profile(torch, fn, label):
@@ -546,6 +548,86 @@ def phase_small(bt, torch, rime_cuda, dev):
         check(all(v <= TOL for v in errs.values()), f"card vs CPU {label}")
 
 
+def phase_spike(torch, spike, dev, fwd_shape, fwd_ms):
+    """Phase 9: the mosaic_spike kernels. fwd_shape is hera-stat's
+    forward (R, K, N) and fwd_ms rime_fwd's time there. Returns their
+    entries of the JSON line of kernels."""
+    worst = dict.fromkeys(spike.RUN, 0.0)
+    sizes = (("script", (spike.NF, spike.TC, spike.TB, spike.G)),
+             ("odd", (96, 200, 100, 8)))
+    cases = [(label, name, size) for label, size in sizes
+             for name, _ in spike.SPIKES]
+    # k_fwd is built for each chain count G: the others at the odd size
+    cases += [("odd", "k_fwd", (96, 200, 100, g)) for g in spike.FWD_G
+              if g != spike.G]
+    for label, name, size in cases:
+        rel, err, n = spike.compare(name, *size, device=dev)
+        torch.cuda.synchronize()
+        print(f"phase 9 {name} vs plain (float64), {label} NF, TC, TB, "
+              f"G = {size}: rel {rel:.2e} (tol {TOL:g}) abs {err:.2e}, "
+              f"{n} launch", flush=True)
+        check(n == 1 and np.isfinite(rel) and rel <= TOL,
+              f"{name} vs plain at {size}: rel {rel:.2e}, {n} launches")
+        worst[name] = max(worst[name], err)
+
+    # the spike's own entry point, its counts set to 0 just before: one
+    # warm-up launch and nrep captured in the timing graph per kernel
+    nrep = 400
+    for name in spike.launches:
+        spike.launches[name] = 0
+    times = spike.main(device=dev, n=nrep)
+    torch.cuda.synchronize()
+    counts = dict(spike.launches)
+    print(f"phase 9 mosaic-spike main path: launches {counts} (expected "
+          f"{1 + nrep} each)", flush=True)
+    check(all(n == 1 + nrep for n in counts.values()),
+          f"spike launches by main() are not {1 + nrep} each: {counts}")
+
+    entries = []
+    for name, _ in spike.SPIKES:
+        args = spike.make_args(name, device=dev)
+        pms = cuda_ms(torch, lambda: spike.PLAIN[name](*args), 3)
+        t = times[name]
+        lib = (f"library {t['library_ms']:.4f} ms" if t["library_ms"]
+               is not None else "no single PyTorch call computes it, so no "
+               "library time")
+        print(f"phase 9 times: {name} at NF, TC, TB = {spike.NF}, "
+              f"{spike.TC}, {spike.TB}: kernel {t['ms']:.4f} ms, plain "
+              f"{pms:.3f} ms, bound {t['bound_ms']:.5f} ms "
+              f"({t['bound_by']}), kernel at {t['bound_ms'] / t['ms']:.1%} "
+              f"of bound; loop {t['loop_tflops']:.2f} TFLOP/s; {lib}",
+              flush=True)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "bayeslim_tpu_torch/csrc/mosaic_spike.cu",
+            "replaces": f"scripts/mosaic_spike.py:{SPIKE_LINES[name]}",
+            "launches": counts[name],
+            "launches_by_path": {"mosaic-spike": counts[name]},
+            "max_abs_err": worst[name], "ms": t["ms"], "plain_ms": pms,
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+
+    # the recurrence and the G-chain loop at hera-stat's forward shape
+    R, K, N = fwd_shape
+    split = {}
+    for name in ("k_rot", "k_fwd"):
+        args = spike.make_args(name, NF=R, TC=K, TB=N, G=8, device=dev)
+        ms = spike.timeit(spike.RUN[name], *args, n=20)
+        bms, by = spike.bound_ms(name, R, K, N)
+        tflops = spike.loop_flops(name, R, K, N) / ms / 1e9
+        split[name] = ms
+        print(f"phase 9 times at hera-stat's forward shape NF={R} TC={K} "
+              f"TB={N} G=8: {name} {ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+              f"kernel at {bms / ms:.1%} of bound; loop {tflops:.2f} "
+              f"TFLOP/s", flush=True)
+    print(f"phase 9 at the forward shape: phasor recurrence alone (k_rot) "
+          f"{split['k_rot']:.4f} ms, G-chain loop with its contraction "
+          f"(k_fwd, another design: float seeds per 32 rows, c split "
+          f"over blocks) {split['k_fwd']:.4f} ms, rime_fwd {fwd_ms:.4f} ms",
+          flush=True)
+    return entries
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -560,6 +642,7 @@ def main():
     import bayeslim_tpu_torch as bt
     from bayeslim_tpu_torch.ops import rime_cuda
     from bayeslim_tpu_torch.ops.rime_cuda import _pix_chunks
+    from bayeslim_tpu_torch.scripts import mosaic_spike as spike
 
     dev = torch.device("cuda")
     card = smi()
@@ -599,7 +682,7 @@ def main():
             ps32, tau32, f0, df, R, conj, out_imag), 20)
         pms = cuda_ms(torch, lambda: rime_cuda.rime_fwd_plain(
             ps32, tau32, f0, df, R, conj, out_imag), 3)
-        bms, by = kernel_bound_ms(Rr, Kk, Nn, ps_real, out_imag)
+        bms, by = kernel_bound_ms(rime_cuda, Rr, Kk, Nn, ps_real, out_imag)
         timing.append((ms, pms, bms, by))
         print(f"phase 8 times: rime_fwd {label} R={Rr} K={Kk} N={Nn} "
               f"ps_real={ps_real} out_imag={out_imag}: kernel {ms:.4f} ms, "
@@ -616,7 +699,7 @@ def main():
         ct32, ps32, tau32, f0, df, R), 20)
     dpms = cuda_ms(torch, lambda: rime_cuda.rime_dtau_plain(
         ct32, ps32, tau32, f0, df, R), 3)
-    dbms, dby = dtau_bound_ms(R, K, N, True)
+    dbms, dby = dtau_bound_ms(rime_cuda, R, K, N, True)
     print(f"phase 8 times: rime_dtau hera-cal R={R} K={K} N={N} "
           f"ps_real=True: kernel {dms:.4f} ms, plain {dpms:.3f} ms, bound "
           f"{dbms:.4f} ms ({dby}), kernel at {dbms / dms:.1%} of bound; no "
@@ -643,6 +726,7 @@ def main():
         "launches_by_path": {"hera-stat": 0, "hera-cal": cal_dtau},
         "max_abs_err": worst_dtau, "ms": dms, "plain_ms": dpms,
         "bound_ms": dbms, "bound_by": dby, "library_ms": None}]
+    kernels += phase_spike(torch, spike, dev, (R, K, N), timing[0][0])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from bayeslim_tpu_torch.ops import rime_cuda
+from bayeslim_tpu_torch.scripts import mosaic_spike as spike
 from bayeslim_tpu_torch.utils.dtypes import C_MS
 
 F0, DF = 100e6, 20e6 / 7
@@ -156,3 +157,39 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         rime_cuda.rime_dtau(ct[:, :2], ps, tau, F0, DF, 8)
     with pytest.raises(ValueError):
         rime_cuda.rime_dtau(ct.cpu(), ps, tau, F0, DF, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [name for name, _ in spike.SPIKES])
+@pytest.mark.parametrize("NF,TC,TB,G", [(1024, 256, 256, 8),   # the script's
+                                        (96, 200, 100, 8)])    # fills no tile
+def test_spike_kernel_vs_plain(cuda, name, NF, TC, TB, G):
+    """Each mosaic_spike kernel (float32) against its plain version in
+    float64 on the same inputs; k_rot on unit_m's inputs, whose chains
+    stay near unit modulus."""
+    rel, _, n = spike.compare(name, NF, TC, TB, G, device=cuda)
+    assert n == 1
+    assert rel <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", spike.FWD_G)
+def test_spike_fwd_every_chain_count(cuda, G):
+    """k_fwd is built for each G in FWD_G; each against float64."""
+    rel, _, n = spike.compare("k_fwd", 96, 200, 100, G, device=cuda)
+    assert n == 1
+    assert rel <= 1e-4
+
+
+@pytest.mark.cuda
+def test_spike_kernels_reject_what_they_do_not_take(cuda):
+    ps = spike.mk((96, 200), 0, device=cuda)
+    m = spike.mk((200, 100), 1, device=cuda)
+    with pytest.raises(TypeError):
+        spike.run_nn(ps.double(), m.double())
+    with pytest.raises(ValueError):
+        spike.run_nn(ps, m.cpu())
+    with pytest.raises(ValueError):
+        spike.run_fwd(m, ps, 3)                         # G not a power of 2
+    with pytest.raises(ValueError):
+        spike.run_bd(ps, m, 7)                          # 96 rows, G=7

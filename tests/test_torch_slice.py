@@ -14,6 +14,7 @@ import torch
 
 import bayeslim_tpu as bl
 import bayeslim_tpu_torch as bt
+from bayeslim_tpu_torch.scripts import mosaic_spike
 
 from _torch_graft import build_torch
 
@@ -116,6 +117,7 @@ def test_port_never_imports_jax():
     lambda: bt.PixelSky(np.ones((1, 1, 2, 3)), np.ones((2, 3)), 1.0,
                         R=None),
     lambda: bt.JonesModel(np.ones((1, 1, 2, 1, 2, 2)), [0, 1]),
+    lambda: mosaic_spike.main(device=None),
 ])
 def test_default_device_is_cuda(make):
     """device=None means CUDA; without a GPU that raises rather than
