@@ -29,7 +29,9 @@ one to the other.
 
 The kernels are compiled with nvcc for sm_90a into ``build/kernels/``
 at first use and loaded with ctypes; ``launches`` and ``dtau_launches``
-count their launches. ``SOURCES`` also lists ``csrc/mosaic_spike.cu``,
+count their calls (one per call, whatever the CUDA launches behind it:
+``rime_fwd`` splits its contraction into K slices by ``fwd_plan`` and
+adds them in a fixed order, with no atomics). ``SOURCES`` also lists ``csrc/mosaic_spike.cu``,
 the microbenchmark kernels wrapped by ``scripts/mosaic_spike.py``.
 """
 from __future__ import annotations
@@ -47,11 +49,11 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from .phase import fringe_cycles
+from .phase import _split_f32, fringe_cycles
 
 __all__ = ["rime_fwd", "rime_fwd_plain", "rime_dtau", "rime_dtau_plain",
            "rime_fused_bs", "RimeFusedBS", "build", "launches",
-           "dtau_launches", "no_tf32", "roofline_ms"]
+           "dtau_launches", "no_tf32", "roofline_ms", "fwd_plan", "fwd_info"]
 
 # launches of each CUDA kernel (incremented once per launch, nowhere else)
 launches = 0
@@ -135,9 +137,71 @@ def roofline_ms(flops, nbytes):
 
 # argument types of the C launchers (pointers and the stream as
 # c_void_p, so ctypes does not cut them to 32 bits)
-_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_FWD_ARGS = [_P, _P, _P, _I, _I, _I, _I, _D, _D, _I, _I, _I, _P]
+_P, _I, _D, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, \
+    ctypes.c_float
+_FWD_ARGS = [_P, _P, _P, _P] + [_I] * 6 + [_F] * 6 + [_I] * 3 + [_P]
+_FWD_INFO_ARGS = [_I, _I] + [ctypes.POINTER(_I)] * 3
 _DTAU_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _I, _I, _P]
+
+# rime_fwd's tiling (csrc/rime_fwd.cu): rows of a run (one thread's),
+# runs and columns of a block, the contraction tile
+FWD_RUN, FWD_RUNS_PER_BLOCK, FWD_COLS_PER_BLOCK, FWD_TILE_K = 32, 8, 32, 32
+# the most K slices a launch takes (its scratch is S x R x N outputs)
+FWD_MAX_SLICES = 16
+# the run seed takes k0 c1 exactly for a first channel k0 < 2^24
+FWD_MAX_NF = 1 << 24
+
+
+def fwd_plan(R, K, N, nf, sms, blocks_per_sm):
+    """Split of one rime_fwd launch's contraction over grid.z:
+    (S, cslice), S slices of cslice columns of K (a multiple of the K
+    tile; the last may be short). Each stacked block of nf rows is cut
+    into runs of FWD_RUN channels that never cross it, FWD_RUNS_PER_BLOCK
+    runs and FWD_COLS_PER_BLOCK columns to a block. With sms x
+    blocks_per_sm blocks resident at a time, S is the smallest in
+    1 .. FWD_MAX_SLICES that minimises waves x tiles per slice, the
+    launch's time in units of one block's work on one tile."""
+    if nf < 1 or R % nf:
+        raise ValueError(f"rime_fwd: {R} rows are not a multiple of nf={nf}")
+    if nf > FWD_MAX_NF:
+        raise ValueError(f"rime_fwd: nf={nf} channels exceed the kernel's "
+                         f"limit of {FWD_MAX_NF} (2^24: its run seeds take "
+                         f"k0 * c1 exactly only for k0 < 2^24)")
+    runs = (R // nf) * -(-nf // FWD_RUN)
+    blocks = -(-N // FWD_COLS_PER_BLOCK) * -(-runs // FWD_RUNS_PER_BLOCK)
+    resident = max(1, sms * blocks_per_sm)
+    tiles = max(1, -(-K // FWD_TILE_K))
+    best = None
+    for s in range(1, min(FWD_MAX_SLICES, tiles) + 1):
+        per = -(-tiles // s)
+        s_eff = -(-tiles // per)
+        cost = -(-blocks * s_eff // resident) * per
+        if best is None or cost < best[0]:
+            best = (cost, s_eff, per * FWD_TILE_K)
+    return best[1], best[2]
+
+
+_FWD_INFO = {}
+
+
+def fwd_info(device, ps_real, out_imag):
+    """(registers per thread, shared memory per block in bytes, resident
+    blocks per SM, SMs) of the rime_fwd kernel variant on a CUDA
+    device."""
+    device = torch.device(device)
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    key = (idx, bool(ps_real), bool(out_imag))
+    if key not in _FWD_INFO:
+        vals = [_I() for _ in range(3)]
+        with torch.cuda.device(idx):
+            rc = _lib("rime_fwd.cu", "rime_fwd_info", _FWD_INFO_ARGS)(
+                *key[1:], *(ctypes.byref(v) for v in vals))
+        if rc != 0:
+            raise RuntimeError(f"rime_fwd_info failed: CUDA error {rc}")
+        sms = torch.cuda.get_device_properties(idx).multi_processor_count
+        _FWD_INFO[key] = tuple(v.value for v in vals) + (sms,)
+    return _FWD_INFO[key]
 
 
 def _lib(source, symbol, argtypes):
@@ -169,23 +233,36 @@ def rime_fwd(ps, tauT, f0, df, nf, conj=False, out_imag=True):
                          f"{tuple(tauT.shape)}")
     R, K = ps.shape
     N = tauT.shape[1]
-    if R % nf:
-        raise ValueError(f"rime_fwd: {R} rows are not a multiple of nf={nf}")
+    ps_real = not ps.is_complex()
+    _, _, per_sm, sms = fwd_info(ps.device, ps_real, out_imag)
+    S, cslice = fwd_plan(R, K, N, int(nf), sms, per_sm)
+    out = _launch_fwd(ps, tauT, f0, df, nf, conj, out_imag, S, cslice)
+    launches += 1
+    return out
+
+
+def _launch_fwd(ps, tauT, f0, df, nf, conj, out_imag, S, cslice):
+    """One rime_fwd kernel launch with the K split (S, cslice) (see
+    fwd_plan); the slices' partial sums go to a scratch (S, R, N) and are
+    added in order by a second launch. Counts nothing: rime_fwd does."""
+    R, K = ps.shape
+    N = tauT.shape[1]
     # a conjugate view shares its memory with the unconjugated tensor:
     # resolve it before the kernel reads the raw buffer
     ps = ps.resolve_conj().contiguous()
     tauT = tauT.contiguous()
-    ps_real = not ps.is_complex()
-    out = torch.empty((R, N), device=ps.device,
-                      dtype=torch.complex64 if out_imag else torch.float32)
+    odt = torch.complex64 if out_imag else torch.float32
+    out = torch.empty((R, N), device=ps.device, dtype=odt)
+    part = torch.empty((S, R, N), device=ps.device, dtype=odt) \
+        if S > 1 else None
     stream = torch.cuda.current_stream(ps.device).cuda_stream
     rc = _lib("rime_fwd.cu", "rime_fwd_launch", _FWD_ARGS)(
-        ps.data_ptr(), tauT.data_ptr(), out.data_ptr(), R, K, N, int(nf),
-        float(f0), float(df), int(bool(conj)), int(ps_real),
-        int(bool(out_imag)), stream)
+        ps.data_ptr(), tauT.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), R, K, N, int(nf), S,
+        cslice, *_split_f32(f0), *_split_f32(df), int(bool(conj)),
+        int(not ps.is_complex()), int(bool(out_imag)), stream)
     if rc != 0:
         raise RuntimeError(f"rime_fwd kernel launch failed: CUDA error {rc}")
-    launches += 1
     return out
 
 

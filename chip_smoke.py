@@ -8,11 +8,17 @@ GPU. Run from the repository root:
 Phases, one line each; any failure exits non-zero:
 
 1. the card (nvidia-smi name and power limit), versions, and the nvcc
-   build of the CUDA kernels from csrc/ (all sources at once);
+   build of the CUDA kernels from csrc/ (all sources at once); for
+   rime_fwd.cu each kernel's registers and spills (ptxas), its FP64
+   instructions in the SASS (cuobjdump; none allowed), and each
+   variant's shared memory and resident blocks per SM;
 2. the RIME kernel (rime_fwd) against its plain PyTorch version in
-   float64 (of the same float32 inputs) at small shapes and at the
-   hera-stat forward and backward shapes, every ps / conj / out_imag
-   case;
+   float64 (of the same float32 inputs), every ps / conj / out_imag
+   case: small shapes, ragged runs (nstack = 3 at nf = 5 and 1000),
+   K = 1, N = 1, K below one slice, delays of at most 1e-9 s, zero
+   delays (the output is then the sum over c), hera-stat's longest
+   delays, and the hera-stat forward and backward shapes; each case
+   launched twice, the two outputs bit-equal;
 3. the delay-cotangent kernel (rime_dtau) against its plain version the
    same way, at nf=5 (rows wrap), nstack=3 x nf=24 and the hera-cal
    shape, every ps / conj case;
@@ -36,16 +42,16 @@ Phases, one line each; any failure exits non-zero:
    the CPU (float64, plain versions): a small sky/beam posterior and
    the hera-cal chain, loss and gradients;
 8. kernel and plain-version times at the main paths' shapes, each
-   kernel's bound;
+   kernel's bound, rime_fwd with its K split against one slice, and
+   k_rot and k_fwd timed at hera-stat's forward shape beside rime_fwd's
+   times at both shapes (as a fraction of k_fwd's);
 9. main path 3, the microbenchmark spikes (bayeslim_tpu_torch/scripts/
    mosaic_spike.py, the seven kernels of csrc/mosaic_spike.cu): each
    kernel against its plain version in float64 at the script's sizes
    and at a size that fills no tile (k_fwd there at every chain count G
    it is built for); the spike's own entry point, main(), with every
    kernel's launches counted (exactly 1 + 400 each); the plain
-   versions' times; and
-   k_rot and k_fwd timed at hera-stat's forward shape beside rime_fwd's
-   time there (phase 8). Then the JSON line of all nine kernels.
+   versions' times. Then the JSON line of all nine kernels.
 
 The last line is {"ok": true, "device": {...}}. Exits non-zero without
 printing a result when no CUDA device or no package is present.
@@ -225,12 +231,22 @@ def first_step_H0(bt, torch, grads, steps):
         for k, g in grads.items()}).ravel())
 
 
-def rand_case(rng, R, K, N, ps_real):
+def rand_case(rng, R, K, N, ps_real, tau_max=1e-6):
     ps = rng.standard_normal((R, K))
     if not ps_real:
         ps = ps + 1j * rng.standard_normal((R, K))
-    tauT = rng.uniform(-1e-6, 1e-6, (K, N))
+    tauT = rng.uniform(-tau_max, tau_max, (K, N))
     return ps, tauT
+
+
+def longest_delay():
+    """hera-stat's longest delay [s]: its longest baseline over c."""
+    from bayeslim_tpu_torch.utils import make_hex
+    from bayeslim_tpu_torch.utils.dtypes import C_MS
+    _, av = make_hex(HERA["hexN"], D=15.0)
+    av = np.asarray(av)
+    return float(np.linalg.norm(av[:, None] - av[None], axis=-1).max()
+                 / C_MS)
 
 
 def cuda_ms(torch, fn, reps):
@@ -298,28 +314,118 @@ def profile(torch, fn, label):
         print(f"{label}:   {ms:9.3f} ms {n:5d}x {key[:90]}", flush=True)
 
 
+def ptxas_by_function(report):
+    """{mangled kernel name: 'N registers, spills'} from nvcc -Xptxas -v."""
+    out, name = {}, None
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            out[name] = ""
+        elif name and "spill stores" in ln:
+            out[name] = ln.strip()
+        elif name and "Used" in ln and "registers" in ln:
+            out[name] = (ln.split(":", 1)[1].strip().split(",")[0] + "; "
+                         + out[name])
+    return out
+
+
+def fp64_by_function(lib):
+    """{kernel: FP64 instructions (DADD/DMUL/DFMA/DSETP/..., any .F64
+    conversion)} in the SASS of a built library, or None where the
+    toolkit has no cuobjdump."""
+    import re
+    import shutil
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return None
+    sass = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    pat = re.compile(r"\bD(ADD|MUL|FMA|SETP|MNMX)\b|\.F64\b")
+    out, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :", 1)[1].strip()
+            out[name] = 0
+        elif name and pat.search(ln):
+            out[name] += 1
+    return out
+
+
+def phase_fwd_build(torch, rime_cuda, dev, built):
+    """Phase 1, rime_fwd: each kernel's registers and spills (ptxas),
+    FP64 instructions in its SASS (none allowed), and for each variant
+    its shared memory per block and resident blocks per SM."""
+    path, _, report = built
+    for name, line in ptxas_by_function(report).items():
+        print(f"phase 1 rime_fwd.cu ptxas: {name}: {line}", flush=True)
+    fp64 = fp64_by_function(path)
+    if fp64 is None:
+        print("phase 1 rime_fwd.cu SASS: no cuobjdump, FP64 not counted",
+              flush=True)
+    else:
+        print(f"phase 1 rime_fwd.cu SASS: FP64 instructions by kernel "
+              f"{fp64}", flush=True)
+        check(fp64 and not any(fp64.values()),
+              f"rime_fwd.cu runs FP64 instructions: {fp64}")
+    for ps_real in (True, False):
+        for out_imag in (True, False):
+            regs, smem, per_sm, sms = rime_cuda.fwd_info(dev, ps_real,
+                                                         out_imag)
+            print(f"phase 1 rime_fwd kernel ps_real={ps_real} "
+                  f"out_imag={out_imag}: {regs} registers, {smem} bytes of "
+                  f"shared memory a block, {per_sm} blocks per SM on {sms} "
+                  f"SMs", flush=True)
+            check(per_sm >= 1, "rime_fwd kernel cannot be resident")
+
+
 def phase_fwd_vs_plain(torch, rime_cuda, dev, rng, f0, df):
     """Phase 2; returns the worst abs error by shape label."""
-    shapes = [("small", 5, 2 * 5, 300, 70),       # nf=5: rows wrap in runs
-              ("small", 24, 3 * 24, 100, 45),
-              ("hera-fwd", 1024, 1024, 6144, 630),
-              ("hera-bwd", 1024, 1024, 630, 6144)]
+    tmax = longest_delay()
+    # (label, nf, R, K, N, delays drawn uniform in +-tau_max)
+    shapes = [("small", 5, 2 * 5, 300, 70, 1e-6),     # runs of 5 rows
+              ("small", 24, 3 * 24, 100, 45, 1e-6),
+              ("ragged runs", 5, 3 * 5, 300, 70, 1e-6),
+              ("ragged runs", 1000, 3 * 1000, 100, 45, 1e-6),
+              ("K=1", 24, 3 * 24, 1, 45, 1e-6),
+              ("N=1", 24, 3 * 24, 100, 1, 1e-6),
+              ("K below one slice", 1024, 1024, 100, 630, 1e-6),
+              ("delays <= 1e-9 s", 24, 3 * 24, 300, 45, 1e-9),
+              ("zero delays", 24, 3 * 24, 300, 45, 0.0),
+              (f"hera-stat longest delays (+-{tmax:.4e} s)", 1024, 1024,
+               256, 64, tmax),
+              ("hera-fwd", 1024, 1024, 6144, 630, 1e-6),
+              ("hera-bwd", 1024, 1024, 630, 6144, 1e-6)]
     worst = {}
-    for label, nf, R, K, N in shapes:
+    for label, nf, R, K, N, tau_max in shapes:
         for ps_real in (True, False):
-            ps, tauT = rand_case(rng, R, K, N, ps_real)
+            ps, tauT = rand_case(rng, R, K, N, ps_real, tau_max)
+            if label.startswith("hera-stat longest"):
+                # every delay within 1 % of the longest, either sign
+                tauT = np.sign(tauT) * tmax * rng.uniform(0.99, 1, tauT.shape)
             ps32 = torch.as_tensor(ps, dtype=torch.float32 if ps_real
                                    else torch.complex64, device=dev)
             tau32 = torch.as_tensor(tauT, dtype=torch.float32, device=dev)
             for conj in (False, True):
                 for out_imag in (True, False):
+                    _, _, per_sm, sms = rime_cuda.fwd_info(dev, ps_real,
+                                                           out_imag)
+                    S = rime_cuda.fwd_plan(R, K, N, nf, sms, per_sm)[0]
                     a = rime_cuda.rime_fwd(ps32, tau32, f0, df, nf, conj,
                                            out_imag)
                     b = rime_cuda.rime_fwd_plain(
                         ps32.to(torch.complex128 if not ps_real
                                 else torch.float64),
                         tau32.double(), f0, df, nf, conj, out_imag)
+                    if tau_max == 0.0:
+                        # exp(0) = 1: the output is the sum over c
+                        s = ps32.to(torch.complex128 if not ps_real
+                                    else torch.float64).sum(1, keepdim=True)
+                        b = (s.real if s.is_complex() and not out_imag
+                             else s).expand(R, N)
+                    again = rime_cuda.rime_fwd(ps32, tau32, f0, df, nf, conj,
+                                               out_imag)
                     torch.cuda.synchronize()
+                    same = bool(torch.equal(a, again))
                     a, b = a.cpu().numpy(), b.cpu().numpy()
                     err = relerr(a, b)
                     abs_err = float(np.abs(a - b).max())
@@ -327,10 +433,14 @@ def phase_fwd_vs_plain(torch, rime_cuda, dev, rng, f0, df):
                             f"ps_real={ps_real} conj={conj} "
                             f"out_imag={out_imag}")
                     print(f"phase 2 rime_fwd vs plain: {case}: rel "
-                          f"{err:.2e} (tol {TOL:g}) abs {abs_err:.2e}",
+                          f"{err:.2e} (tol {TOL:g}) abs {abs_err:.2e}; "
+                          f"K slices {S}; a second launch "
+                          f"{'bit-equal' if same else 'DIFFERS'}",
                           flush=True)
-                    check(np.isfinite(err) and err <= TOL,
+                    check(a.shape == (R, N) and np.isfinite(err)
+                          and err <= TOL,
                           f"rime_fwd vs plain {case}: {err:.2e}")
+                    check(same, f"rime_fwd {case}: two launches differ")
                     worst[label] = max(worst.get(label, 0.0), abs_err)
     return worst
 
@@ -548,10 +658,9 @@ def phase_small(bt, torch, rime_cuda, dev):
         check(all(v <= TOL for v in errs.values()), f"card vs CPU {label}")
 
 
-def phase_spike(torch, spike, dev, fwd_shape, fwd_ms):
-    """Phase 9: the mosaic_spike kernels. fwd_shape is hera-stat's
-    forward (R, K, N) and fwd_ms rime_fwd's time there. Returns their
-    entries of the JSON line of kernels."""
+def phase_spike(torch, spike, dev):
+    """Phase 9: the mosaic_spike kernels. Returns their entries of the
+    JSON line of kernels."""
     worst = dict.fromkeys(spike.RUN, 0.0)
     sizes = (("script", (spike.NF, spike.TC, spike.TB, spike.G)),
              ("odd", (96, 200, 100, 8)))
@@ -606,8 +715,13 @@ def phase_spike(torch, spike, dev, fwd_shape, fwd_ms):
             "max_abs_err": worst[name], "ms": t["ms"], "plain_ms": pms,
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    return entries
 
-    # the recurrence and the G-chain loop at hera-stat's forward shape
+
+def phase_fwd_beside_spikes(torch, spike, dev, fwd_shape, timing):
+    """Phase 8, end: the phasor recurrence alone (k_rot) and the spike's
+    G-chain loop (k_fwd) at hera-stat's forward shape fwd_shape = (R, K,
+    N), beside rime_fwd's times at both shapes (timing, phase 8)."""
     R, K, N = fwd_shape
     split = {}
     for name in ("k_rot", "k_fwd"):
@@ -616,16 +730,16 @@ def phase_spike(torch, spike, dev, fwd_shape, fwd_ms):
         bms, by = spike.bound_ms(name, R, K, N)
         tflops = spike.loop_flops(name, R, K, N) / ms / 1e9
         split[name] = ms
-        print(f"phase 9 times at hera-stat's forward shape NF={R} TC={K} "
+        print(f"phase 8 times at hera-stat's forward shape NF={R} TC={K} "
               f"TB={N} G=8: {name} {ms:.4f} ms, bound {bms:.4f} ms ({by}), "
               f"kernel at {bms / ms:.1%} of bound; loop {tflops:.2f} "
               f"TFLOP/s", flush=True)
-    print(f"phase 9 at the forward shape: phasor recurrence alone (k_rot) "
-          f"{split['k_rot']:.4f} ms, G-chain loop with its contraction "
-          f"(k_fwd, another design: float seeds per 32 rows, c split "
-          f"over blocks) {split['k_fwd']:.4f} ms, rime_fwd {fwd_ms:.4f} ms",
-          flush=True)
-    return entries
+    kf = split["k_fwd"]
+    print(f"phase 8 rime_fwd beside the spikes: forward shape "
+          f"{timing[0][0]:.4f} ms = {timing[0][0] / kf:.1%} of k_fwd's "
+          f"{kf:.4f} ms at that shape, backward shape {timing[1][0]:.4f} ms "
+          f"= {timing[1][0] / kf:.1%} of it; the phasor recurrence alone "
+          f"(k_rot) {split['k_rot']:.4f} ms", flush=True)
 
 
 def main():
@@ -657,6 +771,7 @@ def main():
         print(f"phase 1 build: {src} -> {os.path.relpath(path, ROOT)} "
               f"nvcc {secs:.1f} s; {' | '.join(regs)}", flush=True)
     print(f"phase 1 build total {time.time() - t0:.1f} s", flush=True)
+    phase_fwd_build(torch, rime_cuda, dev, built["rime_fwd.cu"])
 
     f0, df = 100e6, 100e6 / 1023
     rng = np.random.default_rng(0)
@@ -689,6 +804,13 @@ def main():
               f"plain {pms:.3f} ms, bound {bms:.4f} ms ({by}), kernel at "
               f"{bms / ms:.1%} of bound; no single PyTorch call computes "
               f"this fused function, so no library time", flush=True)
+        # the K split against one slice (a launch, not counted)
+        _, _, per_sm, sms = rime_cuda.fwd_info(dev, ps_real, out_imag)
+        S, _ = rime_cuda.fwd_plan(Rr, Kk, Nn, R, sms, per_sm)
+        nms = cuda_ms(torch, lambda: rime_cuda._launch_fwd(
+            ps32, tau32, f0, df, R, conj, out_imag, 1, Kk), 20)
+        print(f"phase 8 K split: rime_fwd {label}: {S} slices (used) "
+              f"{ms:.4f} ms, one slice {nms:.4f} ms", flush=True)
     # hera-cal: real ps (a power beam on a Stokes-I sky), conj False
     ps, tauT = rand_case(rng, R, K, N, True)
     ct = rng.standard_normal((R, N)) + 1j * rng.standard_normal((R, N))
@@ -726,7 +848,8 @@ def main():
         "launches_by_path": {"hera-stat": 0, "hera-cal": cal_dtau},
         "max_abs_err": worst_dtau, "ms": dms, "plain_ms": dpms,
         "bound_ms": dbms, "bound_by": dby, "library_ms": None}]
-    kernels += phase_spike(torch, spike, dev, (R, K, N), timing[0][0])
+    phase_fwd_beside_spikes(torch, spike, dev, (R, K, N), timing)
+    kernels += phase_spike(torch, spike, dev)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

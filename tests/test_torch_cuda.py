@@ -56,6 +56,74 @@ def test_kernel_vs_plain(cuda, ps_real, nf, R, K, N):
             assert _relerr(a.cpu().numpy(), b.numpy()) <= 1e-4
 
 
+def _longest_delay():
+    """hera-stat's longest delay [s]: its longest baseline (hex-11, 15 m
+    spacing) over c."""
+    from bayeslim_tpu_torch.utils import make_hex
+    _, av = make_hex(11, D=15.0)
+    av = np.asarray(av)
+    return float(np.linalg.norm(av[:, None] - av[None], axis=-1).max()
+                 / C_MS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps_real", [True, False])
+@pytest.mark.parametrize("nf,R,K,N,tau_max", [
+    (5, 15, 300, 70, 1e-6),            # 3 stacked blocks, runs of 5 rows
+    (1000, 3000, 100, 45, 1e-6),       # a ragged last run of 8 rows
+    (24, 72, 1, 45, 1e-6),             # K = 1
+    (24, 72, 100, 1, 1e-6),            # N = 1
+    (1024, 1024, 100, 630, 1e-6),      # K split, K below one slice
+    (24, 72, 300, 45, 1e-9),           # |tau| <= 1e-9 s
+    (24, 72, 300, 45, 0.0),            # tau = 0
+    (1024, 1024, 256, 64, None)])      # hera-stat's longest delays
+def test_kernel_design_cases(cuda, ps_real, nf, R, K, N, tau_max):
+    """The cases the kernel's run layout, K split and seeds could get
+    wrong, each ps / conj / out_imag case within 1e-4 of float64; with
+    tau = 0 the output is the sum over c."""
+    ps, tauT = _case(8, R, K, N, ps_real)
+    if tau_max is None:
+        tmax = _longest_delay()
+        tauT = np.sign(tauT) * tmax * np.random.default_rng(9).uniform(
+            0.99, 1, tauT.shape)
+    else:
+        tauT = tauT * (tau_max / 1e-6)
+    cps = torch.as_tensor(ps, dtype=torch.float32 if ps_real
+                          else torch.complex64, device=cuda)
+    ctau = torch.as_tensor(tauT, dtype=torch.float32, device=cuda)
+    p64 = cps.cpu().to(torch.float64 if ps_real else torch.complex128)
+    for conj in (False, True):
+        for out_imag in (True, False):
+            a = rime_cuda.rime_fwd(cps, ctau, F0, DF, nf, conj, out_imag)
+            assert a.shape == (R, N)
+            b = rime_cuda.rime_fwd_plain(p64, ctau.cpu().double(), F0, DF,
+                                         nf, conj, out_imag)
+            assert _relerr(a.cpu().numpy(), b.numpy()) <= 1e-4
+            if tau_max == 0.0:
+                s = p64.sum(1, keepdim=True).expand(R, N)
+                s = s.real if s.is_complex() and not out_imag else s
+                assert _relerr(a.cpu().numpy(), s.numpy()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps_real,out_imag,R,K,N", [
+    (True, True, 1024, 6144, 630),     # hera-stat forward: K split
+    (False, False, 1024, 630, 6144)])  # role-swapped backward: one slice
+def test_kernel_launches_are_bit_equal(cuda, ps_real, out_imag, R, K, N):
+    """No atomics: the K slices are added in a fixed order, so two
+    launches on the same inputs agree bit for bit."""
+    ps, tauT = _case(10, R, K, N, ps_real)
+    cps = torch.as_tensor(ps, dtype=torch.float32 if ps_real
+                          else torch.complex64, device=cuda)
+    ctau = torch.as_tensor(tauT, dtype=torch.float32, device=cuda)
+    a = rime_cuda.rime_fwd(cps, ctau, F0, DF, R, False, out_imag)
+    b = rime_cuda.rime_fwd(cps, ctau, F0, DF, R, False, out_imag)
+    assert torch.equal(a, b)
+    _, _, per_sm, sms = rime_cuda.fwd_info(cuda, ps_real, out_imag)
+    S = rime_cuda.fwd_plan(R, K, N, R, sms, per_sm)[0]
+    assert (S > 1) == (K > N)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("ps_real", [True, False])
 def test_fused_function_backward_on_card(cuda, ps_real):
@@ -148,6 +216,10 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         rime_cuda.rime_fwd(ps, tau, F0, DF, 3)          # 8 rows, nf=3
     with pytest.raises(ValueError):
         rime_cuda.rime_fwd(ps, tau.cpu(), F0, DF, 8)
+    big = rime_cuda.FWD_MAX_NF + 1                      # past the seed's limit
+    with pytest.raises(ValueError, match="2\\^24"):
+        rime_cuda.rime_fwd(torch.zeros(big, 1, device=cuda),
+                           torch.zeros(1, 1, device=cuda), F0, DF, big)
     ct = torch.zeros(8, 3, dtype=torch.complex64, device=cuda)
     with pytest.raises(TypeError):
         rime_cuda.rime_dtau(ct.to(torch.complex128), ps, tau, F0, DF, 8)
