@@ -27,7 +27,8 @@
 //   run crosses a block and nothing wraps), its 32 or 64 sums in
 //   registers. Per (c, n) a run needs one seed, then one complex step a
 //   row.
-// - Exact float seeds, no FP64. For every (c, n) of a K tile the block
+// - Exact float seeds, no FP64 (cycles and run_seed, phasor.cuh, shared
+//   with rime_dtau.cu). For every (c, n) of a K tile the block
 //   tabulates in shared memory c0 = f0 tau mod 1 and c1 = df tau mod 1,
 //   from f0 and df split on the host into float parts a + b + lo
 //   (rime_cuda._split_f32, the TPU kernel's split): a t and b t are
@@ -69,6 +70,8 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "phasor.cuh"
+
 namespace {
 
 constexpr int RT = 32;           // rows per run (one thread's rows)
@@ -78,31 +81,6 @@ constexpr int TR = RG * RT;      // staged rows per block
 constexpr int TK = 32;           // contraction tile
 constexpr int NT = TN * RG;      // threads per block
 constexpr int PS_LD = TR + 4;    // staged ps row stride (float4-aligned)
-
-// f0 and df split on the host: f = a + b + lo (float32 values)
-struct Split {
-    float a0, b0, lo0, a1, b1, lo1;
-};
-
-// x mod 1 in [-1/2, 1/2], exact for every float x (x - floor(x) is not:
-// 1 + x rounds for small negative x)
-__device__ __forceinline__ float cfrac(float x) { return x - rintf(x); }
-
-// f t mod 1 for f = a + b + lo, as an unevaluated pair hi + lo with hi
-// in [-1/2, 1/2]: a t = x + xe and b t = y + ye exactly (fmaf gives a
-// product's rounding error), cfrac(x) + cfrac(y) = s + e exactly
-// (TwoSum), so only lo t and the sum of the small parts round (~1e-12).
-// __fmul_rn keeps nvcc from contracting x into cfrac's subtraction,
-// which would count part of xe twice.
-__device__ __forceinline__ float2 cycles(float a, float b, float lo, float t)
-{
-    const float x = __fmul_rn(a, t), xe = fmaf(a, t, -x);
-    const float y = __fmul_rn(b, t), ye = fmaf(b, t, -y);
-    const float fx = cfrac(x), fy = cfrac(y);
-    const float s = fx + fy, v = s - fx;
-    const float e = (fx - (s - v)) + (fy - v);
-    return make_float2(cfrac(s), e + xe + ye + lo * t);
-}
 
 template <bool PS_REAL, bool OUT_IMAG>
 __device__ __forceinline__ void mac(float& re, float& im, float pr, float pi,
@@ -122,31 +100,6 @@ constexpr size_t smem_bytes(bool ps_real)
     return (size_t)TK * TN * 2 * sizeof(float4)
         + (size_t)TK * PS_LD * sizeof(float) * (ps_real ? 1 : 2)
         + (size_t)TR * sizeof(int);
-}
-
-// The seed of a run at its first channel k0 for one (c, n):
-// exp(i sgn 2 pi (c0 + k0 c1)) with k0 c1h = p + pe exactly (fmaf);
-// |c1l| < 3e-7, so k0 c1l rounds at ~1e-10 cycles for k0 < 4096. The
-// phase is reduced to [-1/2, 1/2] cycles, so the SFU's __sincosf sees
-// [-pi, pi], where its absolute error is at most 2^-21.41 (CUDA C++
-// Programming Guide, intrinsic functions); nothing raises the seed to a
-// power, so that error stays as it is
-__device__ __forceinline__ void run_seed(float c0, float c1h, float c1l,
-                                         float k0f, float sgn, float& c,
-                                         float& s)
-{
-    const float p = __fmul_rn(k0f, c1h);
-    const float ph = cfrac(cfrac(p) + (fmaf(k0f, c1h, -p) + k0f * c1l) + c0);
-    __sincosf(6.283185307f * ph, &s, &c);
-    s *= sgn;
-}
-
-// (c, s) times (dc, ds)
-__device__ __forceinline__ void cmul(float c, float s, float dc, float ds,
-                                     float& oc, float& os)
-{
-    oc = fmaf(c, dc, -s * ds);
-    os = fmaf(s, dc, c * ds);
 }
 
 // rps: runs per stacked block, ceil(nf / RT); nruns = nstack * rps.

@@ -31,7 +31,9 @@ The kernels are compiled with nvcc for sm_90a into ``build/kernels/``
 at first use and loaded with ctypes; ``launches`` and ``dtau_launches``
 count their calls (one per call, whatever the CUDA launches behind it:
 ``rime_fwd`` splits its contraction into K slices by ``fwd_plan`` and
-adds them in a fixed order, with no atomics). ``SOURCES`` also lists ``csrc/mosaic_spike.cu``,
+adds them in a fixed order, with no atomics; ``rime_dtau`` first writes
+w_r ct to a scratch, then walks the rows in the passes of
+``dtau_plan``). ``SOURCES`` also lists ``csrc/mosaic_spike.cu``,
 the microbenchmark kernels wrapped by ``scripts/mosaic_spike.py``.
 """
 from __future__ import annotations
@@ -53,7 +55,8 @@ from .phase import _split_f32, fringe_cycles
 
 __all__ = ["rime_fwd", "rime_fwd_plain", "rime_dtau", "rime_dtau_plain",
            "rime_fused_bs", "RimeFusedBS", "build", "launches",
-           "dtau_launches", "no_tf32", "roofline_ms", "fwd_plan", "fwd_info"]
+           "dtau_launches", "no_tf32", "roofline_ms", "fwd_plan", "fwd_info",
+           "dtau_plan", "dtau_info"]
 
 # launches of each CUDA kernel (incremented once per launch, nowhere else)
 launches = 0
@@ -137,11 +140,9 @@ def roofline_ms(flops, nbytes):
 
 # argument types of the C launchers (pointers and the stream as
 # c_void_p, so ctypes does not cut them to 32 bits)
-_P, _I, _D, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, \
-    ctypes.c_float
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGS = [_P, _P, _P, _P] + [_I] * 6 + [_F] * 6 + [_I] * 3 + [_P]
-_FWD_INFO_ARGS = [_I, _I] + [ctypes.POINTER(_I)] * 3
-_DTAU_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _I, _I, _P]
+_DTAU_ARGS = [_P] * 5 + [_I] * 5 + [_F] * 8 + [_I] * 2 + [_P]
 
 # rime_fwd's tiling (csrc/rime_fwd.cu): rows of a run (one thread's),
 # runs and columns of a block, the contraction tile
@@ -150,6 +151,18 @@ FWD_RUN, FWD_RUNS_PER_BLOCK, FWD_COLS_PER_BLOCK, FWD_TILE_K = 32, 8, 32, 32
 FWD_MAX_SLICES = 16
 # the run seed takes k0 c1 exactly for a first channel k0 < 2^24
 FWD_MAX_NF = 1 << 24
+# rime_dtau's rows of a pass (one seed per output) and of a two-term
+# block (csrc/rime_dtau.cu)
+DTAU_RUN, DTAU_LB = 32, 8
+
+
+def _check_nf(kernel, R, nf):
+    if nf < 1 or R % nf:
+        raise ValueError(f"{kernel}: {R} rows are not a multiple of nf={nf}")
+    if nf > FWD_MAX_NF:
+        raise ValueError(f"{kernel}: nf={nf} channels exceed the kernel's "
+                         f"limit of {FWD_MAX_NF} (2^24: its run seeds take "
+                         f"k0 * c1 exactly only for k0 < 2^24)")
 
 
 def fwd_plan(R, K, N, nf, sms, blocks_per_sm):
@@ -161,12 +174,7 @@ def fwd_plan(R, K, N, nf, sms, blocks_per_sm):
     blocks_per_sm blocks resident at a time, S is the smallest in
     1 .. FWD_MAX_SLICES that minimises waves x tiles per slice, the
     launch's time in units of one block's work on one tile."""
-    if nf < 1 or R % nf:
-        raise ValueError(f"rime_fwd: {R} rows are not a multiple of nf={nf}")
-    if nf > FWD_MAX_NF:
-        raise ValueError(f"rime_fwd: nf={nf} channels exceed the kernel's "
-                         f"limit of {FWD_MAX_NF} (2^24: its run seeds take "
-                         f"k0 * c1 exactly only for k0 < 2^24)")
+    _check_nf("rime_fwd", R, nf)
     runs = (R // nf) * -(-nf // FWD_RUN)
     blocks = -(-N // FWD_COLS_PER_BLOCK) * -(-runs // FWD_RUNS_PER_BLOCK)
     resident = max(1, sms * blocks_per_sm)
@@ -181,27 +189,51 @@ def fwd_plan(R, K, N, nf, sms, blocks_per_sm):
     return best[1], best[2]
 
 
-_FWD_INFO = {}
+def dtau_plan(R, nf):
+    """The passes of one rime_dtau launch: (rps, npass). Each stacked
+    block of nf rows is cut into rps = ceil(nf / DTAU_RUN) passes that
+    never cross it, npass = (R / nf) rps in all; pass p covers channels
+    k0 .. k0 + len - 1 of stacked block p // rps, with k0 = (p % rps)
+    DTAU_RUN and len = min(DTAU_RUN, nf - k0) (the kernel's Pass)."""
+    _check_nf("rime_dtau", R, nf)
+    rps = -(-nf // DTAU_RUN)
+    return rps, (R // nf) * rps
+
+
+_INFO = {}
+
+
+def _info(source, symbol, flags, device):
+    """(registers per thread, shared memory per block in bytes, resident
+    blocks per SM, SMs) of a kernel variant, asked of the library's
+    ``symbol`` on a CUDA device."""
+    device = torch.device(device)
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    key = (symbol, idx) + tuple(int(bool(f)) for f in flags)
+    if key not in _INFO:
+        vals = [_I() for _ in range(3)]
+        argtypes = [_I] * len(flags) + [ctypes.POINTER(_I)] * 3
+        with torch.cuda.device(idx):
+            rc = _lib(source, symbol, argtypes)(
+                *key[2:], *(ctypes.byref(v) for v in vals))
+        if rc != 0:
+            raise RuntimeError(f"{symbol} failed: CUDA error {rc}")
+        sms = torch.cuda.get_device_properties(idx).multi_processor_count
+        _INFO[key] = tuple(v.value for v in vals) + (sms,)
+    return _INFO[key]
 
 
 def fwd_info(device, ps_real, out_imag):
     """(registers per thread, shared memory per block in bytes, resident
     blocks per SM, SMs) of the rime_fwd kernel variant on a CUDA
     device."""
-    device = torch.device(device)
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    key = (idx, bool(ps_real), bool(out_imag))
-    if key not in _FWD_INFO:
-        vals = [_I() for _ in range(3)]
-        with torch.cuda.device(idx):
-            rc = _lib("rime_fwd.cu", "rime_fwd_info", _FWD_INFO_ARGS)(
-                *key[1:], *(ctypes.byref(v) for v in vals))
-        if rc != 0:
-            raise RuntimeError(f"rime_fwd_info failed: CUDA error {rc}")
-        sms = torch.cuda.get_device_properties(idx).multi_processor_count
-        _FWD_INFO[key] = tuple(v.value for v in vals) + (sms,)
-    return _FWD_INFO[key]
+    return _info("rime_fwd.cu", "rime_fwd_info", (ps_real, out_imag), device)
+
+
+def dtau_info(device, ps_real):
+    """The same for the rime_dtau kernel variant."""
+    return _info("rime_dtau.cu", "rime_dtau_info", (ps_real,), device)
 
 
 def _lib(source, symbol, argtypes):
@@ -285,23 +317,38 @@ def rime_dtau(ct, ps, tauT, f0, df, nf, conj=False):
             or ct.shape[1] != tauT.shape[1]:
         raise ValueError(f"rime_dtau: bad shapes {tuple(ct.shape)}, "
                          f"{tuple(ps.shape)}, {tuple(tauT.shape)}")
+    out = _launch_dtau(_lib("rime_dtau.cu", "rime_dtau_launch", _DTAU_ARGS),
+                       ct, ps, tauT, f0, df, nf, conj)
+    dtau_launches += 1
+    return out
+
+
+def _launch_dtau(launcher, ct, ps, tauT, f0, df, nf, conj):
+    """One call of a rime_dtau C launcher (csrc/rime_dtau.cu's
+    rime_dtau_launch, or a variant of it with the same arguments) on
+    checked inputs. Counts nothing: rime_dtau does."""
     R, K = ps.shape
     N = tauT.shape[1]
-    if R % nf:
-        raise ValueError(f"rime_dtau: {R} rows are not a multiple of "
-                         f"nf={nf}")
+    _, npass = dtau_plan(R, int(nf))
+    if 64 * max(K, N) >= 2 ** 31:
+        raise ValueError(f"rime_dtau: K={K} or N={N} too large for the "
+                         f"kernel's 32-bit offsets within a pass")
     ct = ct.resolve_conj().contiguous()
     ps = ps.resolve_conj().contiguous()
     tauT = tauT.contiguous()
     out = torch.empty((K, N), device=ps.device, dtype=torch.float32)
+    ctw = torch.empty_like(ct)              # the kernel's scratch: w_r ct
     stream = torch.cuda.current_stream(ps.device).cuda_stream
-    rc = _lib("rime_dtau.cu", "rime_dtau_launch", _DTAU_ARGS)(
-        ct.data_ptr(), ps.data_ptr(), tauT.data_ptr(), out.data_ptr(), R, K,
-        N, int(nf), float(f0), float(df), int(bool(conj)),
+    # w_r = -sgn 2 pi (f0 + k df) = w0 + k w1, both rounded to float32
+    sgn = -1.0 if conj else 1.0
+    rc = launcher(
+        ct.data_ptr(), ctw.data_ptr(), ps.data_ptr(), tauT.data_ptr(),
+        out.data_ptr(), R, K, N, int(nf), npass, *_split_f32(f0),
+        *_split_f32(df), -sgn * 2 * np.pi * float(f0),
+        -sgn * 2 * np.pi * float(df), int(bool(conj)),
         int(not ps.is_complex()), stream)
     if rc != 0:
         raise RuntimeError(f"rime_dtau kernel launch failed: CUDA error {rc}")
-    dtau_launches += 1
     return out
 
 

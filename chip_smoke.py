@@ -9,9 +9,10 @@ Phases, one line each; any failure exits non-zero:
 
 1. the card (nvidia-smi name and power limit), versions, and the nvcc
    build of the CUDA kernels from csrc/ (all sources at once); for
-   rime_fwd.cu each kernel's registers and spills (ptxas), its FP64
-   instructions in the SASS (cuobjdump; none allowed), and each
-   variant's shared memory and resident blocks per SM;
+   rime_fwd.cu and rime_dtau.cu each kernel's registers and spills
+   (ptxas), its FP64 instructions in the SASS (cuobjdump; none
+   allowed), and each variant's shared memory and resident blocks per
+   SM;
 2. the RIME kernel (rime_fwd) against its plain PyTorch version in
    float64 (of the same float32 inputs), every ps / conj / out_imag
    case: small shapes, ragged runs (nstack = 3 at nf = 5 and 1000),
@@ -20,8 +21,10 @@ Phases, one line each; any failure exits non-zero:
    delays, and the hera-stat forward and backward shapes; each case
    launched twice, the two outputs bit-equal;
 3. the delay-cotangent kernel (rime_dtau) against its plain version the
-   same way, at nf=5 (rows wrap), nstack=3 x nf=24 and the hera-cal
-   shape, every ps / conj case;
+   same way, on phase 2's cases: small shapes, ragged passes (nstack = 3
+   at nf = 5 and 1000), K = 1, N = 1, N below one block, delays of at
+   most 1e-9 s, zero delays, hera-cal's longest delays and the hera-cal
+   shape; every ps / conj case launched twice, the outputs bit-equal;
 4. the autograd Function on the card against the CPU float64 plain
    path: the value and the gradients of psky, blvecs and s_c;
 5. main path 1, hera-stat at full width: a 331-antenna hex array (630
@@ -42,7 +45,9 @@ Phases, one line each; any failure exits non-zero:
    the CPU (float64, plain versions): a small sky/beam posterior and
    the hera-cal chain, loss and gradients;
 8. kernel and plain-version times at the main paths' shapes, each
-   kernel's bound, rime_fwd with its K split against one slice, and
+   kernel's bound, rime_fwd with its K split against one slice,
+   rime_dtau beside the previous design's time, with real and complex
+   ps, and
    k_rot and k_fwd timed at hera-stat's forward shape beside rime_fwd's
    times at both shapes (as a fraction of k_fwd's);
 9. main path 3, the microbenchmark spikes (bayeslim_tpu_torch/scripts/
@@ -72,6 +77,10 @@ GAINS = "models.cal.params"
 # the full-width configuration of both main paths
 HERA = dict(hexN=11, nside=32, nfreq=1024, fmax=200e6, ntime=2,
             pix_chunk=2048)
+# rime_dtau's previous design at the hera-cal shape (real ps), and a
+# hera-cal function evaluation's device time with it (chip_smoke.py on
+# an NVIDIA H100 80GB HBM3 at 700 W)
+DTAU_BEFORE_MS, CAL_EVAL_BEFORE_MS = 3.7004, 29.05
 # the TPU kernel each spike replaces (scripts/mosaic_spike.py)
 SPIKE_LINES = {"k_nn": 46, "k_nt": 65, "k_vt": 84, "k_lr": 100, "k_bd": 119,
                "k_rot": 147, "k_fwd": 180}
@@ -287,7 +296,8 @@ def dtau_bound_ms(rime_cuda, R, K, N, ps_real):
 
 def profile(torch, fn, label):
     """Run fn once under torch.profiler: device time by kernel and the
-    device's busy share of the wall time."""
+    device's busy share of the wall time. Returns the device time in ms,
+    or None when the profiler saw none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
     with tprofile(activities=[ProfilerActivity.CPU,
@@ -306,12 +316,13 @@ def profile(torch, fn, label):
     if not rows:
         print(f"{label}: the profiler saw no device time (not measured)",
               flush=True)
-        return
+        return None
     print(f"{label}: wall {wall * 1e3:.1f} ms under the profiler, device "
           f"busy {busy:.2f} ms ({busy / (wall * 1e3):.1%} of wall), "
           f"{len(rows)} kernel names", flush=True)
     for ms, n, key in rows[:10]:
         print(f"{label}:   {ms:9.3f} ms {n:5d}x {key[:90]}", flush=True)
+    return busy
 
 
 def ptxas_by_function(report):
@@ -351,31 +362,35 @@ def fp64_by_function(lib):
     return out
 
 
-def phase_fwd_build(torch, rime_cuda, dev, built):
-    """Phase 1, rime_fwd: each kernel's registers and spills (ptxas),
-    FP64 instructions in its SASS (none allowed), and for each variant
-    its shared memory per block and resident blocks per SM."""
-    path, _, report = built
-    for name, line in ptxas_by_function(report).items():
-        print(f"phase 1 rime_fwd.cu ptxas: {name}: {line}", flush=True)
-    fp64 = fp64_by_function(path)
-    if fp64 is None:
-        print("phase 1 rime_fwd.cu SASS: no cuobjdump, FP64 not counted",
+def phase_build(torch, rime_cuda, dev, built):
+    """Phase 1, rime_fwd.cu and rime_dtau.cu: each kernel's registers and
+    spills (ptxas), FP64 instructions in its SASS (none allowed), and
+    for each variant its shared memory per block and resident blocks per
+    SM."""
+    for src in ("rime_fwd.cu", "rime_dtau.cu"):
+        path, _, report = built[src]
+        for name, line in ptxas_by_function(report).items():
+            print(f"phase 1 {src} ptxas: {name}: {line}", flush=True)
+        fp64 = fp64_by_function(path)
+        if fp64 is None:
+            print(f"phase 1 {src} SASS: no cuobjdump, FP64 not counted",
+                  flush=True)
+            continue
+        print(f"phase 1 {src} SASS: FP64 instructions by kernel {fp64}",
               flush=True)
-    else:
-        print(f"phase 1 rime_fwd.cu SASS: FP64 instructions by kernel "
-              f"{fp64}", flush=True)
         check(fp64 and not any(fp64.values()),
-              f"rime_fwd.cu runs FP64 instructions: {fp64}")
-    for ps_real in (True, False):
-        for out_imag in (True, False):
-            regs, smem, per_sm, sms = rime_cuda.fwd_info(dev, ps_real,
-                                                         out_imag)
-            print(f"phase 1 rime_fwd kernel ps_real={ps_real} "
-                  f"out_imag={out_imag}: {regs} registers, {smem} bytes of "
-                  f"shared memory a block, {per_sm} blocks per SM on {sms} "
-                  f"SMs", flush=True)
-            check(per_sm >= 1, "rime_fwd kernel cannot be resident")
+              f"{src} runs FP64 instructions: {fp64}")
+    variants = [("rime_fwd", dict(ps_real=r, out_imag=o),
+                 rime_cuda.fwd_info(dev, r, o))
+                for r in (True, False) for o in (True, False)]
+    variants += [("rime_dtau", dict(ps_real=r), rime_cuda.dtau_info(dev, r))
+                 for r in (True, False)]
+    for kernel, flags, (regs, smem, per_sm, sms) in variants:
+        print(f"phase 1 {kernel} kernel "
+              + " ".join(f"{k}={v}" for k, v in flags.items())
+              + f": {regs} registers, {smem} bytes of shared memory a "
+              f"block, {per_sm} blocks per SM on {sms} SMs", flush=True)
+        check(per_sm >= 1, f"{kernel} kernel cannot be resident")
 
 
 def phase_fwd_vs_plain(torch, rime_cuda, dev, rng, f0, df):
@@ -447,13 +462,27 @@ def phase_fwd_vs_plain(torch, rime_cuda, dev, rng, f0, df):
 
 def phase_dtau_vs_plain(torch, rime_cuda, dev, rng, f0, df):
     """Phase 3; returns the worst abs error at the hera-cal shape."""
-    shapes = [("small", 5, 2 * 5, 300, 70),       # nf=5: rows wrap
-              ("small", 24, 3 * 24, 100, 45),
-              ("hera-cal", 1024, 1024, 6144, 630)]
+    tmax = longest_delay()
+    # (label, nf, R, K, N, delays drawn uniform in +-tau_max)
+    shapes = [("small", 5, 2 * 5, 300, 70, 1e-6),     # passes of 5 rows
+              ("small", 24, 3 * 24, 100, 45, 1e-6),
+              ("ragged passes", 5, 3 * 5, 300, 70, 1e-6),
+              ("ragged passes", 1000, 3 * 1000, 100, 45, 1e-6),
+              ("K=1", 24, 3 * 24, 1, 45, 1e-6),
+              ("N=1", 24, 3 * 24, 100, 1, 1e-6),
+              ("N below one block", 24, 2 * 24, 100, 30, 1e-6),
+              ("delays <= 1e-9 s", 24, 3 * 24, 300, 45, 1e-9),
+              ("zero delays", 24, 3 * 24, 300, 45, 0.0),
+              (f"hera-cal longest delays (+-{tmax:.4e} s)", 1024, 1024,
+               256, 64, tmax),
+              ("hera-cal", 1024, 1024, 6144, 630, 1e-6)]
     worst = 0.0
-    for label, nf, R, K, N in shapes:
+    for label, nf, R, K, N, tau_max in shapes:
         for ps_real in (True, False):
-            ps, tauT = rand_case(rng, R, K, N, ps_real)
+            ps, tauT = rand_case(rng, R, K, N, ps_real, tau_max)
+            if label.startswith("hera-cal longest"):
+                # every delay within 1 % of the longest, either sign
+                tauT = np.sign(tauT) * tmax * rng.uniform(0.99, 1, tauT.shape)
             ct = rng.standard_normal((R, N)) + 1j * rng.standard_normal((R, N))
             ps32 = torch.as_tensor(ps, dtype=torch.float32 if ps_real
                                    else torch.complex64, device=dev)
@@ -461,21 +490,26 @@ def phase_dtau_vs_plain(torch, rime_cuda, dev, rng, f0, df):
             ct32 = torch.as_tensor(ct, dtype=torch.complex64, device=dev)
             for conj in (False, True):
                 a = rime_cuda.rime_dtau(ct32, ps32, tau32, f0, df, nf, conj)
+                again = rime_cuda.rime_dtau(ct32, ps32, tau32, f0, df, nf,
+                                            conj)
                 b = rime_cuda.rime_dtau_plain(
                     ct32.to(torch.complex128),
                     ps32.to(torch.complex128 if not ps_real
                             else torch.float64),
                     tau32.double(), f0, df, nf, conj)
                 torch.cuda.synchronize()
+                same = bool(torch.equal(a, again))
                 a, b = a.cpu().numpy(), b.cpu().numpy()
                 err = relerr(a, b)
                 abs_err = float(np.abs(a - b).max())
                 case = (f"{label} R={R} K={K} N={N} nf={nf} "
                         f"ps_real={ps_real} conj={conj}")
                 print(f"phase 3 rime_dtau vs plain: {case}: rel {err:.2e} "
-                      f"(tol {TOL:g}) abs {abs_err:.2e}", flush=True)
+                      f"(tol {TOL:g}) abs {abs_err:.2e}; a second launch "
+                      f"{'bit-equal' if same else 'DIFFERS'}", flush=True)
                 check(a.shape == (K, N) and np.isfinite(err) and err <= TOL,
                       f"rime_dtau vs plain {case}: {err:.2e}")
+                check(same, f"rime_dtau {case}: two launches differ")
                 if label == "hera-cal":
                     worst = max(worst, abs_err)
     return worst
@@ -612,8 +646,12 @@ def phase_hera_cal(bt, torch, rime_cuda, pix_chunks, size=HERA):
           "hera-cal step took 10 GiB or more of device memory")
     check(fwd == expect and dtau == expect,
           f"hera-cal launches rime_fwd {fwd}, rime_dtau {dtau} != {expect}")
-    profile(torch, prob.value_and_grad,
-            "phase 6 profile of one function evaluation")
+    busy = profile(torch, prob.value_and_grad,
+                   "phase 6 profile of one function evaluation")
+    if busy is not None:
+        print(f"phase 6 device time of one function evaluation {busy:.2f} ms "
+              f"(with rime_dtau's previous design: {CAL_EVAL_BEFORE_MS} ms)",
+              flush=True)
     return fwd, dtau
 
 
@@ -771,7 +809,7 @@ def main():
         print(f"phase 1 build: {src} -> {os.path.relpath(path, ROOT)} "
               f"nvcc {secs:.1f} s; {' | '.join(regs)}", flush=True)
     print(f"phase 1 build total {time.time() - t0:.1f} s", flush=True)
-    phase_fwd_build(torch, rime_cuda, dev, built["rime_fwd.cu"])
+    phase_build(torch, rime_cuda, dev, built)
 
     f0, df = 100e6, 100e6 / 1023
     rng = np.random.default_rng(0)
@@ -811,22 +849,32 @@ def main():
             ps32, tau32, f0, df, R, conj, out_imag, 1, Kk), 20)
         print(f"phase 8 K split: rime_fwd {label}: {S} slices (used) "
               f"{ms:.4f} ms, one slice {nms:.4f} ms", flush=True)
-    # hera-cal: real ps (a power beam on a Stokes-I sky), conj False
-    ps, tauT = rand_case(rng, R, K, N, True)
-    ct = rng.standard_normal((R, N)) + 1j * rng.standard_normal((R, N))
-    ps32 = torch.as_tensor(ps, dtype=torch.float32, device=dev)
-    tau32 = torch.as_tensor(tauT, dtype=torch.float32, device=dev)
-    ct32 = torch.as_tensor(ct, dtype=torch.complex64, device=dev)
-    dms = cuda_ms(torch, lambda: rime_cuda.rime_dtau(
-        ct32, ps32, tau32, f0, df, R), 20)
-    dpms = cuda_ms(torch, lambda: rime_cuda.rime_dtau_plain(
-        ct32, ps32, tau32, f0, df, R), 3)
-    dbms, dby = dtau_bound_ms(rime_cuda, R, K, N, True)
-    print(f"phase 8 times: rime_dtau hera-cal R={R} K={K} N={N} "
-          f"ps_real=True: kernel {dms:.4f} ms, plain {dpms:.3f} ms, bound "
-          f"{dbms:.4f} ms ({dby}), kernel at {dbms / dms:.1%} of bound; no "
-          f"single PyTorch call computes this fused function, so no library "
-          f"time", flush=True)
+    # hera-cal: real ps (a power beam on a Stokes-I sky), conj False; the
+    # complex-ps variant at the same shape beside it
+    dtau_t = {}
+    for ps_real in (True, False):
+        ps, tauT = rand_case(rng, R, K, N, ps_real)
+        ct = rng.standard_normal((R, N)) + 1j * rng.standard_normal((R, N))
+        ps32 = torch.as_tensor(ps, dtype=torch.float32 if ps_real
+                               else torch.complex64, device=dev)
+        tau32 = torch.as_tensor(tauT, dtype=torch.float32, device=dev)
+        ct32 = torch.as_tensor(ct, dtype=torch.complex64, device=dev)
+        dms = cuda_ms(torch, lambda: rime_cuda.rime_dtau(
+            ct32, ps32, tau32, f0, df, R), 20)
+        dpms = cuda_ms(torch, lambda: rime_cuda.rime_dtau_plain(
+            ct32, ps32, tau32, f0, df, R), 3)
+        dbms, dby = dtau_bound_ms(rime_cuda, R, K, N, ps_real)
+        dtau_t[ps_real] = (dms, dpms, dbms, dby)
+        old = (f"; the previous design (one output a thread, double "
+               f"seeds) ran {DTAU_BEFORE_MS} ms here on an NVIDIA H100 80GB "
+               f"HBM3 at 700 W, {DTAU_BEFORE_MS / dms:.2f}x this time"
+               if ps_real else "")
+        print(f"phase 8 times: rime_dtau hera-cal R={R} K={K} N={N} "
+              f"ps_real={ps_real}: kernel {dms:.4f} ms, plain {dpms:.3f} ms, "
+              f"bound {dbms:.4f} ms ({dby}), kernel at {dbms / dms:.1%} of "
+              f"bound{old}; no single PyTorch call computes this fused "
+              f"function, so no library time", flush=True)
+    dms, dpms, dbms, dby = dtau_t[True]
 
     # rime_fwd: the two shapes are launched equally often on hera-stat:
     # report the mean per launch

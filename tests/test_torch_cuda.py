@@ -177,6 +177,46 @@ def test_dtau_kernel_vs_plain(cuda, ps_real, nf, R, K, N):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("ps_real", [True, False])
+@pytest.mark.parametrize("nf,R,K,N,tau_max", [
+    (5, 15, 300, 70, 1e-6),            # 3 stacked blocks, passes of 5 rows
+    (1000, 3000, 100, 45, 1e-6),       # a ragged last pass of 8 rows
+    (24, 72, 1, 45, 1e-6),             # K = 1
+    (24, 72, 100, 1, 1e-6),            # N = 1
+    (24, 48, 100, 30, 1e-6),           # N below one block of baselines
+    (24, 72, 300, 45, 1e-9),           # |tau| <= 1e-9 s
+    (24, 72, 300, 45, 0.0),            # tau = 0
+    (1024, 1024, 256, 64, None),       # hera-cal's longest delays
+    (1024, 1024, 6144, 630, 1e-6)])    # the hera-cal shape
+def test_dtau_kernel_design_cases(cuda, ps_real, nf, R, K, N, tau_max):
+    """The cases rime_dtau's passes, tiles and seeds could get wrong,
+    each conj within 1e-4 of float64 (the plain version on the card) and
+    bit-equal over two launches."""
+    ps, tauT = _case(11, R, K, N, ps_real)
+    if tau_max is None:
+        tauT = np.sign(tauT) * _longest_delay() * np.random.default_rng(
+            12).uniform(0.99, 1, tauT.shape)
+    else:
+        tauT = tauT * (tau_max / 1e-6)
+    rng = np.random.default_rng(13)
+    ct = rng.standard_normal((R, N)) + 1j * rng.standard_normal((R, N))
+    cps = torch.as_tensor(ps, dtype=torch.float32 if ps_real
+                          else torch.complex64, device=cuda)
+    ctau = torch.as_tensor(tauT, dtype=torch.float32, device=cuda)
+    cct = torch.as_tensor(ct, dtype=torch.complex64, device=cuda)
+    for conj in (False, True):
+        a = rime_cuda.rime_dtau(cct, cps, ctau, F0, DF, nf, conj)
+        assert torch.equal(a, rime_cuda.rime_dtau(cct, cps, ctau, F0, DF,
+                                                  nf, conj))
+        b = rime_cuda.rime_dtau_plain(
+            cct.to(torch.complex128),
+            cps.to(torch.float64 if ps_real else torch.complex128),
+            ctau.double(), F0, DF, nf, conj)
+        assert a.shape == (K, N)
+        assert _relerr(a.cpu().numpy(), b.cpu().numpy()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps_real", [True, False])
 @pytest.mark.parametrize("conj", [False, True])
 def test_fused_function_delay_grads_on_card(cuda, ps_real, conj):
     """The blvecs and s_c gradients of RimeFusedBS through rime_dtau
@@ -229,6 +269,11 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         rime_cuda.rime_dtau(ct[:, :2], ps, tau, F0, DF, 8)
     with pytest.raises(ValueError):
         rime_cuda.rime_dtau(ct.cpu(), ps, tau, F0, DF, 8)
+    with pytest.raises(ValueError, match="2\\^24"):
+        rime_cuda.rime_dtau(torch.zeros(big, 1, dtype=torch.complex64,
+                                        device=cuda),
+                            torch.zeros(big, 1, device=cuda),
+                            torch.zeros(1, 1, device=cuda), F0, DF, big)
 
 
 @pytest.mark.cuda

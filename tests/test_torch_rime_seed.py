@@ -1,5 +1,6 @@
 """The arithmetic and the launch plan of the rime_fwd CUDA kernel
-(bayeslim_tpu_torch/csrc/rime_fwd.cu), on the CPU.
+(bayeslim_tpu_torch/csrc/rime_fwd.cu, with its phase helpers in
+csrc/phasor.cuh), on the CPU.
 
 The kernel runs only on the card (tests/test_torch_cuda.py). Here:
 
@@ -29,7 +30,7 @@ def _fma(a, b, c):
 
 
 def _cfrac(x):
-    """rime_fwd.cu `cfrac` (:89): x mod 1 in [-1/2, 1/2], exact."""
+    """phasor.cuh `cfrac` (:19): x mod 1 in [-1/2, 1/2], exact."""
     return f32(x - np.rint(x))
 
 
@@ -52,7 +53,7 @@ def _sincos_sfu(x):
 
 
 def _cycles(split, t):
-    """rime_fwd.cu `cycles` (:97): f t mod 1 as hi + lo for f = a + b +
+    """phasor.cuh `cycles` (:27): f t mod 1 as hi + lo for f = a + b +
     lo, split products and TwoSum."""
     a, b, lo = (f32(v) for v in split)
     x = f32(a * t)
@@ -67,8 +68,20 @@ def _cycles(split, t):
 
 
 def _cmul(c, s, dc, ds):
-    """rime_fwd.cu `cmul` (:145)."""
+    """phasor.cuh `cmul` (:55)."""
     return _fma(c, dc, -f32(s * ds)), _fma(s, dc, f32(c * ds))
+
+
+def _run_seed(c0, c1h, c1l, k0, sgn):
+    """phasor.cuh `run_seed` (:44-52): (c0 + k0 c1) mod 1 in [-1/2, 1/2],
+    k0 c1h = p + pe exactly; sin/cos from the SFU. Returns (cos, sgn sin)."""
+    k0f = f32(k0)
+    p = f32(k0f * c1h)
+    pe = _fma(k0f, c1h, -p)
+    ph = _cfrac(f32(f32(_cfrac(p) + f32(pe + f32(k0f * c1l))) + c0))
+    assert np.all(np.abs(ph) <= 0.5)
+    s, c = _sincos_sfu(f32(6.283185307) * ph)
+    return c, f32(sgn) * s
 
 
 def model_phasors(tau, f0, df, nf, sgn=1.0):
@@ -76,7 +89,7 @@ def model_phasors(tau, f0, df, nf, sgn=1.0):
     shape, computed as rime_fwd.cu does, in float32."""
     t = f32(tau)
     sg_ = f32(sgn)
-    # the tile's phase table (rime_fwd.cu :249-262): c0, c1 = c1h + c1l,
+    # the tile's phase table (rime_fwd.cu :202-214): c0, c1 = c1h + c1l,
     # D and D^4 by sincospif
     c0h, c0l = _cycles(phase._split_f32(f0), t)
     c1h, c1l = _cycles(phase._split_f32(df), t)
@@ -89,21 +102,13 @@ def model_phasors(tau, f0, df, nf, sgn=1.0):
     d2c, d2s = _cmul(cd, sd, cd, sd)
     out = np.zeros((nf,) + t.shape, dtype=np.complex128)
     for k0 in range(0, nf, RT):
-        # run_seed (rime_fwd.cu :134-142): (c0 + k0 c1) mod 1 in
-        # [-1/2, 1/2], k0 c1h = p + pe exactly; sin/cos from the SFU
-        k0f = f32(k0)
-        p = f32(k0f * c1h)
-        pe = _fma(k0f, c1h, -p)
-        ph = _cfrac(f32(f32(_cfrac(p) + f32(pe + f32(k0f * c1l))) + c0))
-        assert np.all(np.abs(ph) <= 0.5)
-        s, c = _sincos_sfu(f32(6.283185307) * ph)
-        e = [(c, sg_ * s)]
-        # rows 1 .. 7, three products deep: D, D^2, D^4 (:274-286)
+        e = [_run_seed(c0, c1h, c1l, k0, sg_)]
+        # rows 1 .. 7, three products deep: D, D^2, D^4 (rime_fwd.cu :227-239)
         e.append(_cmul(*e[0], cd, sd))
         e.append(_cmul(*e[0], d2c, d2s))
         e.append(_cmul(*e[1], d2c, d2s))
         e += [_cmul(*e[g], c4, s4) for g in range(4)]
-        # 4 chains, two-term recurrence over rows g + 4 j (:288-306)
+        # 4 chains, two-term recurrence over rows g + 4 j (:241-259)
         while len(e) < RT:
             j = len(e)
             e += [(_fma(two_c4, e[j - 4 + g][0], -e[j - 8 + g][0]),
