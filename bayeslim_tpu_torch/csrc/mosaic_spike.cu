@@ -28,23 +28,271 @@
 // element in k_rot, a rotation and two FMAs per triple in k_fwd. Every
 // kernel uses plain FFMA: no TF32, no tensor cores.
 //
-// These are first, simple kernels: one owner thread per output (k_fwd
-// adds its c-slices with atomics), shared-memory tiles where operands
-// are reused, nothing asynchronous.
+// k_nn and k_nt share a ring-buffered SGEMM (below), redesigned for
+// the card. The others are first, simple kernels: one owner thread per
+// output (k_fwd adds its c-slices with atomics), shared-memory tiles
+// where operands are reused, nothing asynchronous; k_bd keeps the first
+// SGEMM tile as its own.
+//
+// ---- The SGEMM of k_nn and k_nt (sgemm_ring). C (M, N) = A (M, K) B,
+// B stored (K, N) for k_nn and (N, K) for k_nt (C = A B^T). At the
+// spike's shape (M = 1024, N = K = 256) the bound is 2 M N K FLOP at
+// the FP32 rate, 2.0 us; the first tile (64 x 64, 8 warps a block,
+// scalar staging that waited for each 16-deep slice) ran 12-14x that.
+// What the design does:
+//
+// - Fill the card: 64 x 32 output tiles, so 16 x 8 = 128 blocks on the
+//   132 SMs at the spike's shape (the 64 x 64 tile gave 64 blocks, half
+//   the card idle). 128 threads a block; each owns 4 rows x 4 columns
+//   in registers, rows ty + 16 i (ty = tid / 8) and columns tx + 8 j
+//   (k_nt) or 4 tx + j (k_nn), tx = tid % 8.
+// - Copy without registers: cp.async in 16-byte chunks straight into
+//   shared memory, no transposes. A lands as [m][k]; B as [n][k] for
+//   k_nt and as [k][n] for k_nn, each row padded by 4 words. The inner
+//   loop takes 4 k at a time: per row of A one LDS.128 of 4 k; per
+//   column of B (k_nt) one LDS.128 of 4 k, or per k (k_nn) one LDS.128
+//   of 4 columns: 8 LDS.128 for 64 FFMA. A warp's lanes read 4 rows of
+//   A (offsets 4 words apart in the banks: no conflict, the 8 lanes of
+//   a row broadcast) and 8 columns of B (4 words apart, or 128
+//   contiguous bytes for k_nn).
+// - Keep the loads in flight: a ring of SG_STAGES = 2 slots of SG_BK =
+//   64 k (26 KB each, 51-52 KB of dynamic shared memory). The first
+//   slice is issued before the loop, each slice its own commit group;
+//   the loop waits for slice kt (cp.async.wait_group), passes one
+//   barrier, issues slice kt + SG_STAGES - 1 into the slot that slice
+//   kt - 1 used (every thread has left it at that barrier) and computes
+//   slice kt, so the next slice loads while this one computes. Two
+//   slots, not four: with four, slices 0-2 were issued together and
+//   shared the memory system, so the first one, which the loop waits
+//   for, landed later; two slots ran in 0.89-0.93x the time of four
+//   (bayeslim_tpu_torch/scripts/sgemm_variants.py on the card).
+// - Ragged edges: rows and columns past M or N and k past K are
+//   zero-filled by cp.async's src-size operand (nothing is read) and the
+//   stores are masked. When K (k_nn: or N) is not a multiple of 4, or A
+//   or B is not 16-byte aligned, the launcher picks the same kernel
+//   with 4-byte chunks (template CH). The wrapper's sgemm_plan
+//   (bayeslim_tpu_torch/scripts/mosaic_spike.py) mirrors the launcher's
+//   choice, grid and shared memory; the C sgemm_plan below gives the
+//   launcher's own, for the card's check of the two.
+// - Fixed order: each output is one thread's chain of fmaf over k = 0,
+//   1, ..., K - 1 (the zero-filled k add exact zeros), so two launches
+//   are bit-equal. FFMA only: no TF32, no tensor cores, no FP64.
+//
+// What still bounds it at the spike's shape (sgemm_variants.py on the
+// card; PERF.md): the copies, barriers and stores alone take ~70 % of
+// the kernel's time and the inner loop alone ~80 %, so neither hides
+// behind the other. If an LDS.128 takes one shared-memory wavefront a
+// quarter warp (counted, not measured), the loop needs 32 wavefronts a
+// warp per 64 FFMA, twice its FFMA time. Larger thread tiles halve that
+// but leave fewer warps than schedulers, or fewer blocks than SMs, at
+// this shape; a K split across blocks is the next lever.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-// ---- k_nn, k_nt, k_bd: a tiled FP32 SGEMM. A block computes a 64 x 64
-// tile of C, staging 16-deep slices of A (transposed) and B in shared
-// memory; each of its 256 threads keeps a 4 x 4 register block.
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// cp.async of CH (16 or 4) bytes from global src to shared dst; zeros
+// when `in` is false (src-size 0: nothing is read)
+template <int CH>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool in)
+{
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    if constexpr (CH == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                     :: "r"(d), "l"(src), "r"(in ? 16 : 0));
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                     :: "r"(d), "l"(src), "r"(in ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit()
+{
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most n of this thread's commit groups are in flight
+template <int n>
+__device__ __forceinline__ void cp_async_wait()
+{
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(n) : "memory");
+}
+
+// ---- k_nn, k_nt: the ring-buffered SGEMM (design in the header)
+constexpr int SG_BM = 64, SG_BN = 32, SG_BK = 64, SG_STAGES = 2;
+// 4 x 4 outputs a thread: SG_TX threads across the columns, SG_TY down
+constexpr int SG_TX = SG_BN / 4, SG_TY = SG_BM / 4, SG_T = SG_TX * SG_TY;
+constexpr int SG_LDK = SG_BK + 4;      // words a row of A, or of B for k_nt
+constexpr int SG_LDN = SG_BN + 4;      // words a k-row of B for k_nn
+
+__host__ __device__ constexpr int sg_stage_words(bool nt)
+{
+    return SG_BM * SG_LDK + (nt ? SG_BN * SG_LDK : SG_BK * SG_LDN);
+}
+
+// A slice of k: rows x SG_BK (stride K) or SG_BK x cols (stride N) of a
+// row-major operand, staged as CH-byte chunks along its contiguous axis
+// into dst (row stride ld); chunks past (rows_in, cols_in) are zeros
+template <int CH, int ROWS, int COLS>
+__device__ __forceinline__ void sg_stage(float* dst, int ld,
+                                         const float* __restrict__ src,
+                                         int stride, int r0, int c0,
+                                         int rows_in, int cols_in)
+{
+    constexpr int W = CH / 4;                   // words a chunk
+    constexpr int PER_ROW = COLS / W;
+    static_assert(ROWS * PER_ROW % SG_T == 0, "chunks fill the threads");
+#pragma unroll
+    for (int it = 0; it < ROWS * PER_ROW / SG_T; ++it) {
+        const int i = it * SG_T + threadIdx.x;
+        const int r = i / PER_ROW, c = (i % PER_ROW) * W;
+        const bool in = r0 + r < rows_in && c0 + c < cols_in;
+        cp_async<CH>(dst + r * ld + c,
+                     in ? src + (size_t)(r0 + r) * stride + c0 + c : src,
+                     in);
+    }
+}
+
+template <bool NT, int CH>
+__device__ __forceinline__ void sgemm_ring(
+    const float* __restrict__ A, const float* __restrict__ B,
+    float* __restrict__ C, int M, int N, int K)
+{
+    extern __shared__ __align__(16) float sg_smem[];
+    constexpr int STAGE = sg_stage_words(NT);
+    const int tx = threadIdx.x % SG_TX, ty = threadIdx.x / SG_TX;
+    const int m0 = blockIdx.y * SG_BM, n0 = blockIdx.x * SG_BN;
+    const int nk = cdiv(K, SG_BK);
+
+    auto load = [&](int slot, int kt) {
+        float* As = sg_smem + slot * STAGE;
+        float* Bs = As + SG_BM * SG_LDK;
+        const int k0 = kt * SG_BK;
+        sg_stage<CH, SG_BM, SG_BK>(As, SG_LDK, A, K, m0, k0, M, K);
+        if constexpr (NT)
+            sg_stage<CH, SG_BN, SG_BK>(Bs, SG_LDK, B, K, n0, k0, N, K);
+        else
+            sg_stage<CH, SG_BK, SG_BN>(Bs, SG_LDN, B, N, k0, n0, K, N);
+    };
+
+#pragma unroll
+    for (int s = 0; s < SG_STAGES - 1; ++s) {
+        if (s < nk) load(s, s);
+        cp_async_commit();
+    }
+
+    float acc[4][4] = {};
+    for (int kt = 0; kt < nk; ++kt) {
+        cp_async_wait<SG_STAGES - 2>();        // slice kt has landed
+        __syncthreads();
+        if (kt + SG_STAGES - 1 < nk)
+            load((kt + SG_STAGES - 1) % SG_STAGES, kt + SG_STAGES - 1);
+        cp_async_commit();
+
+        const float* As = sg_smem + (kt % SG_STAGES) * STAGE;
+        const float* Bs = As + SG_BM * SG_LDK;
+#pragma unroll
+        for (int kk = 0; kk < SG_BK; kk += 4) {
+            float a[4][4], b[4][4];            // a[row][k]; b[col][k] or b[k][col]
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                *reinterpret_cast<float4*>(a[i]) =
+                    *reinterpret_cast<const float4*>(
+                        &As[(ty + SG_TY * i) * SG_LDK + kk]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                *reinterpret_cast<float4*>(b[j]) =
+                    NT ? *reinterpret_cast<const float4*>(
+                             &Bs[(tx + SG_TX * j) * SG_LDK + kk])
+                       : *reinterpret_cast<const float4*>(
+                             &Bs[(kk + j) * SG_LDN + 4 * tx]);
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+#pragma unroll
+                    for (int j = 0; j < 4; ++j)
+                        acc[i][j] = fmaf(a[i][q], NT ? b[j][q] : b[q][j],
+                                         acc[i][j]);
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int r = m0 + ty + SG_TY * i;
+        if (r >= M) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int c = n0 + (NT ? tx + SG_TX * j : 4 * tx + j);
+            if (c < N) C[(size_t)r * N + c] = acc[i][j];
+        }
+    }
+}
+
+// The launch of sgemm_ring: its grid, chunk bytes (16 when K, for k_nn
+// also N, is a multiple of 4 and A and B are 16-byte aligned, else 4)
+// and dynamic shared memory
+struct SgemmPlan {
+    dim3 grid;
+    int chunk, smem;
+};
+
+SgemmPlan sgemm_plan_of(bool nt, const void* A, const void* B, int M,
+                        int N, int K)
+{
+    const bool vec = K % 4 == 0 && (nt || N % 4 == 0)
+        && reinterpret_cast<uintptr_t>(A) % 16 == 0
+        && reinterpret_cast<uintptr_t>(B) % 16 == 0;
+    return {dim3(cdiv(N, SG_BN), cdiv(M, SG_BM)), vec ? 16 : 4,
+            SG_STAGES * sg_stage_words(nt) * (int)sizeof(float)};
+}
+
+// out (M, N) = ps (M, K) m (K, N): M = NF, N = TB, K = TC
+template <int CH>
+__global__ void __launch_bounds__(SG_T)
+k_nn(const float* __restrict__ ps, const float* __restrict__ m,
+     float* __restrict__ out, int M, int N, int K)
+{
+    sgemm_ring<false, CH>(ps, m, out, M, N, K);
+}
+
+// out (M, N) = ct (M, K) m (N, K)^T: M = NF, N = TC, K = TB
+template <int CH>
+__global__ void __launch_bounds__(SG_T)
+k_nt(const float* __restrict__ ct, const float* __restrict__ m,
+     float* __restrict__ out, int M, int N, int K)
+{
+    sgemm_ring<true, CH>(ct, m, out, M, N, K);
+}
+
+// k_nn (NT false: A = ps, B = m) or k_nt (A = ct, B = m), C (M, N)
+template <bool NT>
+int launch_sgemm(const void* A, const void* B, void* C, int M, int N,
+                 int K, cudaStream_t s)
+{
+    const SgemmPlan p = sgemm_plan_of(NT, A, B, M, N, K);
+    auto kernel = NT ? (p.chunk == 16 ? k_nt<16> : k_nt<4>)
+                     : (p.chunk == 16 ? k_nn<16> : k_nn<4>);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<p.grid, SG_T, p.smem, s>>>(
+        static_cast<const float*>(A), static_cast<const float*>(B),
+        static_cast<float*>(C), M, N, K);
+    return (int)cudaGetLastError();
+}
+
+// ---- k_bd: the first SGEMM tile, kept for k_bd alone. A block
+// computes a 64 x 64 tile of C, staging 16-deep slices of A (transposed)
+// and B in shared memory; each of its 256 threads keeps a 4 x 4
+// register block.
 constexpr int GM = 64, GN = 64, GK = 16, GT = 256;
 
-// C[M, N] = scale_r sum_k A[r, k] B[k, n]; B is stored (N, K) when B_T.
-// scale_r = 1 + (r mod G) for G > 0, else 1.
-template <bool B_T>
-__device__ __forceinline__ void sgemm_tile(
+// C[M, N] = scale_r sum_k A[r, k] B[k, n], scale_r = 1 + (r mod G)
+__device__ __forceinline__ void bd_tile(
     const float* __restrict__ A, const float* __restrict__ B,
     float* __restrict__ C, int M, int N, int K, int G)
 {
@@ -62,13 +310,9 @@ __device__ __forceinline__ void sgemm_tile(
             As[kk][r] = (gr < M && gk < K) ? A[(size_t)gr * K + gk] : 0.f;
         }
         for (int i = tid; i < GN * GK; i += GT) {
-            const int kk = B_T ? i % GK : i / GN;
-            const int c = B_T ? i / GK : i % GN;
+            const int kk = i / GN, c = i % GN;
             const int gc = n0 + c, gk = k0 + kk;
-            float v = 0.f;
-            if (gc < N && gk < K)
-                v = B_T ? B[(size_t)gc * K + gk] : B[(size_t)gk * N + gc];
-            Bs[kk][c] = v;
+            Bs[kk][c] = (gc < N && gk < K) ? B[(size_t)gk * N + gc] : 0.f;
         }
         __syncthreads();
 #pragma unroll
@@ -100,24 +344,10 @@ __device__ __forceinline__ void sgemm_tile(
 }
 
 __global__ void __launch_bounds__(GT)
-k_nn(const float* __restrict__ ps, const float* __restrict__ m,
-     float* __restrict__ out, int NF, int TC, int TB)
-{
-    sgemm_tile<false>(ps, m, out, NF, TB, TC, 0);
-}
-
-__global__ void __launch_bounds__(GT)
-k_nt(const float* __restrict__ ct, const float* __restrict__ m,
-     float* __restrict__ out, int NF, int TB, int TC)
-{
-    sgemm_tile<true>(ct, m, out, NF, TC, TB, 0);
-}
-
-__global__ void __launch_bounds__(GT)
 k_bd(const float* __restrict__ ps, const float* __restrict__ m,
      float* __restrict__ out, int NF, int TC, int TB, int G)
 {
-    sgemm_tile<false>(ps, m, out, NF, TB, TC, G);
+    bd_tile(ps, m, out, NF, TB, TC, G);
 }
 
 // ---- k_vt: one thread per (c, b), NF dependent FMAs; ps[j, c] is the
@@ -315,8 +545,6 @@ void launch_fwd(const float* tau, const float* ps, float* ore, float* oim,
     k_fwd<G><<<grid, block, 0, s>>>(tau, ps, ore, oim, TC, TB, NF, cslice);
 }
 
-inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-
 }  // namespace
 
 // C launchers: each launches on `stream` and returns cudaGetLastError()
@@ -324,21 +552,31 @@ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 extern "C" int k_nn_launch(const void* ps, const void* m, void* out, int NF,
                            int TC, int TB, void* stream)
 {
-    k_nn<<<dim3(cdiv(TB, GN), cdiv(NF, GM)), GT, 0,
-           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(ps), static_cast<const float*>(m),
-        static_cast<float*>(out), NF, TC, TB);
-    return static_cast<int>(cudaGetLastError());
+    return launch_sgemm<false>(ps, m, out, NF, TB, TC,
+                               static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int k_nt_launch(const void* ct, const void* m, void* out, int NF,
                            int TB, int TC, void* stream)
 {
-    k_nt<<<dim3(cdiv(TC, GN), cdiv(NF, GM)), GT, 0,
-           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(ct), static_cast<const float*>(m),
-        static_cast<float*>(out), NF, TB, TC);
-    return static_cast<int>(cudaGetLastError());
+    return launch_sgemm<true>(ct, m, out, NF, TC, TB,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// The launch that k_nn_launch (nt = 0: A = ps, B = m) or k_nt_launch (nt
+// = 1: A = ct, B = m) makes for C (M, N) = A B or A B^T: grid.x, grid.y,
+// chunk bytes and dynamic shared memory (the card's check of
+// the wrapper's sgemm_plan). Touches no memory.
+extern "C" int sgemm_plan(int nt, const void* A, const void* B, int M,
+                          int N, int K, int* gx, int* gy, int* chunk,
+                          int* smem)
+{
+    const SgemmPlan p = sgemm_plan_of(nt != 0, A, B, M, N, K);
+    *gx = (int)p.grid.x;
+    *gy = (int)p.grid.y;
+    *chunk = p.chunk;
+    *smem = p.smem;
+    return 0;
 }
 
 extern "C" int k_vt_launch(const void* ps, const void* m, void* out, int NF,

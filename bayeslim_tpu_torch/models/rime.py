@@ -8,7 +8,9 @@ Counterpart of bayeslim_tpu/models/rime.py (precompute :203,
   the padded FOV cut (indices + mask) and unit pointing vectors s, all
   stored as device tensors.
 - ``forward`` loops over times (the JAX package's lax.map): beam
-  evaluation, beam-weighted sky in model-pair space, and the pixel
+  evaluation and beam-weighted sky in model-pair space (``make_psky``,
+  checkpointed as the JAX one is, so the backward keeps only psky per
+  time), and the pixel
   reduction ``rime_reduce`` with the delay factored as blvecs @ s/c,
   which on CUDA runs the fused kernel. The simulated baselines expand
   to the data baselines through a host index (sim -> data redundancy).
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..data.containers import VisData
 from ..ops.rime_kernel import rime_reduce
@@ -112,11 +115,21 @@ class RIME(Module):
         sky = self.sky().data                       # (Nstokes, 1, Nf, Npix)
         blvecs = self.array.antvecs[self._a2] - self.array.antvecs[self._a1]
         mp1, mp2, mp_idx = self._mp
+
+        def make_psky(sky, zen, az, cut, mask):
+            csky = cut_sky_fov(sky, cut) * mask
+            beam = self.beam.gen_beam(zen, az)
+            return self.beam.apply_beam_mp(beam, mp1, mp2, csky)
+
         vis_t = []
         for pre in self._pre:
-            csky = cut_sky_fov(sky, pre["cut"]) * pre["mask"]
-            beam = self.beam.gen_beam(pre["zen"], pre["az"])
-            psky = self.beam.apply_beam_mp(beam, mp1, mp2, csky)
+            args = (sky, pre["zen"], pre["az"], pre["cut"], pre["mask"])
+            # psky's construction chains many (Nfreqs, Ncut) intermediates:
+            # checkpoint it, so the backward keeps only psky per time and
+            # recomputes the rest (the beam and sky hold no randomness)
+            psky = checkpoint(make_psky, *args, use_reentrant=False,
+                              preserve_rng_state=False) \
+                if torch.is_grad_enabled() else make_psky(*args)
             vis_t.append(rime_reduce(psky, None, self.freqs, mp_idx=mp_idx,
                                      chunk=self.pix_chunk,
                                      use_kernel=self.use_kernel,

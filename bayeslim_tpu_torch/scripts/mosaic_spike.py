@@ -25,7 +25,8 @@ A CUDA tensor launches the kernel and a CPU tensor runs the plain
 version ``run_*_plain``; there is no fallback from one to the other.
 Any dtype other than float32 raises, and so does NF % G != 0 (where the
 TPU loop would drop the last rows). ``launches`` counts each kernel's
-launches.
+launches. ``sgemm_plan`` gives the launch of k_nn's and k_nt's
+ring-buffered SGEMM (grid, tile, cp.async chunk, shared memory).
 """
 from __future__ import annotations
 
@@ -42,7 +43,8 @@ __all__ = ["TC", "TB", "G", "NF", "SPIKES", "launches", "mk", "unit_m",
            "run_rot", "run_fwd", "run_nn_plain", "run_nt_plain",
            "run_vt_plain", "run_lr_plain", "run_bd_plain", "run_rot_plain",
            "run_fwd_plain", "RUN", "PLAIN", "LIBRARY", "make_args",
-           "compare", "work", "loop_flops", "bound_ms", "FWD_G", "main"]
+           "compare", "work", "loop_flops", "bound_ms", "FWD_G", "main",
+           "sgemm_plan", "card_sgemm_plan"]
 
 TC, TB, G, NF = 256, 256, 8, 1024
 
@@ -65,6 +67,10 @@ launches = dict.fromkeys((name for name, _ in SPIKES), 0)
 _FWD_THREADS = 1 << 17
 # the chain counts G the k_fwd kernel is built for
 FWD_G = (1, 2, 4, 8, 16, 32)
+# the SGEMM of k_nn and k_nt (csrc/mosaic_spike.cu): output tile (rows,
+# columns), k a slice, slices in the shared-memory ring; a thread owns
+# 4 x 4 outputs
+SG_TILE, SG_BK, SG_STAGES = (64, 32), 64, 2
 _SRC = "mosaic_spike.cu"
 # argument types of csrc/mosaic_spike.cu's C launchers
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -170,16 +176,56 @@ def _empty(shape, like):
     return torch.empty(shape, dtype=torch.float32, device=like.device)
 
 
+def sgemm_plan(nt, M, N, K, ptrs=(0, 0)):
+    """The launch of csrc/mosaic_spike.cu's ring-buffered SGEMM for C
+    (M, N) = A (M, K) B: k_nn (nt False, B (K, N)) or k_nt (nt True, B
+    (N, K)), A and B at the addresses ptrs. Returns {"grid": (gx, gy),
+    "threads", "tile": (BM, BN, BK), "chunk": bytes a cp.async (16 when
+    K, for k_nn also N, is a multiple of 4 and both addresses are
+    16-byte aligned, else 4), "smem": dynamic shared memory in bytes}.
+    Mirrors the .cu's sgemm_plan_of, which the launcher follows."""
+    bm, bn = SG_TILE
+    vec = K % 4 == 0 and (nt or N % 4 == 0) and all(p % 16 == 0
+                                                    for p in ptrs)
+    b_words = bn * (SG_BK + 4) if nt else SG_BK * (bn + 4)
+    return {"grid": (-(-N // bn), -(-M // bm)), "threads": bm * bn // 16,
+            "tile": (bm, bn, SG_BK), "chunk": 16 if vec else 4,
+            "smem": 4 * SG_STAGES * (bm * (SG_BK + 4) + b_words)}
+
+
+def card_sgemm_plan(nt, M, N, K, ptrs):
+    """The launch that the C launcher of k_nn / k_nt makes, asked of the
+    built library (the card's check of sgemm_plan), as sgemm_plan's
+    dict without "threads" and "tile"."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    rime_cuda._lib(_SRC, "sgemm_plan", [_I, _P, _P, _I, _I, _I]
+                   + [ctypes.POINTER(_I)] * 4)(
+        int(nt), *ptrs, M, N, K, *(ctypes.byref(v) for v in vals))
+    gx, gy, chunk, smem = (v.value for v in vals)
+    return {"grid": (gx, gy), "chunk": chunk, "smem": smem}
+
+
+def _sgemm(name, a, b, nt):
+    """Launch k_nn / k_nt: out (M, N) = a b or a b^T, as sgemm_plan
+    says (the grid's rows must fit grid.y)."""
+    a, b = a.contiguous(), b.contiguous()
+    (M, K), N = a.shape, b.shape[0] if nt else b.shape[1]
+    plan = sgemm_plan(nt, M, N, K, (a.data_ptr(), b.data_ptr()))
+    if plan["grid"][1] > 65535:
+        raise ValueError(f"{name}: {M} rows exceed the kernel's grid "
+                         f"({plan['grid'][1]} row tiles > 65535)")
+    out = _empty((M, N), a)
+    _launch(name, a.device, a, b, out, M, K, N)
+    return out
+
+
 def run_nn(ps, m):
     """ps (NF, TC) @ m (TC, TB) -> (NF, TB)."""
     cuda = _operands("run_nn", ps, m)
     _same("run_nn", ps.shape[1], m.shape[0], "ps columns and m rows")
     if not cuda:
         return run_nn_plain(ps, m)
-    (nf, tc), tb = ps.shape, m.shape[1]
-    out = _empty((nf, tb), ps)
-    _launch("k_nn", ps.device, ps, m, out, nf, tc, tb)
-    return out
+    return _sgemm("k_nn", ps, m, nt=False)
 
 
 def run_nt(ct, m):
@@ -188,10 +234,7 @@ def run_nt(ct, m):
     _same("run_nt", ct.shape[1], m.shape[1], "ct and m columns")
     if not cuda:
         return run_nt_plain(ct, m)
-    (nf, tb), tc = ct.shape, m.shape[0]
-    out = _empty((nf, tc), ct)
-    _launch("k_nt", ct.device, ct, m, out, nf, tb, tc)
-    return out
+    return _sgemm("k_nt", ct, m, nt=True)
 
 
 def run_vt(ps, m):

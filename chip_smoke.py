@@ -18,13 +18,15 @@ Phases, one line each; any failure exits non-zero:
    case: small shapes, ragged runs (nstack = 3 at nf = 5 and 1000),
    K = 1, N = 1, K below one slice, delays of at most 1e-9 s, zero
    delays (the output is then the sum over c), hera-stat's longest
-   delays, and the hera-stat forward and backward shapes; each case
-   launched twice, the two outputs bit-equal;
+   delays, delays past hex-11 (every |tau| within 1 % of 3e-6 s), and
+   the hera-stat forward and backward shapes; each case launched twice,
+   the two outputs bit-equal;
 3. the delay-cotangent kernel (rime_dtau) against its plain version the
    same way, on phase 2's cases: small shapes, ragged passes (nstack = 3
    at nf = 5 and 1000), K = 1, N = 1, N below one block, delays of at
-   most 1e-9 s, zero delays, hera-cal's longest delays and the hera-cal
-   shape; every ps / conj case launched twice, the outputs bit-equal;
+   most 1e-9 s, zero delays, hera-cal's longest delays, delays past
+   hex-11 (within 1 % of 3e-6 s) and the hera-cal shape; every ps /
+   conj case launched twice, the outputs bit-equal;
 4. the autograd Function on the card against the CPU float64 plain
    path: the value and the gradients of psky, blvecs and s_c;
 5. main path 1, hera-stat at full width: a 331-antenna hex array (630
@@ -32,7 +34,9 @@ Phases, one line each; any failure exits non-zero:
    180 deg field of view, 2 times, an Airy power beam and a power-law
    sky, fitted to the redundant-group sufficient statistics by 3 Adam
    steps; rime_fwd launches must be exactly 2 x Ntimes x pixel chunks
-   per step; then one more step under torch.profiler;
+   per step; the step walls and peak memory beside those from before
+   psky's construction was checkpointed per time; then one more step
+   under torch.profiler;
 6. main path 2, hera-cal at full width: the same array, sky and beam
    (fixed), the 630 groups simulated and expanded to all 54,615 cross
    baselines, then per-antenna complex gains (JonesModel); antenna
@@ -51,12 +55,16 @@ Phases, one line each; any failure exits non-zero:
    k_rot and k_fwd timed at hera-stat's forward shape beside rime_fwd's
    times at both shapes (as a fraction of k_fwd's);
 9. main path 3, the microbenchmark spikes (bayeslim_tpu_torch/scripts/
-   mosaic_spike.py, the seven kernels of csrc/mosaic_spike.cu): each
-   kernel against its plain version in float64 at the script's sizes
-   and at a size that fills no tile (k_fwd there at every chain count G
-   it is built for); the spike's own entry point, main(), with every
-   kernel's launches counted (exactly 1 + 400 each); the plain
-   versions' times. Then the JSON line of all nine kernels.
+   mosaic_spike.py, the seven kernels of csrc/mosaic_spike.cu): the
+   ptxas report (registers, spills, static shared memory) of k_nn, k_nt
+   and k_bd, no FP64 in k_nn's and k_nt's SASS, and their launch plan;
+   each kernel against its plain version in float64 at the script's
+   sizes and at a size that fills no tile (k_fwd there at every chain
+   count G it is built for; k_nn and k_nt also at K % 4 != 0, and
+   launched twice, bit-equal); the spike's own entry point, main(), with
+   every kernel's launches counted (exactly 1 + 400 each); the plain
+   versions' times, k_nn's and k_nt's beside their library call's and
+   the previous design's. Then the JSON line of all nine kernels.
 
 The last line is {"ok": true, "device": {...}}. Exits non-zero without
 printing a result when no CUDA device or no package is present.
@@ -81,6 +89,16 @@ HERA = dict(hexN=11, nside=32, nfreq=1024, fmax=200e6, ntime=2,
 # hera-cal function evaluation's device time with it (chip_smoke.py on
 # an NVIDIA H100 80GB HBM3 at 700 W)
 DTAU_BEFORE_MS, CAL_EVAL_BEFORE_MS = 3.7004, 29.05
+# hera-stat before psky's construction was checkpointed: the second and
+# third step walls (ms) and the peak device memory (GiB), chip_smoke.py
+# on an NVIDIA H100 80GB HBM3 at 700 W
+STAT_STEPS_BEFORE_MS, STAT_PEAK_BEFORE_GIB = (22.8, 19.4), 2.15
+# k_nn's and k_nt's previous design (one 64 x 64 SGEMM tile shared with
+# k_bd) at the script's sizes, ms a launch (the same card)
+SGEMM_BEFORE_MS = {"k_nn": 0.0251, "k_nt": 0.0287}
+# delays past hex-11's longest (~1.0e-6 s) that phases 2 and 3 hold to
+# the same bar: |tau| within 1 % of this
+FAR_DELAY = 3e-6
 # the TPU kernel each spike replaces (scripts/mosaic_spike.py)
 SPIKE_LINES = {"k_nn": 46, "k_nt": 65, "k_vt": 84, "k_lr": 100, "k_bd": 119,
                "k_rot": 147, "k_fwd": 180}
@@ -326,7 +344,8 @@ def profile(torch, fn, label):
 
 
 def ptxas_by_function(report):
-    """{mangled kernel name: 'N registers, spills'} from nvcc -Xptxas -v."""
+    """{mangled kernel name: 'registers, barriers, static shared memory;
+    spills'} from nvcc -Xptxas -v."""
     out, name = {}, None
     for ln in report.splitlines():
         if "Compiling entry function" in ln:
@@ -335,8 +354,7 @@ def ptxas_by_function(report):
         elif name and "spill stores" in ln:
             out[name] = ln.strip()
         elif name and "Used" in ln and "registers" in ln:
-            out[name] = (ln.split(":", 1)[1].strip().split(",")[0] + "; "
-                         + out[name])
+            out[name] = ln.split(":", 1)[1].strip() + "; " + out[name]
     return out
 
 
@@ -408,15 +426,18 @@ def phase_fwd_vs_plain(torch, rime_cuda, dev, rng, f0, df):
               ("zero delays", 24, 3 * 24, 300, 45, 0.0),
               (f"hera-stat longest delays (+-{tmax:.4e} s)", 1024, 1024,
                256, 64, tmax),
+              (f"delays past hex-11 (+-{FAR_DELAY:g} s)", 1024, 1024, 256,
+               64, FAR_DELAY),
               ("hera-fwd", 1024, 1024, 6144, 630, 1e-6),
               ("hera-bwd", 1024, 1024, 630, 6144, 1e-6)]
-    worst = {}
+    worst, worst_rel = {}, {}
     for label, nf, R, K, N, tau_max in shapes:
         for ps_real in (True, False):
             ps, tauT = rand_case(rng, R, K, N, ps_real, tau_max)
-            if label.startswith("hera-stat longest"):
-                # every delay within 1 % of the longest, either sign
-                tauT = np.sign(tauT) * tmax * rng.uniform(0.99, 1, tauT.shape)
+            if label.startswith(("hera-stat longest", "delays past")):
+                # every delay within 1 % of the largest, either sign
+                tauT = np.sign(tauT) * tau_max * rng.uniform(0.99, 1,
+                                                             tauT.shape)
             ps32 = torch.as_tensor(ps, dtype=torch.float32 if ps_real
                                    else torch.complex64, device=dev)
             tau32 = torch.as_tensor(tauT, dtype=torch.float32, device=dev)
@@ -457,6 +478,10 @@ def phase_fwd_vs_plain(torch, rime_cuda, dev, rng, f0, df):
                           f"rime_fwd vs plain {case}: {err:.2e}")
                     check(same, f"rime_fwd {case}: two launches differ")
                     worst[label] = max(worst.get(label, 0.0), abs_err)
+                    worst_rel[label] = max(worst_rel.get(label, 0.0), err)
+    far = [k for k in worst_rel if k.startswith("delays past")][0]
+    print(f"phase 2 rime_fwd worst error at {far}: rel "
+          f"{worst_rel[far]:.2e}, abs {worst[far]:.2e}", flush=True)
     return worst
 
 
@@ -475,14 +500,17 @@ def phase_dtau_vs_plain(torch, rime_cuda, dev, rng, f0, df):
               ("zero delays", 24, 3 * 24, 300, 45, 0.0),
               (f"hera-cal longest delays (+-{tmax:.4e} s)", 1024, 1024,
                256, 64, tmax),
+              (f"delays past hex-11 (+-{FAR_DELAY:g} s)", 1024, 1024, 256,
+               64, FAR_DELAY),
               ("hera-cal", 1024, 1024, 6144, 630, 1e-6)]
-    worst = 0.0
+    worst, far = 0.0, [0.0, 0.0]
     for label, nf, R, K, N, tau_max in shapes:
         for ps_real in (True, False):
             ps, tauT = rand_case(rng, R, K, N, ps_real, tau_max)
-            if label.startswith("hera-cal longest"):
-                # every delay within 1 % of the longest, either sign
-                tauT = np.sign(tauT) * tmax * rng.uniform(0.99, 1, tauT.shape)
+            if label.startswith(("hera-cal longest", "delays past")):
+                # every delay within 1 % of the largest, either sign
+                tauT = np.sign(tauT) * tau_max * rng.uniform(0.99, 1,
+                                                             tauT.shape)
             ct = rng.standard_normal((R, N)) + 1j * rng.standard_normal((R, N))
             ps32 = torch.as_tensor(ps, dtype=torch.float32 if ps_real
                                    else torch.complex64, device=dev)
@@ -512,6 +540,11 @@ def phase_dtau_vs_plain(torch, rime_cuda, dev, rng, f0, df):
                 check(same, f"rime_dtau {case}: two launches differ")
                 if label == "hera-cal":
                     worst = max(worst, abs_err)
+                if label.startswith("delays past"):
+                    far = [max(far[0], err), max(far[1], abs_err)]
+    print(f"phase 3 rime_dtau worst error at delays past hex-11 "
+          f"(+-{FAR_DELAY:g} s): rel {far[0]:.2e}, abs {far[1]:.2e}",
+          flush=True)
     return worst
 
 
@@ -573,12 +606,18 @@ def phase_hera_stat(bt, torch, rime_cuda, pix_chunks):
         losses.append(float(loss))
     launches = rime_cuda.launches
     dtau = rime_cuda.dtau_launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"phase 5 hera-stat main path: losses {losses}; step wall first "
           f"{step_s[0] * 1e3:.1f} ms, median of 3 "
           f"{np.median(step_s) * 1e3:.1f} ms (steps {step_s}); rime_fwd "
           f"launches {launches} (expected {expect}), rime_dtau launches "
           f"{dtau} (expected 0: antenna positions are fixed); peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          f"memory {peak:.2f} GiB", flush=True)
+    print(f"phase 5 hera-stat with psky checkpointed per time: steps 2 and "
+          f"3 {step_s[1] * 1e3:.1f} / {step_s[2] * 1e3:.1f} ms (before: "
+          f"{STAT_STEPS_BEFORE_MS[0]} / {STAT_STEPS_BEFORE_MS[1]} ms), peak "
+          f"device memory {peak:.2f} GiB (before: {STAT_PEAK_BEFORE_GIB} "
+          f"GiB), both before-values on an NVIDIA H100 80GB HBM3 at 700 W",
           flush=True)
     check(all(np.isfinite(losses)), "non-finite hera-stat loss")
     check(launches == expect, f"launch count {launches} != {expect}")
@@ -696,9 +735,29 @@ def phase_small(bt, torch, rime_cuda, dev):
         check(all(v <= TOL for v in errs.values()), f"card vs CPU {label}")
 
 
-def phase_spike(torch, spike, dev):
+def phase_spike(torch, spike, dev, built):
     """Phase 9: the mosaic_spike kernels. Returns their entries of the
     JSON line of kernels."""
+    path, _, report = built["mosaic_spike.cu"]
+    sgemm = ("k_nn", "k_nt")
+    for name, line in ptxas_by_function(report).items():
+        if any(k in name for k in sgemm + ("k_bd",)):
+            print(f"phase 9 mosaic_spike.cu ptxas: {name}: {line}", flush=True)
+    fp64 = fp64_by_function(path)
+    if fp64 is None:
+        print("phase 9 mosaic_spike.cu SASS: no cuobjdump, FP64 not counted",
+              flush=True)
+    else:
+        fp64 = {k: v for k, v in fp64.items() if any(n in k for n in sgemm)}
+        print(f"phase 9 mosaic_spike.cu SASS: FP64 instructions of the "
+              f"SGEMM kernels {fp64}", flush=True)
+        check(fp64 and not any(fp64.values()),
+              f"k_nn / k_nt run FP64 instructions: {fp64}")
+    for nt in (False, True):
+        plan = spike.sgemm_plan(nt, spike.NF, spike.TC, spike.TB)
+        print(f"phase 9 {sgemm[nt]} launch at the script's sizes: {plan}",
+              flush=True)
+
     worst = dict.fromkeys(spike.RUN, 0.0)
     sizes = (("script", (spike.NF, spike.TC, spike.TB, spike.G)),
              ("odd", (96, 200, 100, 8)))
@@ -707,12 +766,21 @@ def phase_spike(torch, spike, dev):
     # k_fwd is built for each chain count G: the others at the odd size
     cases += [("odd", "k_fwd", (96, 200, 100, g)) for g in spike.FWD_G
               if g != spike.G]
+    # the SGEMM's 4-byte chunks: K % 4 != 0, rows and columns off the tile
+    cases += [("ragged", name, (97, 203, 101, 8)) for name in sgemm]
     for label, name, size in cases:
         rel, err, n = spike.compare(name, *size, device=dev)
         torch.cuda.synchronize()
+        same = ""
+        if name in sgemm:
+            args = spike.make_args(name, *size, device=dev, distinct=True)
+            eq = bool(torch.equal(spike.RUN[name](*args),
+                                  spike.RUN[name](*args)))
+            same = f"; a second launch {'bit-equal' if eq else 'DIFFERS'}"
+            check(eq, f"{name} at {size}: two launches differ")
         print(f"phase 9 {name} vs plain (float64), {label} NF, TC, TB, "
               f"G = {size}: rel {rel:.2e} (tol {TOL:g}) abs {err:.2e}, "
-              f"{n} launch", flush=True)
+              f"{n} launch{same}", flush=True)
         check(n == 1 and np.isfinite(rel) and rel <= TOL,
               f"{name} vs plain at {size}: rel {rel:.2e}, {n} launches")
         worst[name] = max(worst[name], err)
@@ -738,6 +806,11 @@ def phase_spike(torch, spike, dev):
         lib = (f"library {t['library_ms']:.4f} ms" if t["library_ms"]
                is not None else "no single PyTorch call computes it, so no "
                "library time")
+        if name in SGEMM_BEFORE_MS:
+            lib += (f" (kernel {t['ms'] / t['library_ms']:.2f}x the library "
+                    f"call); the previous design ran {SGEMM_BEFORE_MS[name]} "
+                    f"ms on an NVIDIA H100 80GB HBM3 at 700 W, "
+                    f"{SGEMM_BEFORE_MS[name] / t['ms']:.2f}x this time")
         print(f"phase 9 times: {name} at NF, TC, TB = {spike.NF}, "
               f"{spike.TC}, {spike.TB}: kernel {t['ms']:.4f} ms, plain "
               f"{pms:.3f} ms, bound {t['bound_ms']:.5f} ms "
@@ -897,7 +970,7 @@ def main():
         "max_abs_err": worst_dtau, "ms": dms, "plain_ms": dpms,
         "bound_ms": dbms, "bound_by": dby, "library_ms": None}]
     phase_fwd_beside_spikes(torch, spike, dev, (R, K, N), timing)
-    kernels += phase_spike(torch, spike, dev)
+    kernels += phase_spike(torch, spike, dev, built)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -310,3 +310,45 @@ def test_spike_kernels_reject_what_they_do_not_take(cuda):
         spike.run_fwd(m, ps, 3)                         # G not a power of 2
     with pytest.raises(ValueError):
         spike.run_bd(ps, m, 7)                          # 96 rows, G=7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["k_nn", "k_nt"])
+@pytest.mark.parametrize("NF,TC,TB", [(1024, 256, 256), (96, 200, 100),
+                                      (97, 203, 101)])    # K % 4 != 0
+def test_spike_sgemm_vs_plain_and_bit_equal(cuda, name, NF, TC, TB):
+    """The ring-buffered SGEMM against float64 on each chunk width and
+    off the tile; two launches bit-equal (a fixed k order per output)."""
+    rel, _, n = spike.compare(name, NF, TC, TB, 8, device=cuda)
+    assert n == 1 and rel <= 1e-4
+    args = spike.make_args(name, NF, TC, TB, device=cuda, distinct=True)
+    assert torch.equal(spike.RUN[name](*args), spike.RUN[name](*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nt", [False, True])
+def test_spike_sgemm_unaligned_operands(cuda, nt):
+    """Operands that start 4 bytes past a 16-byte boundary take the
+    4-byte chunks, and agree with float64."""
+    M, K, N = 97, 200, 100
+    buf = spike.mk((M * K + N * K + 2,), 3, device=cuda)
+    a = buf[1:1 + M * K].view(M, K)
+    b = buf[2 + M * K:2 + M * K + N * K].view((N, K) if nt else (K, N))
+    ptrs = (a.data_ptr(), b.data_ptr())
+    assert spike.sgemm_plan(nt, M, N, K, ptrs)["chunk"] == 4
+    run = spike.run_nt if nt else spike.run_nn
+    ref = (a.double() @ (b.double().T if nt else b.double()))
+    assert _relerr(run(a, b).cpu(), ref.cpu()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nt", [False, True])
+@pytest.mark.parametrize("M,N,K,offsets", [
+    (1024, 256, 256, (0, 0)), (97, 101, 203, (0, 0)), (96, 100, 200, (0, 0)),
+    (96, 100, 200, (4, 0)), (96, 100, 200, (0, 8)), (5, 3, 1, (0, 0))])
+def test_spike_sgemm_plan_is_the_launchers(cuda, nt, M, N, K, offsets):
+    base = torch.empty(64, device=cuda).data_ptr()
+    ptrs = tuple(base + o for o in offsets)
+    want = spike.sgemm_plan(nt, M, N, K, ptrs)
+    got = spike.card_sgemm_plan(nt, M, N, K, ptrs)
+    assert got == {k: want[k] for k in ("grid", "chunk", "smem")}

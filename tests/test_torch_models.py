@@ -90,3 +90,44 @@ def test_rime_forward_graft_shapes():
     assert list(vd.blnums) == list(jprob.target[0].blnums)
     assert tprob.model.Npix_cut == int(jprob.model._pre[(0, 0)]["mask"]
                                        .shape[-1])
+
+
+def _saved_bytes(prob):
+    """Bytes of the distinct tensors that autograd saves for backward
+    during one value_and_grad (the forward's residuals)."""
+    seen = {}
+
+    def pack(t):
+        seen[t.data_ptr(), t.dtype, tuple(t.shape)] = \
+            t.numel() * t.element_size()
+        return t
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        prob.value_and_grad()
+    return sum(seen.values())
+
+
+@pytest.mark.parametrize("dtype,use_kernel", [
+    (torch.float64, "auto"),        # the chunked reduction (CPU)
+    (torch.float32, True),          # the fused Function, as on the card
+])
+def test_rime_backward_keeps_only_psky_per_time(dtype, use_kernel):
+    """psky's construction is checkpointed per time (the JAX package's
+    make_psky): each extra time step saves psky, the reduction's own
+    inputs (tau for the chunked path, s_c for the fused one), the
+    time's precomputed zen / az / cut / mask (already resident; the
+    checkpoint saves them as its inputs) and its share of the output,
+    and no beam or sky intermediate. Margin: a quarter of psky. Without
+    the checkpoint each time saved ~40 psky-sized tensors."""
+    small, big = (build_torch(Ntimes=n, dtype=dtype, use_kernel=use_kernel)
+                  for n in (1, 4))
+    per_time = (_saved_bytes(big) - _saved_bytes(small)) / 3
+    rime = big.model
+    item = torch.tensor([], dtype=dtype).element_size()
+    nf, ncut, nbls = rime.Nfreqs, rime.Npix_cut, len(rime.sim_bls)
+    psky = nf * ncut * item
+    reduction = (3 if use_kernel is True else nbls) * ncut * item
+    pre = 3 * ncut * item + ncut * 8            # zen, az, mask; cut (int64)
+    vis = nbls * nf * 2 * item
+    assert per_time <= psky + reduction + pre + vis + psky / 4
+    # the checkpoint does keep psky itself (it is the reduction's input)
+    assert per_time >= psky

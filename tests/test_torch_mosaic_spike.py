@@ -20,6 +20,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from bayeslim_tpu_torch.scripts import mosaic_spike as spike
+from bayeslim_tpu_torch.scripts import sgemm_variants
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TC, TB, NF, G = 16, 24, 32, 4
@@ -206,3 +207,82 @@ def test_fwd_slices_cover_the_c_axis(nf, tc, tb):
     nslices = -(-tc // cslice)
     assert cslice % 32 == 0 and cslice * nslices >= tc
     assert cslice * (nslices - 1) < tc          # no empty slice
+
+
+def _owners(nt, M, N, K):
+    """How many (block, thread) pairs store each output of the SGEMM of
+    k_nn / k_nt under sgemm_plan's launch, by the .cu's mapping: thread
+    t owns rows ty + TY i and columns tx + TX j (k_nt) or 4 tx + j
+    (k_nn), tx = t % TX, ty = t // TX, i, j < 4, TX = BN / 4, TY = BM /
+    4, stores masked at (M, N)."""
+    plan = spike.sgemm_plan(nt, M, N, K)
+    (gx, gy), (bm, bn, _) = plan["grid"], plan["tile"]
+    TX, TY = bn // 4, bm // 4
+    t = np.arange(plan["threads"])
+    assert len(t) == TX * TY
+    tx, ty = t % TX, t // TX
+    rows = (ty[:, None] + TY * np.arange(4)[None]).repeat(4, 1)   # (T, 16)
+    cols = (tx[:, None] + TX * np.arange(4)[None] if nt
+            else 4 * tx[:, None] + np.arange(4)[None])
+    cols = np.tile(cols, (1, 4))
+    assert rows.max() < bm and cols.max() < bn
+    count = np.zeros((M, N), dtype=int)
+    for by in range(gy):
+        for bx in range(gx):
+            r, c = by * bm + rows.ravel(), bx * bn + cols.ravel()
+            keep = (r < M) & (c < N)
+            np.add.at(count, (r[keep], c[keep]), 1)
+    return count
+
+
+@pytest.mark.parametrize("nt", [False, True])
+@pytest.mark.parametrize("M,N,K", [(1024, 256, 256), (96, 100, 200),
+                                   (97, 101, 203), (5, 3, 1), (200, 40, 6144)])
+def test_sgemm_grid_stores_every_output_once(nt, M, N, K):
+    assert (_owners(nt, M, N, K) == 1).all()
+
+
+@pytest.mark.parametrize("nt", [False, True])
+def test_sgemm_fills_the_card_at_the_spike_shape(nt):
+    plan = spike.sgemm_plan(nt, spike.NF, spike.TC, spike.TB)
+    gx, gy = plan["grid"]
+    assert gx * gy == 128 and plan["threads"] == 128
+    assert plan["chunk"] == 16
+
+
+@pytest.mark.parametrize("nt", [False, True])
+@pytest.mark.parametrize("K", [1, 3, 64, 256, 1001, 6144, 1 << 20])
+def test_sgemm_shared_memory_fits_any_k(nt, K):
+    """The ring holds SG_STAGES slices of SG_BK k whatever K is: at most
+    227 KB (232,448 bytes) a block, above 48 KB (the launcher sets the
+    attribute)."""
+    smem = spike.sgemm_plan(nt, 1024, 256, K)["smem"]
+    assert 48 * 1024 < smem <= 232448
+    assert smem == spike.sgemm_plan(nt, 7, 9, 6144)["smem"]
+
+
+@pytest.mark.parametrize("nt,M,N,K,ptrs,chunk", [
+    (True, 96, 100, 200, (0, 0), 16),
+    (False, 96, 100, 200, (0, 0), 16),
+    (True, 97, 101, 200, (0, 0), 16),          # k_nt: N need not be
+    (False, 97, 101, 200, (0, 0), 4),          # k_nn: B's rows are N long
+    (True, 96, 100, 203, (0, 0), 4),           # K % 4 != 0
+    (False, 96, 100, 203, (0, 0), 4),
+    (True, 96, 100, 200, (4, 0), 4),           # A not 16-byte aligned
+    (False, 96, 100, 200, (0, 8), 4),          # B not 16-byte aligned
+    (True, 96, 100, 200, (32, 48), 16),
+])
+def test_sgemm_16_byte_chunks_only_when_rows_and_pointers_align(
+        nt, M, N, K, ptrs, chunk):
+    assert spike.sgemm_plan(nt, M, N, K, ptrs)["chunk"] == chunk
+
+
+@pytest.mark.parametrize("variant", list(sgemm_variants.EDITS))
+def test_sgemm_variants_edit_the_kernel_source(variant):
+    """Each design alternative of scripts/sgemm_variants.py is a text edit
+    of csrc/mosaic_spike.cu: every text it replaces is there exactly once,
+    so the variant changes the one place it names."""
+    src = open(os.path.join(REPO, "bayeslim_tpu_torch", "csrc",
+                            "mosaic_spike.cu")).read()
+    for old, new in sgemm_variants.EDITS[variant]:
+        assert src.count(old) == 1 and old != new
