@@ -10,8 +10,8 @@
 //
 //   k_nn   out[j, b] = sum_c ps[j, c] m[c, b]                      (NF, TB)
 //   k_nt   out[j, c] = sum_b ct[j, b] m[c, b]                      (NF, TC)
-//   k_vt   out[c, b] = sum_j ps[j, c] m[c, b], one FMA per j       (TC, TB)
-//   k_lr   as k_nt, by a warp-shuffle reduction over b
+//   k_vt   out[c, b] = m[c, b] sum_j ps[j, c]                      (TC, TB)
+//   k_lr   as k_nt, the sum over b split over lanes and shuffled
 //   k_bd   out[j, b] = (1 + j mod G) sum_c ps[j, c] m[c, b]       (NF, TB)
 //   k_rot  (c, s) <- (c cd - s sd, s cd + c sd) NF times from (m, m/2),
 //          cd = 0.9 m, sd = 0.1 m; out = c + s                     (TC, TB)
@@ -22,17 +22,19 @@
 // (2 NF TC TB FLOP on ~1.6 MB); k_fwd is operations too, the
 // contraction's two FMAs per (k, c, b). k_vt needs only a column sum
 // and one product, and k_rot's result only ~11 complex products by
-// repeated squaring, so both are bytes. The kernels keep the TPU
-// bodies' loops all the same, as the spikes measure them: NF FMAs per
-// output in k_vt, a dependent chain of NF rotations (6 FLOP each) per
-// element in k_rot, a rotation and two FMAs per triple in k_fwd. Every
-// kernel uses plain FFMA: no TF32, no tensor cores.
+// repeated squaring, so both are bytes. k_rot and k_fwd keep the TPU
+// bodies' loops, as the spikes measure them: a dependent chain of NF
+// rotations (6 FLOP each) per element in k_rot, a rotation and two FMAs
+// per triple in k_fwd; k_vt does its function's column sum. Every
+// kernel uses plain FP32 arithmetic: no TF32, no tensor cores.
 //
-// k_nn and k_nt share a ring-buffered SGEMM (below), redesigned for
-// the card. The others are first, simple kernels: one owner thread per
-// output (k_fwd adds its c-slices with atomics), shared-memory tiles
-// where operands are reused, nothing asynchronous; k_bd keeps the first
-// SGEMM tile as its own.
+// k_nn and k_nt share a ring-buffered SGEMM, k_lr has a register-tiled
+// product with its b axis split over lanes, and k_vt a cluster-wide
+// column sum (designs below), all redesigned for the card. The others
+// are first, simple kernels: one owner thread per output (k_fwd adds
+// its c-slices with atomics), shared-memory tiles where operands are
+// reused, nothing asynchronous; k_bd keeps the first SGEMM tile as its
+// own.
 //
 // ---- The SGEMM of k_nn and k_nt (sgemm_ring). C (M, N) = A (M, K) B,
 // B stored (K, N) for k_nn and (N, K) for k_nt (C = A B^T). At the
@@ -85,7 +87,70 @@
 // quarter warp (counted, not measured), the loop needs 32 wavefronts a
 // warp per 64 FFMA, twice its FFMA time. Larger thread tiles halve that
 // but leave fewer warps than schedulers, or fewer blocks than SMs, at
-// this shape; a K split across blocks is the next lever.
+// this shape; k_lr's split of the k axis over lanes (below) keeps 8 x 8
+// outputs a lane on 256 blocks and runs in 0.88-0.89x k_nt's time.
+//
+// ---- k_lr: C (NF, TC) = ct (NF, TB) m (TC, TB)^T with the TPU body's
+// reduction over b across lanes kept, as a K split inside the warp.
+// Bound by operations: 2.0 us at the spike's shape. What the design
+// does:
+//
+// - 32 x 32 output tiles of 128 threads: 256 blocks at the spike's
+//   shape, two an SM (40 KB of shared memory, 212 registers a thread).
+//   ct and m land by cp.async (sg_stage) as [j][b] and [c][b] in a ring
+//   of LR_STAGES = 2 slots of LR_BK = 64 b, with the SGEMM's chunk rule
+//   (CH) and zero-fill.
+// - Each output belongs to LR_S = 8 neighbouring lanes; lane q of the
+//   eight takes the float4s of b at 4 q, 4 q + 32, ... and owns 8 rows
+//   (ry + 4 i) x 8 columns (cx + 4 j) = 64 partial sums. Per 4 b a lane
+//   issues 16 LDS.128 for 256 FFMA (the SGEMM: 8 for 64). A quarter
+//   warp is one group of eight reading 128 contiguous bytes of a row, so
+//   no LDS.128 has a bank conflict (the row stride of LR_BK + 16 words
+//   keeps a split of 4 conflict-free too).
+// - At the end, a reduce-scatter over the eight lanes (xor 1, 2, 4):
+//   each step sends half of what a lane holds, 56 SHFL a lane in all
+//   against 2,048 FFMA at TB = 256; each lane then stores 8 outputs.
+// - Fixed order: each lane's partials are one fmaf chain in b order,
+//   and the lanes add as ((q0 + q1) + (q2 + q3)) + ((q4 + q5) + (q6 +
+//   q7)), so two launches are bit-equal. FFMA only: no TF32, no tensor
+//   cores, no FP64.
+//
+// Measured against the alternatives (scripts/vt_lr_variants.py on the
+// card; PERF.md): a split of 4 with 64 x 32 tiles (128 blocks, one an
+// SM) ran 1.26x this time, splits of 2 and 16 1.37-2.33x, 4 x 8 outputs
+// a lane 1.04-1.15x, three slots 1.06x. The copies, barriers and stores
+// alone take ~70 % of the time (the 256 blocks read 16 MB of tiles from
+// L2) and the launch ~17 %: a cluster sharing its tiles through
+// distributed shared memory is the next lever.
+//
+// ---- k_vt: out[c, b] = m[c, b] s[c], s = the column sum of ps, bound
+// by bytes (ps read once, m read and out written once: 1.5 MB, 0.47 us
+// at the spike's shape). The TPU body's NF FMAs per output are not
+// needed: the first kernel walked a column of ps per output serially.
+// One launch on thread-block clusters:
+//
+// - A cluster of VT_CL = 4 blocks owns VT_GC = 16 columns c (16 x 4 =
+//   64 blocks at the spike's shape). Block rank r sums rows j of its
+//   quarter of NF: threads read float4s along c, neighbouring threads on
+//   neighbouring addresses, each down its column(s) in j order; the
+//   lanes of a column add by xor shuffles and the warps in order through
+//   shared memory.
+// - After cluster.sync(), each block reads the VT_CL partial sums of its
+//   VT_GC / VT_CL rows of out from every rank's shared memory
+//   (distributed shared memory, map_shared_rank) in rank order, arrives
+//   on the cluster barrier, and writes its rows out[c, :] = s[c] m[c, :]
+//   along b. It waits on the barrier before it exits, so no block leaves
+//   while another still reads its shared memory.
+// - Every sum has one fixed order: launches are bit-equal. Ragged or
+//   unaligned rows take 4-byte loads (template CH), as the SGEMM does.
+//
+// Measured (vt_lr_variants.py): clusters of 8 (128 blocks) ran 1.05x
+// this time, of 16 1.12x, of 2 1.22x, one block a group with no cluster
+// 1.55x, 8 or 32 columns a group 1.07-1.18x. The launch alone takes a
+// third of the time; without the column sum, or without the product,
+// the kernel runs in ~0.9x: the rest is the phases' latency, one after
+// another, not bytes.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -93,6 +158,11 @@
 namespace {
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+inline bool aligned16(const void* p)
+{
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
 
 // cp.async of CH (16 or 4) bytes from global src to shared dst; zeros
 // when `in` is false (src-size 0: nothing is read)
@@ -243,9 +313,8 @@ struct SgemmPlan {
 SgemmPlan sgemm_plan_of(bool nt, const void* A, const void* B, int M,
                         int N, int K)
 {
-    const bool vec = K % 4 == 0 && (nt || N % 4 == 0)
-        && reinterpret_cast<uintptr_t>(A) % 16 == 0
-        && reinterpret_cast<uintptr_t>(B) % 16 == 0;
+    const bool vec = K % 4 == 0 && (nt || N % 4 == 0) && aligned16(A)
+        && aligned16(B);
     return {dim3(cdiv(N, SG_BN), cdiv(M, SG_BM)), vec ? 16 : 4,
             SG_STAGES * sg_stage_words(nt) * (int)sizeof(float)};
 }
@@ -350,55 +419,243 @@ k_bd(const float* __restrict__ ps, const float* __restrict__ m,
     bd_tile(ps, m, out, NF, TB, TC, G);
 }
 
-// ---- k_vt: one thread per (c, b), NF dependent FMAs; ps[j, c] is the
-// same word for the whole block (a broadcast load).
-constexpr int VT_T = 128;
+// ---- k_vt: the cluster-wide column sum (design in the header)
+constexpr int VT_CL = 4, VT_GC = 16, VT_T = 256;
+constexpr int VT_NW = VT_T / 32;                   // warps a block
+static_assert(VT_GC % VT_CL == 0, "a block writes whole rows of out");
+constexpr int VT_RPB = VT_GC / VT_CL;              // rows of out a block
+// dynamic shared memory: the warps' partials [VT_NW][VT_GC], the block's
+// [VT_GC], the sums of the block's rows of out [VT_RPB <= VT_GC]
+constexpr int VT_SMEM = (VT_NW + 2) * VT_GC * (int)sizeof(float);
 
+// The launch of k_vt: grid (a multiple of the cluster), cluster size,
+// chunk bytes (16 when TC and TB are multiples of 4 and ps, m and out
+// are 16-byte aligned, else 4) and dynamic shared memory
+struct VtPlan {
+    dim3 grid;
+    int cluster, chunk, smem;
+};
+
+VtPlan vt_plan_of(const void* ps, const void* m, const void* out, int TC,
+                  int TB)
+{
+    const bool vec = TC % 4 == 0 && TB % 4 == 0 && aligned16(ps)
+        && aligned16(m) && aligned16(out);
+    return {dim3(cdiv(TC, VT_GC) * VT_CL), VT_CL, vec ? 16 : 4, VT_SMEM};
+}
+
+template <int CH>
 __global__ void __launch_bounds__(VT_T)
 k_vt(const float* __restrict__ ps, const float* __restrict__ m,
      float* __restrict__ out, int NF, int TC, int TB)
 {
-    const int b = blockIdx.x * VT_T + threadIdx.x;
-    const int c = blockIdx.y;
-    if (b >= TB) return;
-    const float mv = m[(size_t)c * TB + b];
-    float acc = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < NF; ++j)
-        acc = fmaf(ps[(size_t)j * TC + c], mv, acc);
-    out[(size_t)c * TB + b] = acc;
+    namespace cg = cooperative_groups;
+    constexpr int W = CH / 4;                      // columns a load
+    constexpr int LPR = VT_GC / W;                 // threads across a row
+    constexpr int RPP = VT_T / LPR;                // rows a pass
+    extern __shared__ __align__(16) float vt_smem[];
+    float* wpart = vt_smem;
+    float* part = wpart + VT_NW * VT_GC;
+    float* srow = part + VT_GC;
+    const cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank();
+    const int c0 = (int)(blockIdx.x / VT_CL) * VT_GC;
+    const int tx = threadIdx.x % LPR, ty = threadIdx.x / LPR;
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+
+    // this block's rows j of the group's columns, in j order
+    const int rows = cdiv(NF, VT_CL);
+    const int j1 = min(NF, (rank + 1) * rows);
+    const int c = c0 + tx * W;
+    float acc[W] = {};
+    if (c < TC) {
+#pragma unroll 4
+        for (int j = rank * rows + ty; j < j1; j += RPP) {
+            const float* p = ps + (size_t)j * TC + c;
+            if constexpr (CH == 16) {
+                const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+                acc[0] += v.x;
+                acc[1] += v.y;
+                acc[2] += v.z;
+                acc[3] += v.w;
+            } else {
+                acc[0] += __ldg(p);
+            }
+        }
+    }
+    // the lanes of a column by xor shuffles, then the warps in order
+#pragma unroll
+    for (int off = 16; off >= LPR; off >>= 1)
+#pragma unroll
+        for (int w = 0; w < W; ++w)
+            acc[w] += __shfl_xor_sync(0xffffffffu, acc[w], off);
+    if (lane < LPR)
+#pragma unroll
+        for (int w = 0; w < W; ++w)
+            wpart[warp * VT_GC + lane * W + w] = acc[w];
+    __syncthreads();
+    if (threadIdx.x < VT_GC) {
+        float s = 0.f;
+#pragma unroll
+        for (int k = 0; k < VT_NW; ++k)
+            s += wpart[k * VT_GC + threadIdx.x];
+        part[threadIdx.x] = s;
+    }
+
+    // the column sums of this block's rows of out, from every rank's
+    // partial in rank order
+    cluster.sync();
+    if (threadIdx.x < VT_RPB) {
+        const int cc = rank * VT_RPB + threadIdx.x;
+        float s = 0.f;
+        for (int r = 0; r < VT_CL; ++r)
+            s += cluster.map_shared_rank(part, r)[cc];
+        srow[threadIdx.x] = s;
+    }
+    // this block reads no other block's shared memory past here
+    asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+    __syncthreads();
+
+    // out[c, :] = s[c] m[c, :] for this block's rows, along b
+    const int PR = TB / W;                         // chunks a row
+    const int r0 = c0 + rank * VT_RPB;
+    for (int i = threadIdx.x; i < VT_RPB * PR; i += VT_T) {
+        const int rr = i / PR, cr = r0 + rr;
+        if (cr >= TC) continue;
+        const float s = srow[rr];
+        const size_t o = (size_t)cr * TB + (i % PR) * W;
+        if constexpr (CH == 16) {
+            float4 v = __ldg(reinterpret_cast<const float4*>(m + o));
+            v.x *= s;
+            v.y *= s;
+            v.z *= s;
+            v.w *= s;
+            *reinterpret_cast<float4*>(out + o) = v;
+        } else {
+            out[o] = s * __ldg(m + o);
+        }
+    }
+    // no block exits while another may still read its partial
+    asm volatile("barrier.cluster.wait;\n" ::: "memory");
 }
 
-// ---- k_lr: a block takes one row j and 32 outputs c; each warp owns 4
-// of them, its lanes stride over b (coalesced rows of ct and m) and a
-// butterfly of shuffles sums the lanes.
-constexpr int LR_W = 8, LR_C = 4;
+// ---- k_lr: the lane-split product (design in the header)
+constexpr int LR_BM = 32, LR_BN = 32, LR_BK = 64, LR_STAGES = 2, LR_S = 8,
+              LR_TI = 8, LR_TJ = 8;
+constexpr int LR_T = SG_T;                 // 128 threads (sg_stage's count)
+constexpr int LR_RY = LR_BM / LR_TI, LR_CX = LR_BN / LR_TJ;
+constexpr int LR_N = LR_TI * LR_TJ;        // partial sums a lane
+constexpr int LR_LD = LR_BK + 16;          // words a row: 16 banks apart
+constexpr int LR_STAGE = (LR_BM + LR_BN) * LR_LD;
+static_assert(LR_RY * LR_CX * LR_S == LR_T, "lanes cover the tile");
+static_assert(LR_BK % (4 * LR_S) == 0 && 32 % LR_S == 0, "lane split");
+static_assert(LR_N % LR_S == 0, "each lane stores whole outputs");
 
-__global__ void __launch_bounds__(LR_W * 32)
+// The launch of k_lr: grid, chunk bytes (16 when TB is a multiple of 4
+// and ct and m are 16-byte aligned, else 4) and dynamic shared memory
+struct LrPlan {
+    dim3 grid;
+    int chunk, smem;
+};
+
+LrPlan lr_plan_of(const void* ct, const void* m, int NF, int TB, int TC)
+{
+    const bool vec = TB % 4 == 0 && aligned16(ct) && aligned16(m);
+    return {dim3(cdiv(TC, LR_BN), cdiv(NF, LR_BM)), vec ? 16 : 4,
+            LR_STAGES * LR_STAGE * (int)sizeof(float)};
+}
+
+// One step of the reduce-scatter over the LR_S lanes of an output: the
+// lane with bit STEP of q set keeps the upper H of its values, the other
+// the lower, each adding its partner's; then the next step
+template <int STEP, int H>
+__device__ __forceinline__ void lr_scatter(float (&acc)[LR_N], int q)
+{
+    if constexpr (STEP < LR_S) {
+        const bool up = (q & STEP) != 0;
+#pragma unroll
+        for (int i = 0; i < H; ++i) {
+            const float send = up ? acc[i] : acc[i + H];
+            const float keep = up ? acc[i + H] : acc[i];
+            acc[i] = keep + __shfl_xor_sync(0xffffffffu, send, STEP);
+        }
+        lr_scatter<2 * STEP, H / 2>(acc, q);
+    }
+}
+
+template <int CH>
+__global__ void __launch_bounds__(LR_T)
 k_lr(const float* __restrict__ ct, const float* __restrict__ m,
      float* __restrict__ out, int NF, int TB, int TC)
 {
-    const int j = blockIdx.x;
-    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-    const int c0 = blockIdx.y * (LR_W * LR_C) + w * LR_C;
-    const float* crow = ct + (size_t)j * TB;
-    float acc[LR_C] = {};
-    for (int b = lane; b < TB; b += 32) {
-        const float x = crow[b];
+    extern __shared__ __align__(16) float lr_smem[];
+    const int q = threadIdx.x % LR_S, g = threadIdx.x / LR_S;
+    const int cx = g % LR_CX, ry = g / LR_CX;
+    const int m0 = blockIdx.y * LR_BM, n0 = blockIdx.x * LR_BN;
+    const int nk = cdiv(TB, LR_BK);
+
+    auto stage = [&](int slot, int kt) {
+        float* As = lr_smem + slot * LR_STAGE;
+        float* Bs = As + LR_BM * LR_LD;
+        const int k0 = kt * LR_BK;
+        sg_stage<CH, LR_BM, LR_BK>(As, LR_LD, ct, TB, m0, k0, NF, TB);
+        sg_stage<CH, LR_BN, LR_BK>(Bs, LR_LD, m, TB, n0, k0, TC, TB);
+    };
 #pragma unroll
-        for (int q = 0; q < LR_C; ++q)
-            if (c0 + q < TC)
-                acc[q] = fmaf(x, m[(size_t)(c0 + q) * TB + b], acc[q]);
+    for (int s = 0; s < LR_STAGES - 1; ++s) {
+        if (s < nk) stage(s, s);
+        cp_async_commit();
     }
+
+    float acc[LR_N] = {};
+    for (int kt = 0; kt < nk; ++kt) {
+        cp_async_wait<LR_STAGES - 2>();        // slice kt has landed
+        __syncthreads();
+        if (kt + LR_STAGES - 1 < nk)
+            stage((kt + LR_STAGES - 1) % LR_STAGES, kt + LR_STAGES - 1);
+        cp_async_commit();
+
+        const float* As = lr_smem + (kt % LR_STAGES) * LR_STAGE
+            + ry * LR_LD + 4 * q;
+        const float* Bs = lr_smem + (kt % LR_STAGES) * LR_STAGE
+            + LR_BM * LR_LD + cx * LR_LD + 4 * q;
 #pragma unroll
-    for (int q = 0; q < LR_C; ++q)
+        for (int kk = 0; kk < LR_BK; kk += 4 * LR_S) {
+            float a[LR_TI][4], b[LR_TJ][4];    // a[row][b], b[column][b]
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-            acc[q] += __shfl_xor_sync(0xffffffffu, acc[q], off);
-    if (lane == 0)
+            for (int i = 0; i < LR_TI; ++i)
+                *reinterpret_cast<float4*>(a[i]) =
+                    *reinterpret_cast<const float4*>(
+                        &As[LR_RY * i * LR_LD + kk]);
 #pragma unroll
-        for (int q = 0; q < LR_C; ++q)
-            if (c0 + q < TC) out[(size_t)j * TC + c0 + q] = acc[q];
+            for (int j = 0; j < LR_TJ; ++j)
+                *reinterpret_cast<float4*>(b[j]) =
+                    *reinterpret_cast<const float4*>(
+                        &Bs[LR_CX * j * LR_LD + kk]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+#pragma unroll
+                for (int i = 0; i < LR_TI; ++i)
+#pragma unroll
+                    for (int j = 0; j < LR_TJ; ++j)
+                        acc[i * LR_TJ + j] = fmaf(a[i][e], b[j][e],
+                                                  acc[i * LR_TJ + j]);
+        }
+    }
+
+    lr_scatter<1, LR_N / 2>(acc, q);
+    // lane q now holds values start .. start + LR_N / LR_S - 1 of the 64
+    int start = 0;
+#pragma unroll
+    for (int s = 1, h = LR_N / 2; s < LR_S; s *= 2, h /= 2)
+        if (q & s) start += h;
+#pragma unroll
+    for (int e = 0; e < LR_N / LR_S; ++e) {
+        const int idx = start + e;
+        const int r = m0 + ry + LR_RY * (idx / LR_TJ);
+        const int c = n0 + cx + LR_CX * (idx % LR_TJ);
+        if (r < NF && c < TC) out[(size_t)r * TC + c] = acc[e];
+    }
 }
 
 // ---- k_rot: one thread per element; the NF-step chain is serial, so
@@ -582,21 +839,74 @@ extern "C" int sgemm_plan(int nt, const void* A, const void* B, int M,
 extern "C" int k_vt_launch(const void* ps, const void* m, void* out, int NF,
                            int TC, int TB, void* stream)
 {
-    k_vt<<<dim3(cdiv(TB, VT_T), TC), VT_T, 0,
-           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(ps), static_cast<const float*>(m),
-        static_cast<float*>(out), NF, TC, TB);
+    const VtPlan p = vt_plan_of(ps, m, out, TC, TB);
+    auto kernel = p.chunk == 16 ? k_vt<16> : k_vt<4>;
+    if (p.cluster > 8) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (err != cudaSuccess) return (int)err;
+    }
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = p.cluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = p.grid;
+    cfg.blockDim = dim3(VT_T);
+    cfg.dynamicSmemBytes = p.smem;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(
+        &cfg, kernel, static_cast<const float*>(ps),
+        static_cast<const float*>(m), static_cast<float*>(out), NF, TC, TB);
+    if (err != cudaSuccess) return (int)err;
     return static_cast<int>(cudaGetLastError());
+}
+
+// The launch that k_vt_launch makes: grid.x, cluster size, chunk bytes
+// and dynamic shared memory (the card's check of the wrapper's
+// vt_plan). Touches no memory.
+extern "C" int vt_plan(const void* ps, const void* m, const void* out,
+                       int NF, int TC, int TB, int* gx, int* cluster,
+                       int* chunk, int* smem)
+{
+    (void)NF;
+    const VtPlan p = vt_plan_of(ps, m, out, TC, TB);
+    *gx = (int)p.grid.x;
+    *cluster = p.cluster;
+    *chunk = p.chunk;
+    *smem = p.smem;
+    return 0;
 }
 
 extern "C" int k_lr_launch(const void* ct, const void* m, void* out, int NF,
                            int TB, int TC, void* stream)
 {
-    k_lr<<<dim3(NF, cdiv(TC, LR_W * LR_C)), LR_W * 32, 0,
-           static_cast<cudaStream_t>(stream)>>>(
+    const LrPlan p = lr_plan_of(ct, m, NF, TB, TC);
+    auto kernel = p.chunk == 16 ? k_lr<16> : k_lr<4>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<p.grid, LR_T, p.smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(ct), static_cast<const float*>(m),
         static_cast<float*>(out), NF, TB, TC);
     return static_cast<int>(cudaGetLastError());
+}
+
+// The launch that k_lr_launch makes: grid.x, grid.y, chunk bytes and
+// dynamic shared memory (the card's check of the wrapper's lr_plan).
+// Touches no memory.
+extern "C" int lr_plan(const void* ct, const void* m, int NF, int TB, int TC,
+                       int* gx, int* gy, int* chunk, int* smem)
+{
+    const LrPlan p = lr_plan_of(ct, m, NF, TB, TC);
+    *gx = (int)p.grid.x;
+    *gy = (int)p.grid.y;
+    *chunk = p.chunk;
+    *smem = p.smem;
+    return 0;
 }
 
 extern "C" int k_bd_launch(const void* ps, const void* m, void* out, int NF,

@@ -12,8 +12,8 @@ tau (TC, TB)):
 
 - ``run_nn(ps, m)``    out[j, b] = sum_c ps[j, c] m[c, b]          (k_nn)
 - ``run_nt(ct, m)``    out[j, c] = sum_b ct[j, b] m[c, b]          (k_nt)
-- ``run_vt(ps, m)``    out[c, b] = sum_j ps[j, c] m[c, b]          (k_vt)
-- ``run_lr(ct, m)``    as run_nt, by a lane reduction over b       (k_lr)
+- ``run_vt(ps, m)``    out[c, b] = m[c, b] sum_j ps[j, c]          (k_vt)
+- ``run_lr(ct, m)``    as run_nt, the sum over b split over lanes  (k_lr)
 - ``run_bd(ps, m, G)`` out[j, b] = (1 + j mod G) (ps @ m)[j, b]    (k_bd)
 - ``run_rot(m, NF)``   NF rotations (c, s) <- (c cd - s sd, s cd + c sd)
   from (m, m/2), cd = 0.9 m, sd = 0.1 m; out = c + s              (k_rot)
@@ -26,7 +26,8 @@ version ``run_*_plain``; there is no fallback from one to the other.
 Any dtype other than float32 raises, and so does NF % G != 0 (where the
 TPU loop would drop the last rows). ``launches`` counts each kernel's
 launches. ``sgemm_plan`` gives the launch of k_nn's and k_nt's
-ring-buffered SGEMM (grid, tile, cp.async chunk, shared memory).
+ring-buffered SGEMM (grid, tile, cp.async chunk, shared memory),
+``vt_plan`` and ``lr_plan`` those of k_vt and k_lr.
 """
 from __future__ import annotations
 
@@ -44,7 +45,8 @@ __all__ = ["TC", "TB", "G", "NF", "SPIKES", "launches", "mk", "unit_m",
            "run_vt_plain", "run_lr_plain", "run_bd_plain", "run_rot_plain",
            "run_fwd_plain", "RUN", "PLAIN", "LIBRARY", "make_args",
            "compare", "work", "loop_flops", "bound_ms", "FWD_G", "main",
-           "sgemm_plan", "card_sgemm_plan"]
+           "sgemm_plan", "card_sgemm_plan", "vt_plan", "card_vt_plan",
+           "lr_plan", "card_lr_plan"]
 
 TC, TB, G, NF = 256, 256, 8, 1024
 
@@ -71,6 +73,13 @@ FWD_G = (1, 2, 4, 8, 16, 32)
 # columns), k a slice, slices in the shared-memory ring; a thread owns
 # 4 x 4 outputs
 SG_TILE, SG_BK, SG_STAGES = (64, 32), 64, 2
+# k_vt: a cluster of VT_CLUSTER blocks of VT_THREADS threads sums
+# VT_GROUP columns of ps
+VT_GROUP, VT_CLUSTER, VT_THREADS = 16, 4, 256
+# k_lr: output tile (rows j, columns c) of 128 threads, b a slice, slices
+# in the ring; each output split over LR_SPLIT lanes, each of which owns
+# LR_LANE = (rows, columns) partial sums
+LR_TILE, LR_BK, LR_STAGES, LR_SPLIT, LR_LANE = (32, 32), 64, 2, 8, (8, 8)
 _SRC = "mosaic_spike.cu"
 # argument types of csrc/mosaic_spike.cu's C launchers
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -193,15 +202,70 @@ def sgemm_plan(nt, M, N, K, ptrs=(0, 0)):
             "smem": 4 * SG_STAGES * (bm * (SG_BK + 4) + b_words)}
 
 
+def _card_plan(symbol, argtypes, *args):
+    """The four ints that csrc/mosaic_spike.cu's plan export `symbol`
+    (argument types argtypes, then four int pointers) writes back."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    rime_cuda._lib(_SRC, symbol, argtypes + [ctypes.POINTER(_I)] * 4)(
+        *args, *(ctypes.byref(v) for v in vals))
+    return [v.value for v in vals]
+
+
 def card_sgemm_plan(nt, M, N, K, ptrs):
     """The launch that the C launcher of k_nn / k_nt makes, asked of the
     built library (the card's check of sgemm_plan), as sgemm_plan's
     dict without "threads" and "tile"."""
-    vals = [ctypes.c_int() for _ in range(4)]
-    rime_cuda._lib(_SRC, "sgemm_plan", [_I, _P, _P, _I, _I, _I]
-                   + [ctypes.POINTER(_I)] * 4)(
-        int(nt), *ptrs, M, N, K, *(ctypes.byref(v) for v in vals))
-    gx, gy, chunk, smem = (v.value for v in vals)
+    gx, gy, chunk, smem = _card_plan("sgemm_plan", [_I, _P, _P, _I, _I, _I],
+                                     int(nt), *ptrs, M, N, K)
+    return {"grid": (gx, gy), "chunk": chunk, "smem": smem}
+
+
+def vt_plan(NF, TC, TB, ptrs=(0, 0, 0)):
+    """The launch of csrc/mosaic_spike.cu's k_vt for ps (NF, TC), m and
+    out (TC, TB) at the addresses ptrs = (ps, m, out). Returns {"grid":
+    (gx,) (a multiple of the cluster), "cluster": blocks a cluster,
+    "threads", "group": columns c a cluster sums, "chunk": bytes a load
+    (16 when TC and TB are multiples of 4 and all three addresses are
+    16-byte aligned, else 4), "smem": dynamic shared memory in bytes}.
+    Mirrors the .cu's vt_plan_of, which the launcher follows."""
+    vec = TC % 4 == 0 and TB % 4 == 0 and all(p % 16 == 0 for p in ptrs)
+    return {"grid": (-(-TC // VT_GROUP) * VT_CLUSTER,),
+            "cluster": VT_CLUSTER, "threads": VT_THREADS,
+            "group": VT_GROUP, "chunk": 16 if vec else 4,
+            "smem": 4 * (VT_THREADS // 32 + 2) * VT_GROUP}
+
+
+def card_vt_plan(NF, TC, TB, ptrs):
+    """The launch that k_vt's C launcher makes, asked of the built
+    library, as vt_plan's dict without "threads" and "group"."""
+    gx, cluster, chunk, smem = _card_plan("vt_plan", [_P, _P, _P, _I, _I, _I],
+                                          *ptrs, NF, TC, TB)
+    return {"grid": (gx,), "cluster": cluster, "chunk": chunk, "smem": smem}
+
+
+def lr_plan(NF, TC, TB, ptrs=(0, 0)):
+    """The launch of csrc/mosaic_spike.cu's k_lr for ct (NF, TB) and m
+    (TC, TB) at the addresses ptrs = (ct, m). Returns {"grid": (gx, gy),
+    "threads", "tile": (BM, BN, BK), "split": lanes an output, "lane":
+    (rows, columns) a lane, "chunk": bytes a cp.async (16 when TB is a
+    multiple of 4 and both addresses are 16-byte aligned, else 4),
+    "smem": dynamic shared memory in bytes}. Mirrors the .cu's
+    lr_plan_of, which the launcher follows."""
+    bm, bn = LR_TILE
+    vec = TB % 4 == 0 and all(p % 16 == 0 for p in ptrs)
+    ti, tj = LR_LANE
+    return {"grid": (-(-TC // bn), -(-NF // bm)),
+            "threads": bm * bn * LR_SPLIT // (ti * tj),
+            "tile": (bm, bn, LR_BK), "split": LR_SPLIT, "lane": LR_LANE,
+            "chunk": 16 if vec else 4,
+            "smem": 4 * LR_STAGES * (bm + bn) * (LR_BK + 16)}
+
+
+def card_lr_plan(NF, TC, TB, ptrs):
+    """The launch that k_lr's C launcher makes, asked of the built
+    library, as lr_plan's dict with only "grid", "chunk" and "smem"."""
+    gx, gy, chunk, smem = _card_plan("lr_plan", [_P, _P, _I, _I, _I],
+                                     *ptrs, NF, TB, TC)
     return {"grid": (gx, gy), "chunk": chunk, "smem": smem}
 
 
@@ -238,7 +302,7 @@ def run_nt(ct, m):
 
 
 def run_vt(ps, m):
-    """out[c, b] = sum_j ps[j, c] m[c, b] -> (TC, TB), one FMA per j."""
+    """out[c, b] = m[c, b] sum_j ps[j, c] -> (TC, TB)."""
     cuda = _operands("run_vt", ps, m)
     _same("run_vt", ps.shape[1], m.shape[0], "ps columns and m rows")
     if not cuda:
@@ -250,7 +314,7 @@ def run_vt(ps, m):
 
 
 def run_lr(ct, m):
-    """As run_nt, by a warp reduction over b per (j, c)."""
+    """As run_nt, each output's sum over b split over lanes."""
     cuda = _operands("run_lr", ct, m)
     _same("run_lr", ct.shape[1], m.shape[1], "ct and m columns")
     if not cuda:
@@ -462,10 +526,13 @@ def work(name, NF=NF, TC=TC, TB=TB):
 
 
 def loop_flops(name, NF=NF, TC=TC, TB=TB):
-    """FP32 operations that the TPU body's loop does, and the kernel
-    with it: the work done, whose rate is reported beside the bound.
-    k_vt does NF multiply-adds per output, k_rot 6 FLOP per element per
-    step, k_fwd a rotation (6) and two multiply-adds (4) per (k, c, b)."""
+    """FP32 operations that the TPU body's loop does: NF multiply-adds
+    per output in k_vt, 6 FLOP per element per step in k_rot, a rotation
+    (6) and two multiply-adds (4) per (k, c, b) in k_fwd, the product's
+    in the others. The kernels of k_rot and k_fwd do this loop, so its
+    rate is the rate of their work; k_vt's kernel does the column sum
+    that work() counts instead, so for k_vt the rate is only the pace at
+    which it covers the TPU body's loop."""
     trip = float(NF) * TC * TB
     return {"k_vt": 2 * trip, "k_rot": 6 * trip,
             "k_fwd": 10 * trip}.get(name, work(name, NF, TC, TB)[0])
@@ -481,9 +548,9 @@ def bound_ms(name, NF=NF, TC=TC, TB=TB):
 def main(device=None, n=400):
     """Time the seven kernels at the script's sizes (n back-to-back
     launches each) and print one line each in the JAX script's order,
-    with the bound, the rate of the loop's operations (loop_flops) and
-    the library call's time. Returns {name: {"ms", "bound_ms",
-    "bound_by", "loop_tflops", "library_ms"}}."""
+    with the bound, the pace at which it covers the TPU body's loop
+    (loop_flops) and the library call's time. Returns {name: {"ms",
+    "bound_ms", "bound_by", "loop_tflops", "library_ms"}}."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError("mosaic_spike times kernels on the card; pass a "
@@ -504,7 +571,7 @@ def main(device=None, n=400):
             lib_txt = (f"library {lms:.4f} ms" if lib else
                        "library: no single PyTorch call")
             print(f"  {label:44s} {ms:8.4f} ms/iter  bound {bms:.5f} ms "
-                  f"({by}, kernel at {bms / ms:.1%})  loop {tflops:.2f} "
+                  f"({by}, kernel at {bms / ms:.1%})  TPU loop {tflops:.2f} "
                   f"TFLOP/s  {lib_txt}", flush=True)
     return res
 

@@ -62,21 +62,25 @@ EDITS = {
 WRONG = ("no inner loop", "no global loads")
 
 
-def build_variants():
-    """{name: (k_nn launcher, k_nt launcher, ptxas report)} of every
-    variant, nvcc started for all at once."""
+def build_variants(edits=None, symbols=("k_nn_launch", "k_nt_launch"),
+                   tag="sg"):
+    """{name: (*launchers of symbols, ptxas report)} of every variant of
+    csrc/mosaic_spike.cu in edits (default EDITS), nvcc started for all
+    at once; the sources and libraries go to build/kernels/variants/ as
+    {tag}{i}.cu / .so."""
+    edits = EDITS if edits is None else edits
     src = (rime_cuda._CSRC / "mosaic_spike.cu").read_text()
     out_dir = rime_cuda._BUILD / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for i, (name, edits) in enumerate(EDITS.items()):
+    for i, (name, changes) in enumerate(edits.items()):
         text = src
-        for old, new in edits:
+        for old, new in changes:
             if old not in text:
                 raise RuntimeError(f"variant {name!r}: csrc/mosaic_spike.cu "
                                    f"no longer holds {old[:40]!r}")
             text = text.replace(old, new)
-        cu, lib = out_dir / f"sg{i}.cu", out_dir / f"sg{i}.so"
+        cu, lib = out_dir / f"{tag}{i}.cu", out_dir / f"{tag}{i}.so"
         cu.write_text(text)
         jobs[name] = (lib, subprocess.Popen(
             [rime_cuda._nvcc(), *rime_cuda.NVCC_FLAGS, "-o", str(lib),
@@ -89,7 +93,7 @@ def build_variants():
             raise RuntimeError(f"nvcc failed on variant {name!r}:\n{report}")
         cdll = ctypes.CDLL(str(lib))
         fns = []
-        for sym in ("k_nn_launch", "k_nt_launch"):
+        for sym in symbols:
             fn = getattr(cdll, sym)
             fn.argtypes = spike._ARGTYPES[sym[:4]]
             fn.restype = ctypes.c_int

@@ -56,15 +56,17 @@ Phases, one line each; any failure exits non-zero:
    times at both shapes (as a fraction of k_fwd's);
 9. main path 3, the microbenchmark spikes (bayeslim_tpu_torch/scripts/
    mosaic_spike.py, the seven kernels of csrc/mosaic_spike.cu): the
-   ptxas report (registers, spills, static shared memory) of k_nn, k_nt
-   and k_bd, no FP64 in k_nn's and k_nt's SASS, and their launch plan;
-   each kernel against its plain version in float64 at the script's
-   sizes and at a size that fills no tile (k_fwd there at every chain
-   count G it is built for; k_nn and k_nt also at K % 4 != 0, and
-   launched twice, bit-equal); the spike's own entry point, main(), with
-   every kernel's launches counted (exactly 1 + 400 each); the plain
-   versions' times, k_nn's and k_nt's beside their library call's and
-   the previous design's. Then the JSON line of all nine kernels.
+   ptxas report (registers, spills, static shared memory) of k_nn, k_nt,
+   k_vt, k_lr and k_bd, no FP64 in the SASS of the four redesigned ones
+   (k_nn, k_nt, k_vt, k_lr), and their launch plans beside the C
+   launchers'; each kernel against its plain version in float64 at the
+   script's sizes and at a size that fills no tile (k_fwd there at every
+   chain count G it is built for; the four redesigned ones also at a
+   ragged size with 4-byte loads, and launched twice, bit-equal); the
+   spike's own entry point, main(), with every kernel's launches counted
+   (exactly 1 + 400 each); the plain versions' times, the redesigned
+   kernels' beside their library call's and the previous design's.
+   Then the JSON line of all nine kernels.
 
 The last line is {"ok": true, "device": {...}}. Exits non-zero without
 printing a result when no CUDA device or no package is present.
@@ -93,9 +95,12 @@ DTAU_BEFORE_MS, CAL_EVAL_BEFORE_MS = 3.7004, 29.05
 # third step walls (ms) and the peak device memory (GiB), chip_smoke.py
 # on an NVIDIA H100 80GB HBM3 at 700 W
 STAT_STEPS_BEFORE_MS, STAT_PEAK_BEFORE_GIB = (22.8, 19.4), 2.15
-# k_nn's and k_nt's previous design (one 64 x 64 SGEMM tile shared with
-# k_bd) at the script's sizes, ms a launch (the same card)
-SGEMM_BEFORE_MS = {"k_nn": 0.0251, "k_nt": 0.0287}
+# the redesigned spikes' previous designs at the script's sizes, ms a
+# launch (the same card): k_nn's and k_nt's 64 x 64 SGEMM tile shared
+# with k_bd, k_vt's serial column walk per output, k_lr's one row a
+# block with a 32-lane butterfly per output
+BEFORE_MS = {"k_nn": 0.0251, "k_nt": 0.0287, "k_vt": 0.0275,
+             "k_lr": 0.0238}
 # delays past hex-11's longest (~1.0e-6 s) that phases 2 and 3 hold to
 # the same bar: |tau| within 1 % of this
 FAR_DELAY = 3e-6
@@ -739,24 +744,35 @@ def phase_spike(torch, spike, dev, built):
     """Phase 9: the mosaic_spike kernels. Returns their entries of the
     JSON line of kernels."""
     path, _, report = built["mosaic_spike.cu"]
-    sgemm = ("k_nn", "k_nt")
+    redesigned = tuple(BEFORE_MS)
     for name, line in ptxas_by_function(report).items():
-        if any(k in name for k in sgemm + ("k_bd",)):
+        if any(k in name for k in redesigned + ("k_bd",)):
             print(f"phase 9 mosaic_spike.cu ptxas: {name}: {line}", flush=True)
     fp64 = fp64_by_function(path)
     if fp64 is None:
         print("phase 9 mosaic_spike.cu SASS: no cuobjdump, FP64 not counted",
               flush=True)
     else:
-        fp64 = {k: v for k, v in fp64.items() if any(n in k for n in sgemm)}
+        fp64 = {k: v for k, v in fp64.items()
+                if any(n in k for n in redesigned)}
         print(f"phase 9 mosaic_spike.cu SASS: FP64 instructions of the "
-              f"SGEMM kernels {fp64}", flush=True)
-        check(fp64 and not any(fp64.values()),
-              f"k_nn / k_nt run FP64 instructions: {fp64}")
-    for nt in (False, True):
-        plan = spike.sgemm_plan(nt, spike.NF, spike.TC, spike.TB)
-        print(f"phase 9 {sgemm[nt]} launch at the script's sizes: {plan}",
-              flush=True)
+              f"redesigned kernels {fp64}", flush=True)
+        check(len(fp64) == 2 * len(redesigned) and not any(fp64.values()),
+              f"the redesigned spikes run FP64 instructions: {fp64}")
+    # the script's sizes (TC = TB, so k_nn's and k_nt's M, N, K agree)
+    dims = (spike.NF, spike.TC, spike.TB)
+    plans = {name: (spike.sgemm_plan(nt, *dims),
+                    spike.card_sgemm_plan(nt, *dims, (0, 0)))
+             for name, nt in (("k_nn", False), ("k_nt", True))}
+    plans["k_vt"] = (spike.vt_plan(*dims), spike.card_vt_plan(*dims,
+                                                              (0, 0, 0)))
+    plans["k_lr"] = (spike.lr_plan(*dims), spike.card_lr_plan(*dims,
+                                                              (0, 0)))
+    for name, (plan, card) in plans.items():
+        print(f"phase 9 {name} launch at the script's sizes: {plan}; the "
+              f"C launcher's: {card}", flush=True)
+        check(all(plan[k] == v for k, v in card.items()),
+              f"{name}'s plan differs from its launcher's: {plan} {card}")
 
     worst = dict.fromkeys(spike.RUN, 0.0)
     sizes = (("script", (spike.NF, spike.TC, spike.TB, spike.G)),
@@ -766,13 +782,14 @@ def phase_spike(torch, spike, dev, built):
     # k_fwd is built for each chain count G: the others at the odd size
     cases += [("odd", "k_fwd", (96, 200, 100, g)) for g in spike.FWD_G
               if g != spike.G]
-    # the SGEMM's 4-byte chunks: K % 4 != 0, rows and columns off the tile
-    cases += [("ragged", name, (97, 203, 101, 8)) for name in sgemm]
+    # the redesigned kernels' 4-byte loads: rows of a length that is no
+    # multiple of 4, rows and columns off the tile
+    cases += [("ragged", name, (97, 203, 101, 8)) for name in redesigned]
     for label, name, size in cases:
         rel, err, n = spike.compare(name, *size, device=dev)
         torch.cuda.synchronize()
         same = ""
-        if name in sgemm:
+        if name in redesigned:
             args = spike.make_args(name, *size, device=dev, distinct=True)
             eq = bool(torch.equal(spike.RUN[name](*args),
                                   spike.RUN[name](*args)))
@@ -806,16 +823,17 @@ def phase_spike(torch, spike, dev, built):
         lib = (f"library {t['library_ms']:.4f} ms" if t["library_ms"]
                is not None else "no single PyTorch call computes it, so no "
                "library time")
-        if name in SGEMM_BEFORE_MS:
+        if name in BEFORE_MS:
             lib += (f" (kernel {t['ms'] / t['library_ms']:.2f}x the library "
-                    f"call); the previous design ran {SGEMM_BEFORE_MS[name]} "
+                    f"call); the previous design ran {BEFORE_MS[name]} "
                     f"ms on an NVIDIA H100 80GB HBM3 at 700 W, "
-                    f"{SGEMM_BEFORE_MS[name] / t['ms']:.2f}x this time")
+                    f"{BEFORE_MS[name] / t['ms']:.2f}x this time")
         print(f"phase 9 times: {name} at NF, TC, TB = {spike.NF}, "
               f"{spike.TC}, {spike.TB}: kernel {t['ms']:.4f} ms, plain "
               f"{pms:.3f} ms, bound {t['bound_ms']:.5f} ms "
               f"({t['bound_by']}), kernel at {t['bound_ms'] / t['ms']:.1%} "
-              f"of bound; loop {t['loop_tflops']:.2f} TFLOP/s; {lib}",
+              f"of bound; the TPU body's loop covered at "
+              f"{t['loop_tflops']:.2f} TFLOP/s; {lib}",
               flush=True)
         entries.append({
             "name": name, "route": "cuda",

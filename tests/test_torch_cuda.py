@@ -352,3 +352,54 @@ def test_spike_sgemm_plan_is_the_launchers(cuda, nt, M, N, K, offsets):
     want = spike.sgemm_plan(nt, M, N, K, ptrs)
     got = spike.card_sgemm_plan(nt, M, N, K, ptrs)
     assert got == {k: want[k] for k in ("grid", "chunk", "smem")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["k_vt", "k_lr"])
+@pytest.mark.parametrize("NF,TC,TB", [(1024, 256, 256), (96, 200, 100),
+                                      (97, 203, 101), (5, 3, 1)])
+def test_spike_vt_lr_vs_plain_and_bit_equal(cuda, name, NF, TC, TB):
+    """k_vt's cluster column sum and k_lr's lane-split product against
+    float64, on each chunk width and off the tile; two launches
+    bit-equal (one fixed order per output)."""
+    rel, _, n = spike.compare(name, NF, TC, TB, 8, device=cuda)
+    assert n == 1 and rel <= 1e-4
+    args = spike.make_args(name, NF, TC, TB, device=cuda, distinct=True)
+    assert torch.equal(spike.RUN[name](*args), spike.RUN[name](*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["k_vt", "k_lr"])
+def test_spike_vt_lr_unaligned_operands(cuda, name):
+    """Operands that start 4 bytes past a 16-byte boundary take the
+    4-byte loads, and agree with float64."""
+    NF, TC, TB = 97, 200, 100
+    rows = TC if name == "k_vt" else TB
+    buf = spike.mk((NF * rows + TC * TB + 2,), 3, device=cuda)
+    a = buf[1:1 + NF * rows].view(NF, rows)
+    m = buf[2 + NF * rows:2 + NF * rows + TC * TB].view(TC, TB)
+    ptrs = (a.data_ptr(), m.data_ptr())
+    if name == "k_vt":
+        assert spike.vt_plan(NF, TC, TB, ptrs + (0,))["chunk"] == 4
+    else:
+        assert spike.lr_plan(NF, TC, TB, ptrs)["chunk"] == 4
+    got = spike.RUN[name](a, m)
+    ref = spike.PLAIN[name](a.double(), m.double())
+    assert _relerr(got.cpu(), ref.cpu()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("NF,TC,TB,offsets", [
+    (1024, 256, 256, (0, 0, 0)), (97, 203, 101, (0, 0, 0)),
+    (96, 200, 100, (0, 0, 0)), (96, 200, 100, (4, 0, 0)),
+    (96, 200, 100, (0, 8, 0)), (96, 200, 100, (0, 0, 12)),
+    (5, 3, 1, (0, 0, 0))])
+def test_spike_vt_lr_plans_are_the_launchers(cuda, NF, TC, TB, offsets):
+    base = torch.empty(64, device=cuda).data_ptr()
+    ptrs = tuple(base + o for o in offsets)
+    want = spike.vt_plan(NF, TC, TB, ptrs)
+    assert spike.card_vt_plan(NF, TC, TB, ptrs) == {
+        k: want[k] for k in ("grid", "cluster", "chunk", "smem")}
+    want = spike.lr_plan(NF, TC, TB, ptrs[:2])
+    assert spike.card_lr_plan(NF, TC, TB, ptrs[:2]) == {
+        k: want[k] for k in ("grid", "chunk", "smem")}

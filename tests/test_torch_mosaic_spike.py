@@ -10,6 +10,7 @@ by tests/test_torch_cuda.py.
 """
 import importlib.util
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -20,7 +21,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from bayeslim_tpu_torch.scripts import mosaic_spike as spike
-from bayeslim_tpu_torch.scripts import sgemm_variants
+from bayeslim_tpu_torch.scripts import sgemm_variants, vt_lr_variants
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TC, TB, NF, G = 16, 24, 32, 4
@@ -286,3 +287,279 @@ def test_sgemm_variants_edit_the_kernel_source(variant):
                             "mosaic_spike.cu")).read()
     for old, new in sgemm_variants.EDITS[variant]:
         assert src.count(old) == 1 and old != new
+
+
+# ---- k_vt and k_lr: launch plans and host emulations of the kernels'
+# fixed summation order, through the index formulas of
+# csrc/mosaic_spike.cu (k_vt, k_lr, lr_scatter) under vt_plan / lr_plan
+
+VT_LR_SIZES = [(1024, 256, 256), (96, 200, 100), (97, 203, 101), (5, 3, 1),
+               (NF, TC, TB)]
+
+
+def _f32(x):
+    return np.asarray(x, dtype=np.float32)
+
+
+def _vt_emulate(ps, m, ptrs=(0, 0, 0)):
+    """k_vt in float32 as the .cu orders it. Returns (out, times each
+    (j, c) entered a column sum, times each output was stored)."""
+    (nf, tc), tb = ps.shape, m.shape[1]
+    plan = spike.vt_plan(nf, tc, tb, ptrs)
+    CL, GC, T = plan["cluster"], plan["group"], plan["threads"]
+    W = plan["chunk"] // 4
+    LPR, NW, RPB = GC // W, T // 32, GC // CL
+    RPP = T // LPR
+    rows = -(-nf // CL)
+    t = np.arange(T)
+    tx, ty, lane, warp = t % LPR, t // LPR, t % 32, t // 32
+    out = np.full((tc, tb), np.nan, dtype=np.float32)
+    seen = np.zeros((nf, tc), dtype=int)
+    stores = np.zeros((tc, tb), dtype=int)
+    for grp in range(plan["grid"][0] // CL):
+        c0 = grp * GC
+        part = np.zeros((CL, GC), dtype=np.float32)
+        for rank in range(CL):
+            j1 = min(nf, (rank + 1) * rows)
+            cols = c0 + tx[:, None] * W + np.arange(W)        # (T, W)
+            acc = np.zeros((T, W), dtype=np.float32)
+            for i in range(-(-rows // RPP)):
+                j = rank * rows + ty + RPP * i
+                ok = ((j < j1) & (c0 + tx * W < tc))[:, None] & (cols < tc)
+                jj, cc = np.where(ok, j[:, None], 0), np.where(ok, cols, 0)
+                acc = _f32(acc + np.where(ok, ps[jj, cc], 0))
+                np.add.at(seen, (jj[ok], cc[ok]), 1)
+            off = 16
+            while off >= LPR:
+                acc = _f32(acc + acc[t ^ off])
+                off //= 2
+            wpart = np.zeros((NW, GC), dtype=np.float32)
+            keep = lane < LPR
+            wpart[warp[keep][:, None], lane[keep][:, None] * W
+                  + np.arange(W)] = acc[keep]
+            s = np.float32(0)
+            for k in range(NW):
+                s = _f32(s + wpart[k])
+            part[rank] = s
+        for rank in range(CL):
+            cc = rank * RPB + np.arange(RPB)
+            s = np.zeros(RPB, dtype=np.float32)
+            for r in range(CL):
+                s = _f32(s + part[r, cc])
+            for cr, sr in zip(c0 + cc, s):
+                if cr < tc:
+                    out[cr] = _f32(sr * m[cr])
+                    stores[cr] += 1
+    return out, seen, stores
+
+
+def _lr_lanes(plan):
+    """(q, rows (T, TI), columns (T, TJ)) of each thread of a k_lr block,
+    within its output tile."""
+    bm, bn, _ = plan["tile"]
+    S, (ti, tj) = plan["split"], plan["lane"]
+    t = np.arange(plan["threads"])
+    q, g = t % S, t // S
+    RY, CX = bm // ti, bn // tj
+    return (q, (g // CX)[:, None] + RY * np.arange(ti),
+            (g % CX)[:, None] + CX * np.arange(tj))
+
+
+def _lr_emulate(ct, m, ptrs=(0, 0)):
+    """k_lr in float32 as the .cu orders it (each fmaf as one rounding of
+    the exact float64 product and sum). Returns (out, times each output
+    was stored)."""
+    (nf, tb), tc = ct.shape, m.shape[0]
+    plan = spike.lr_plan(nf, tc, tb, ptrs)
+    (gx, gy), (bm, bn, bk) = plan["grid"], plan["tile"]
+    S, (ti, tj) = plan["split"], plan["lane"]
+    q, rows, cols = _lr_lanes(plan)
+    nk = -(-tb // bk)
+    A = np.zeros((gy * bm, nk * bk))
+    A[:nf, :tb] = ct
+    B = np.zeros((gx * bn, nk * bk))
+    B[:tc, :tb] = m
+    by, bx = np.divmod(np.arange(gx * gy), gx)
+    R = by[:, None, None] * bm + rows[None]                   # (nb, T, TI)
+    C = bx[:, None, None] * bn + cols[None]                   # (nb, T, TJ)
+    acc = np.zeros(R.shape + (tj,), dtype=np.float32)
+    for kt in range(nk):
+        for kk in range(0, bk, 4 * S):
+            for e in range(4):
+                b = kt * bk + kk + 4 * q + e                 # (T,)
+                a = A[R, b[None, :, None]]
+                v = B[C, b[None, :, None]]
+                acc = _f32(acc + a[..., None] * v[..., None, :])
+    acc = acc.reshape(acc.shape[0], acc.shape[1], ti * tj)
+    t = np.arange(plan["threads"])
+    step, start = 1, np.zeros_like(q)
+    while step < S:
+        h = acc.shape[2] // 2
+        up = (q & step) != 0
+        send = np.where(up[None, :, None], acc[:, :, :h], acc[:, :, h:])
+        keep = np.where(up[None, :, None], acc[:, :, h:], acc[:, :, :h])
+        acc = _f32(keep + send[:, t ^ step])
+        start = start + np.where(up, h, 0)
+        step *= 2
+    out = np.full((nf, tc), np.nan, dtype=np.float32)
+    stores = np.zeros((nf, tc), dtype=int)
+    for e in range(acc.shape[2]):
+        idx = start + e
+        r = R[:, t, idx // tj]
+        c = C[:, t, idx % tj]
+        ok = (r < nf) & (c < tc)
+        out[r[ok], c[ok]] = acc[:, :, e][ok]
+        np.add.at(stores, (r[ok], c[ok]), 1)
+    return out, stores
+
+
+@pytest.mark.parametrize("nf,tc,tb", VT_LR_SIZES)
+def test_vt_emulation_sums_every_row_once_and_stores_every_output_once(
+        nf, tc, tb):
+    ps = spike.mk((nf, tc), 1, device="cpu").numpy()
+    m = spike.mk((tc, tb), 2, device="cpu").numpy()
+    out, seen, stores = _vt_emulate(ps, m)
+    assert (seen == 1).all() and (stores == 1).all()
+    ref = spike.run_vt_plain(torch.as_tensor(ps).double(),
+                             torch.as_tensor(m).double()).numpy()
+    assert _relerr(out, ref) <= 1e-6
+
+
+@pytest.mark.parametrize("nf,tc,tb", VT_LR_SIZES)
+def test_lr_emulation_stores_every_output_once_against_float64(nf, tc, tb):
+    ct = spike.mk((nf, tb), 1, device="cpu").numpy()
+    m = spike.mk((tc, tb), 2, device="cpu").numpy()
+    out, stores = _lr_emulate(ct, m)
+    assert (stores == 1).all()
+    ref = spike.run_lr_plain(torch.as_tensor(ct).double(),
+                             torch.as_tensor(m).double()).numpy()
+    assert _relerr(out, ref) <= 1e-6
+
+
+@pytest.mark.parametrize("ptrs", [(4, 0, 0), (0, 0, 8)])
+def test_vt_emulation_with_4_byte_loads(ptrs):
+    """Unaligned operands take one column a load: the same sums."""
+    ps = spike.mk((96, 200), 1, device="cpu").numpy()
+    m = spike.mk((200, 100), 2, device="cpu").numpy()
+    assert spike.vt_plan(96, 200, 100, ptrs)["chunk"] == 4
+    out, seen, stores = _vt_emulate(ps, m, ptrs)
+    assert (seen == 1).all() and (stores == 1).all()
+    assert _relerr(out, ps.astype(np.float64).sum(0)[:, None] * m) <= 1e-6
+
+
+@pytest.mark.parametrize("name", ["k_vt", "k_lr"])
+def test_emulation_matches_jax_interpret(jax_spike, name):
+    """The kernels' summation orders against the TPU bodies, run by
+    pl.pallas_call in interpret mode as test_plain_matches_jax_interpret
+    runs them."""
+    args = spike.make_args(name, NF, TC, TB, G, device="cpu", seed=3,
+                           distinct=True)
+    outs, scratch = JAX_CALLS[name]
+    ref = _pallas(getattr(jax_spike, name),
+                  [jnp.asarray(t.numpy()) for t in args], outs, scratch)
+    emulate = _vt_emulate if name == "k_vt" else _lr_emulate
+    got = emulate(*(t.numpy() for t in args))[0]
+    assert got.shape == outs[0]
+    assert _relerr(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("nf,tc,tb", VT_LR_SIZES)
+def test_lr_lanes_split_b_once_and_own_each_output(nf, tc, tb):
+    """Each output of a k_lr tile belongs to LR_SPLIT lanes with distinct
+    q, and their b sequences (4 q + 4 LR_SPLIT s + e, e < 4) cover every
+    b of every slice exactly once."""
+    plan = spike.lr_plan(nf, tc, tb)
+    (bm, bn, bk), S = plan["tile"], plan["split"]
+    q, rows, cols = _lr_lanes(plan)
+    assert rows.max() < bm and cols.max() < bn
+    owners = np.zeros((bm, bn, S), dtype=int)
+    for t in range(plan["threads"]):
+        owners[np.ix_(rows[t], cols[t], [q[t]])] += 1
+    assert (owners == 1).all()
+    b = np.array([kk + 4 * qq + e for qq in range(S)
+                  for kk in range(0, bk, 4 * S) for e in range(4)])
+    assert np.array_equal(np.sort(b), np.arange(bk))
+
+
+@pytest.mark.parametrize("name", ["k_vt", "k_lr"])
+def test_vt_lr_grids_at_the_spike_shape(name):
+    """The grids measured fastest on the card (scripts/vt_lr_variants.py):
+    k_vt 16 clusters of 4 blocks (clusters of 8, 128 blocks, were
+    slower), k_lr 256 blocks of 128 threads, two an SM (128 blocks, a
+    split of 4 over 64 x 32 tiles, were slower)."""
+    NFs, TCs, TBs = spike.NF, spike.TC, spike.TB
+    if name == "k_vt":
+        plan = spike.vt_plan(NFs, TCs, TBs)
+        assert plan["grid"] == (64,) and plan["cluster"] == 4
+        assert plan["grid"][0] % plan["cluster"] == 0
+    else:
+        plan = spike.lr_plan(NFs, TCs, TBs)
+        assert np.prod(plan["grid"]) == 256 and plan["threads"] == 128
+        assert 2 * plan["smem"] <= 232448
+    assert plan["chunk"] == 16
+
+
+@pytest.mark.parametrize("nf,tc,tb", VT_LR_SIZES + [(1, 1 << 20, 1),
+                                                    (7, 9, 6144)])
+def test_vt_lr_shared_memory_fits(nf, tc, tb):
+    """At most 227 KB (232,448 bytes) a block whatever the sizes; the
+    cluster's grid is always a multiple of its size."""
+    vt, lr = spike.vt_plan(nf, tc, tb), spike.lr_plan(nf, tc, tb)
+    assert vt["smem"] <= 48 * 1024 and lr["smem"] <= 232448
+    assert vt["grid"][0] % vt["cluster"] == 0
+    assert vt["grid"][0] // vt["cluster"] * vt["group"] >= tc
+
+
+@pytest.mark.parametrize("nf,tc,tb,ptrs,chunk", [
+    (96, 200, 100, (0, 0, 0), 16),
+    (96, 203, 100, (0, 0, 0), 4),              # TC % 4 != 0
+    (96, 200, 101, (0, 0, 0), 4),              # TB % 4 != 0
+    (97, 200, 100, (0, 0, 0), 16),             # NF need not be
+    (96, 200, 100, (4, 0, 0), 4),              # ps not 16-byte aligned
+    (96, 200, 100, (0, 8, 0), 4),              # m
+    (96, 200, 100, (0, 0, 12), 4),             # out
+    (96, 200, 100, (32, 48, 64), 16),
+])
+def test_vt_16_byte_loads_only_when_rows_and_pointers_align(
+        nf, tc, tb, ptrs, chunk):
+    assert spike.vt_plan(nf, tc, tb, ptrs)["chunk"] == chunk
+
+
+@pytest.mark.parametrize("nf,tc,tb,ptrs,chunk", [
+    (96, 200, 100, (0, 0), 16),
+    (97, 203, 100, (0, 0), 16),                # only TB's rows are copied
+    (96, 200, 101, (0, 0), 4),                 # TB % 4 != 0
+    (96, 200, 100, (4, 0), 4),                 # ct not 16-byte aligned
+    (96, 200, 100, (0, 8), 4),                 # m
+    (96, 200, 100, (32, 48), 16),
+])
+def test_lr_16_byte_chunks_only_when_rows_and_pointers_align(
+        nf, tc, tb, ptrs, chunk):
+    assert spike.lr_plan(nf, tc, tb, ptrs)["chunk"] == chunk
+
+
+def _constants(text, prefix):
+    return {k: int(v) for k, v in re.findall(rf"({prefix}_\w+) = (\d+)",
+                                             text)}
+
+
+@pytest.mark.parametrize("name,variant", [
+    (name, v) for name, edits in vt_lr_variants.EDITS.items()
+    for v in edits])
+def test_vt_lr_variants_edit_the_kernel_source(name, variant):
+    """Each design alternative of scripts/vt_lr_variants.py is a text edit
+    of csrc/mosaic_spike.cu that finds its text exactly once; an edit of
+    the constants keeps the kernel's static_asserts true."""
+    src = open(os.path.join(REPO, "bayeslim_tpu_torch", "csrc",
+                            "mosaic_spike.cu")).read()
+    for old, new in vt_lr_variants.EDITS[name][variant]:
+        assert src.count(old) == 1 and old != new
+        k = _constants(new, "LR")
+        if k:
+            ry, cx = k["LR_BM"] // k["LR_TI"], k["LR_BN"] // k["LR_TJ"]
+            assert ry * cx * k["LR_S"] == 128
+            assert k["LR_BK"] % (4 * k["LR_S"]) == 0
+            assert k["LR_TI"] * k["LR_TJ"] % k["LR_S"] == 0
+        k = _constants(new, "VT")
+        if k:
+            assert k["VT_GC"] % k["VT_CL"] == 0 and k["VT_CL"] <= 16
