@@ -22,19 +22,19 @@
 // (2 NF TC TB FLOP on ~1.6 MB); k_fwd is operations too, the
 // contraction's two FMAs per (k, c, b). k_vt needs only a column sum
 // and one product, and k_rot's result only ~11 complex products by
-// repeated squaring, so both are bytes. k_rot and k_fwd keep the TPU
-// bodies' loops, as the spikes measure them: a dependent chain of NF
-// rotations (6 FLOP each) per element in k_rot, a rotation and two FMAs
-// per triple in k_fwd; k_vt does its function's column sum. Every
-// kernel uses plain FP32 arithmetic: no TF32, no tensor cores.
+// repeated squaring, so both are bytes. k_rot keeps the TPU body's
+// loop, as the spike measures it: a dependent chain of NF rotations (6
+// FLOP each) per element; k_fwd keeps its phasor recurrence, in chains
+// of one FMA a component and row beside the sum's two; k_vt does its
+// function's column sum. Every kernel uses plain FP32 arithmetic: no
+// TF32, no tensor cores.
 //
-// k_nn and k_nt share a ring-buffered SGEMM, k_lr has a register-tiled
-// product with its b axis split over lanes, and k_vt a cluster-wide
-// column sum (designs below), all redesigned for the card. The others
-// are first, simple kernels: one owner thread per output (k_fwd adds
-// its c-slices with atomics), shared-memory tiles where operands are
-// reused, nothing asynchronous; k_bd keeps the first SGEMM tile as its
-// own.
+// k_nn, k_nt and k_bd share a ring-buffered SGEMM, k_lr has a
+// register-tiled product with its b axis split over lanes, k_vt a
+// cluster-wide column sum and k_fwd rime_fwd.cu's runs and chains
+// (designs below), all redesigned for the card. k_rot is the one first,
+// simple kernel left: one owner thread per element, nothing
+// asynchronous.
 //
 // ---- The SGEMM of k_nn and k_nt (sgemm_ring). C (M, N) = A (M, K) B,
 // B stored (K, N) for k_nn and (N, K) for k_nt (C = A B^T). At the
@@ -150,10 +150,73 @@
 // third of the time; without the column sum, or without the product,
 // the kernel runs in ~0.9x: the rest is the phases' latency, one after
 // another, not bytes.
+//
+// ---- k_bd: out (NF, TB) = diag(1 + j mod G) ps (NF, TC) m (TC, TB),
+// bound by operations (2.0 us at the spike's shape). It is k_nn's
+// product: sgemm_ring<false, CH, true> (128 blocks, the cp.async ring,
+// the chunk rule, zero-fill, one fixed k order an output) with the row
+// scale applied in the epilogue, once an output as it is stored. Its
+// launch is k_nn's (sgemm_plan_of with nt = 0). The first tile (64 x 64,
+// 64 blocks, scalar staging that waited for every 16-deep slice) ran
+// 0.0233 ms. The other candidate, k_lr's lane split adapted to m stored
+// [c][b] (its rows' 16-byte chunks XOR-swizzled so that a quarter warp
+// reads 8 rows without a conflict), ran 1.16-1.18x this kernel's time
+// (scripts/bd_fwd_variants.py on the card).
+//
+// ---- k_fwd: (re, im)[k, b] = sum_c ps[k, c] (cos, sin)(k tau[c, b]),
+// tau in radians. Bound by operations: the contraction's two FMAs a
+// triple (4.0 us at the spike's shape, 0.237 ms at hera-stat's forward
+// shape). The first kernel took three accurate sincosf a (c, b) in each
+// of its 8 row groups, 31 rotations (4 operations each) against 64 FMAs,
+// and added its c slices with atomics into outputs zeroed by two more
+// launches. rime_fwd.cu's design, carried over to radians:
+//
+// - A table of steps a tile: for every (c, b) of a 32-wide c tile the
+//   block computes D = e^{i t} and D^CH = e^{i CH t} once (fw_sincos: a
+//   three-part reduction by pi/2 and minimax polynomials, a few ulp, no
+//   FP64; CH t is exact), in shared memory for its 8 runs.
+// - Runs: a thread owns one column b and FW_RT = 32 consecutive rows
+//   k0 .. k0 + 31, its 64 sums in registers, and seeds e^{i k0 t} once
+//   a (c, b): k0 t = x + xe exactly (xe by fmaf), x - q 2 pi by a
+//   three-part Cody-Waite split of 2 pi (the first part exact with q),
+//   xe added, then the SFU's __sincosf on [-pi, pi]. k0 t reaches ~5,000
+//   rad at the spike's N(0, 1) tau; the SFU is accurate only after the
+//   reduction (2^-21.41 absolute there), which is exact in its first
+//   step for |k t| < 4e5.
+// - Chains: rows 1 .. CH - 1 from the seed by D, D^2, D^4 (at most log2
+//   CH + 1 products deep), rows CH .. 2 CH - 1 by D^CH, then CH = 4
+//   chains over rows g + 4 j advanced by the two-term recurrence e_{j+1}
+//   = 2 Re(D^4) e_j - e_{j-1}, one FMA a component and row; no chain
+//   takes more than 6 steps. About 5 FP32 instructions a triple, 2 of
+//   them the sum's. The plain version's G chains are its own: the
+//   kernel's sum is the same function at every G.
+// - Staging: ps lands transposed ([c][row], a warp reads its rows as
+//   float4 broadcasts) and tau along b by 4-byte cp.async (no staging
+//   registers, zero-fill past NF, TB and the slice) into two slots, so
+//   the next tile loads while this one computes.
+// - Slices without atomics: c is split into S <= 8 slices (fwd_plan_of:
+//   the S that fills whole waves of two blocks an SM), one block each,
+//   that store their partial sums to a scratch (S, 2, NF, TB) from
+//   torch.empty; fw_sum adds the slices in a fixed order, as
+//   rime_fwd_sum does (S = 1 stores the outputs directly). No memset, no
+//   atomics: two launches are bit-equal. FFMA only.
+//
+// Measured (scripts/bd_fwd_variants.py on the card; PERF.md): the S
+// blocks of a tile as a thread-block cluster that adds the slices
+// through distributed shared memory in one launch ran 1.47-1.54x this
+// time (fewer blocks were resident); one slice 1.66-3.1x, 2 slices
+// 1.49-1.70x, 4 slices 1.00-1.15x; 2 or 8 chains and 16-row runs within
+// 3 %; seeds by fw_sincos instead of the SFU 1.04x. At the spike's shape
+// a block has one c tile, and its fixed phases (staging, table, the
+// 16 MB of partials and their sum) take about half the time: the seeds
+// and table alone ran 0.54x, the launch and the sum kernel alone 0.18x.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -226,10 +289,12 @@ __device__ __forceinline__ void sg_stage(float* dst, int ld,
     }
 }
 
-template <bool NT, int CH>
+// SCALE (k_bd): each row r of C is multiplied by 1 + (r mod G) once,
+// as it is stored
+template <bool NT, int CH, bool SCALE = false>
 __device__ __forceinline__ void sgemm_ring(
     const float* __restrict__ A, const float* __restrict__ B,
-    float* __restrict__ C, int M, int N, int K)
+    float* __restrict__ C, int M, int N, int K, int G = 1)
 {
     extern __shared__ __align__(16) float sg_smem[];
     constexpr int STAGE = sg_stage_words(NT);
@@ -294,10 +359,11 @@ __device__ __forceinline__ void sgemm_ring(
     for (int i = 0; i < 4; ++i) {
         const int r = m0 + ty + SG_TY * i;
         if (r >= M) continue;
+        const float s = SCALE ? 1.f + (float)(r % G) : 1.f;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
             const int c = n0 + (NT ? tx + SG_TX * j : 4 * tx + j);
-            if (c < N) C[(size_t)r * N + c] = acc[i][j];
+            if (c < N) C[(size_t)r * N + c] = SCALE ? s * acc[i][j] : acc[i][j];
         }
     }
 }
@@ -337,86 +403,33 @@ k_nt(const float* __restrict__ ct, const float* __restrict__ m,
     sgemm_ring<true, CH>(ct, m, out, M, N, K);
 }
 
-// k_nn (NT false: A = ps, B = m) or k_nt (A = ct, B = m), C (M, N)
-template <bool NT>
-int launch_sgemm(const void* A, const void* B, void* C, int M, int N,
-                 int K, cudaStream_t s)
+// Launch an instance of sgemm_ring (k_nn, k_nt or k_bd; NT true for
+// k_nt: A = ct, B = m; else A = ps, B = m) for C (M, N) as
+// sgemm_plan_of says; extra: the kernel's arguments after M, N, K
+template <bool NT, typename Kernel, typename... Extra>
+int launch_sgemm(Kernel k16, Kernel k4, const void* A, const void* B,
+                 void* C, int M, int N, int K, cudaStream_t s,
+                 Extra... extra)
 {
     const SgemmPlan p = sgemm_plan_of(NT, A, B, M, N, K);
-    auto kernel = NT ? (p.chunk == 16 ? k_nt<16> : k_nt<4>)
-                     : (p.chunk == 16 ? k_nn<16> : k_nn<4>);
+    auto kernel = p.chunk == 16 ? k16 : k4;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
     if (err != cudaSuccess) return (int)err;
     kernel<<<p.grid, SG_T, p.smem, s>>>(
         static_cast<const float*>(A), static_cast<const float*>(B),
-        static_cast<float*>(C), M, N, K);
+        static_cast<float*>(C), M, N, K, extra...);
     return (int)cudaGetLastError();
 }
 
-// ---- k_bd: the first SGEMM tile, kept for k_bd alone. A block
-// computes a 64 x 64 tile of C, staging 16-deep slices of A (transposed)
-// and B in shared memory; each of its 256 threads keeps a 4 x 4
-// register block.
-constexpr int GM = 64, GN = 64, GK = 16, GT = 256;
-
-// C[M, N] = scale_r sum_k A[r, k] B[k, n], scale_r = 1 + (r mod G)
-__device__ __forceinline__ void bd_tile(
-    const float* __restrict__ A, const float* __restrict__ B,
-    float* __restrict__ C, int M, int N, int K, int G)
-{
-    __shared__ __align__(16) float As[GK][GM + 4];
-    __shared__ __align__(16) float Bs[GK][GN + 4];
-    const int tid = threadIdx.x;
-    const int tx = tid % 16, ty = tid / 16;
-    const int m0 = blockIdx.y * GM, n0 = blockIdx.x * GN;
-    float acc[4][4] = {};
-
-    for (int k0 = 0; k0 < K; k0 += GK) {
-        for (int i = tid; i < GM * GK; i += GT) {
-            const int r = i / GK, kk = i % GK;
-            const int gr = m0 + r, gk = k0 + kk;
-            As[kk][r] = (gr < M && gk < K) ? A[(size_t)gr * K + gk] : 0.f;
-        }
-        for (int i = tid; i < GN * GK; i += GT) {
-            const int kk = i / GN, c = i % GN;
-            const int gc = n0 + c, gk = k0 + kk;
-            Bs[kk][c] = (gc < N && gk < K) ? B[(size_t)gk * N + gc] : 0.f;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < GK; ++kk) {
-            const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-            const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-            const float av[4] = {a.x, a.y, a.z, a.w};
-            const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-        }
-        __syncthreads();
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int r = m0 + ty * 4 + i;
-        if (r >= M) continue;
-        const float s = G > 0 ? 1.f + (float)(r % G) : 1.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int c = n0 + tx * 4 + j;
-            if (c < N) C[(size_t)r * N + c] = s * acc[i][j];
-        }
-    }
-}
-
-__global__ void __launch_bounds__(GT)
+// out (M, N) = diag(1 + (r mod G)) ps (M, K) m (K, N): M = NF, N = TB,
+// K = TC; k_nn's product with the row scale in its epilogue
+template <int CH>
+__global__ void __launch_bounds__(SG_T)
 k_bd(const float* __restrict__ ps, const float* __restrict__ m,
-     float* __restrict__ out, int NF, int TC, int TB, int G)
+     float* __restrict__ out, int M, int N, int K, int G)
 {
-    bd_tile(ps, m, out, NF, TB, TC, G);
+    sgemm_ring<false, CH, true>(ps, m, out, M, N, K, G);
 }
 
 // ---- k_vt: the cluster-wide column sum (design in the header)
@@ -678,43 +691,133 @@ k_rot(const float* __restrict__ m, float* __restrict__ out, int n, int NF)
     out[i] = c + s;
 }
 
-// ---- k_fwd: the G-chain forward loop. A block owns 32 columns b and
-// 256 rows k, and one slice of c; each thread owns one column and 32
-// consecutive rows k0 .. k0 + 31, its 64 sums in registers. For every c
-// the thread seeds e^{i k0 t} (t = tau[c, b]) with one sincosf of the
-// exactly split product k0 t, fills G chains e^{i (k0 + g) t} by the
-// step D = e^{i t}, and advances all G by D^G = e^{i G t} (G a power of
-// two, so G t is exact) over its 32 / G chain steps: the JAX loop's G
-// independent chains, in registers instead of VMEM. ps tiles are staged
-// transposed in shared memory ([c][k], so a thread reads its rows as
-// float4 broadcasts) and tau tiles along b (coalesced), as
-// rime_fwd.cu stages its tiles. Slices of c run in separate blocks
-// (grid.z) so that the card has enough of them, and add into outputs
-// that the caller zeroed.
-constexpr int FW_TN = 32;              // columns per block (threads in x)
-constexpr int FW_RG = 8;               // row groups per block (threads in y)
-constexpr int FW_RT = 32;              // rows per thread
-constexpr int FW_TR = FW_RG * FW_RT;   // rows per block
-constexpr int FW_TK = 32;              // c tile
+// ---- k_fwd: the forward loop in rime_fwd.cu's design (header)
+constexpr int FW_TN = 32;              // columns b a block (lanes of a warp)
+constexpr int FW_RG = 8;               // runs a block (a warp each)
+constexpr int FW_RT = 32;              // rows k a run
+constexpr int FW_CH = 4;               // chains of a run
+constexpr int FW_TK = 32;              // c a tile
+constexpr int FW_MS = 8;               // slices of c, at most
+constexpr int FW_WAVE = 2 * 132;       // blocks resident: two an SM, 132 SMs
+constexpr int FW_T = FW_TN * FW_RG;
+constexpr int FW_TR = FW_RG * FW_RT;   // rows a block
+constexpr int FW_LD = FW_TR + 4;       // words a staged c-row of ps
+// a slot of the staging ring: ps [c][row], tau [c][b]
+constexpr int FW_SLOT = FW_TK * FW_LD + FW_TK * FW_TN;
+// dynamic shared memory: two slots and the step table [c][b] (float4)
+constexpr int FW_SMEM = 4 * (2 * FW_SLOT + 4 * FW_TK * FW_TN);
+static_assert(FW_RT % FW_CH == 0 && FW_RT >= 2 * FW_CH && FW_CH >= 2
+              && (FW_CH & (FW_CH - 1)) == 0 && FW_CH <= 16, "chains");
+// 2 pi = FW_P1 + FW_P2 + FW_P3; FW_P1 has 8 significant bits, so q FW_P1
+// is exact for |q| < 2^16
+constexpr float FW_P1 = 6.28125f;
+constexpr float FW_P2 = 1.9353072e-3f;
+constexpr float FW_P3 = 1.0253132e-11f;
+constexpr float FW_INV2PI = 0.159154943f;
 
-template <int G>
-__global__ void __launch_bounds__(FW_TN * FW_RG)
-k_fwd(const float* __restrict__ tau, const float* __restrict__ ps,
-      float* __restrict__ ore, float* __restrict__ oim, int TC, int TB,
-      int NF, int cslice)
+// The launch of k_fwd: grid (columns, rows, slices S of c), c a slice
+// (whole tiles) and dynamic shared memory. S minimises waves / S (ties:
+// fewer), so that the blocks fill whole waves of FW_WAVE.
+struct FwdPlan {
+    dim3 grid;
+    int cslice, smem;
+};
+
+FwdPlan fwd_plan_of(int NF, int TC, int TB)
 {
-    static_assert(FW_RT % G == 0, "G must divide the rows of a thread");
-    __shared__ __align__(16) float ps_s[FW_TK][FW_TR + 4];
-    __shared__ float tau_s[FW_TK][FW_TN];
+    const int tiles = cdiv(TB, FW_TN) * cdiv(NF, FW_TR);
+    const int ntk = std::max(1, cdiv(TC, FW_TK));
+    int best = 1;
+    for (int s = 2; s <= std::min(FW_MS, ntk); ++s)
+        if (cdiv(tiles * s, FW_WAVE) * best
+            < cdiv(tiles * best, FW_WAVE) * s)
+            best = s;
+    const int cslice = cdiv(ntk, best) * FW_TK;
+    return {dim3(cdiv(TB, FW_TN), cdiv(NF, FW_TR),
+                 std::max(1, cdiv(TC, cslice))),
+            cslice, FW_SMEM};
+}
 
-    const int tx = threadIdx.x, ty = threadIdx.y;
-    const int tid = ty * FW_TN + tx;
-    const int b = blockIdx.x * FW_TN + tx;
-    const int row0 = blockIdx.y * FW_TR;
+// sin and cos of x, |x| < 1e5, to a few ulp: x - j pi/2 in three parts
+// (CUDA's own split), minimax polynomials on [-pi/4, pi/4] (Cephes'
+// sinf / cosf), the quadrant j mod 4. sincosf also carries a
+// Payne-Hanek path for huge x, with a stack frame and FP64.
+__device__ __forceinline__ void fw_sincos(float x, float& s, float& c)
+{
+    const float j = rintf(x * 0.636619747f);
+    float r = fmaf(-j, 1.57079625f, x);
+    r = fmaf(-j, 7.54978942e-8f, r);
+    r = fmaf(-j, 5.39030253e-15f, r);
+    const float r2 = r * r;
+    float ps = fmaf(r2, -1.95152959e-4f, 8.33216087e-3f);
+    ps = fmaf(r2, ps, -1.66666546e-1f);
+    const float sr = fmaf(r * r2, ps, r);
+    float pc = fmaf(r2, 2.44331571e-5f, -1.38873163e-3f);
+    pc = fmaf(r2, pc, 4.16666456e-2f);
+    pc = fmaf(r2, pc, -0.5f);
+    const float cr = fmaf(r2, pc, 1.f);
+    const int q = (int)j & 3;
+    s = (q & 1) ? cr : sr;
+    c = (q & 1) ? sr : cr;
+    if (q & 2) s = -s;
+    if ((q + 1) & 2) c = -c;
+}
+
+// the highest set bit of g > 0 (a constant where g is)
+__host__ __device__ constexpr int fw_hbit(int g)
+{
+    return g >= 8 ? 3 : g >= 4 ? 2 : g >= 2 ? 1 : 0;
+}
+
+// e^{i k t}: k t = x + xe exactly, x - q 2 pi taken in three parts (the
+// first exact), then the SFU on [-pi, pi]
+__device__ __forceinline__ void fw_seed(float k, float t, float& c, float& s)
+{
+    const float x = __fmul_rn(k, t), xe = fmaf(k, t, -x);
+    const float q = rintf(x * FW_INV2PI);
+    const float hi = fmaf(-q, FW_P1, x);
+    const float lo = fmaf(-q, FW_P3, fmaf(-q, FW_P2, xe));
+    __sincosf(hi + lo, &s, &c);
+}
+
+__global__ void __launch_bounds__(FW_T, 2)
+k_fwd(const float* __restrict__ tau, const float* __restrict__ ps,
+      float* __restrict__ ore, float* __restrict__ oim,
+      float* __restrict__ part, int TC, int TB, int NF, int cslice)
+{
+    extern __shared__ __align__(16) float fw_smem[];
+    float4* tab = reinterpret_cast<float4*>(fw_smem + 2 * FW_SLOT);
+    const int tid = threadIdx.x;
+    const int tx = tid % FW_TN, ty = tid / FW_TN;
+    const int b0 = blockIdx.x * FW_TN, row0 = blockIdx.y * FW_TR;
     const int k0 = row0 + ty * FW_RT;
-    const float kf = (float)k0;
+    const float k0f = (float)k0;
     const int c_begin = blockIdx.z * cslice;
     const int c_end = min(TC, c_begin + cslice);
+    const int ntile = cdiv(c_end - c_begin, FW_TK);
+
+    // tile it of the slice into slot: ps transposed to [c][row] by 4-byte
+    // copies (a warp reads 32 consecutive c of a row), tau along b; zeros
+    // past NF, TB and the slice
+    auto stage = [&](int slot, int it) {
+        float* ps_s = fw_smem + slot * FW_SLOT;
+        float* tau_s = ps_s + FW_TK * FW_LD;
+        const int ct = c_begin + it * FW_TK;
+#pragma unroll 8
+        for (int m = 0; m < FW_TR * FW_TK / FW_T; ++m) {
+            const int i = m * FW_T + tid, r = i / FW_TK, c = i % FW_TK;
+            const bool in = row0 + r < NF && ct + c < c_end;
+            cp_async<4>(ps_s + c * FW_LD + r,
+                        in ? ps + (size_t)(row0 + r) * TC + ct + c : ps, in);
+        }
+#pragma unroll
+        for (int m = 0; m < FW_TK * FW_TN / FW_T; ++m) {
+            const int i = m * FW_T + tid, c = i / FW_TN, n = i % FW_TN;
+            const bool in = ct + c < c_end && b0 + n < TB;
+            cp_async<4>(tau_s + i,
+                        in ? tau + (size_t)(ct + c) * TB + b0 + n : tau, in);
+        }
+    };
 
     float acc_re[FW_RT], acc_im[FW_RT];
 #pragma unroll
@@ -722,84 +825,133 @@ k_fwd(const float* __restrict__ tau, const float* __restrict__ ps,
         acc_re[r] = 0.f;
         acc_im[r] = 0.f;
     }
+    if (ntile > 0) stage(0, 0);
+    cp_async_commit();
+    for (int it = 0; it < ntile; ++it) {
+        cp_async_wait<0>();                    // tile it has landed
+        __syncthreads();                       // and every thread left it - 1
+        if (it + 1 < ntile) stage((it + 1) % 2, it + 1);
+        cp_async_commit();
+        const float* ps_s = fw_smem + (it % 2) * FW_SLOT;
+        const float* tau_s = ps_s + FW_TK * FW_LD;
 
-    for (int ct = c_begin; ct < c_end; ct += FW_TK) {
-        for (int i = tid; i < FW_TR * FW_TK; i += FW_TN * FW_RG) {
-            const int rr = i / FW_TK, cc = i % FW_TK;
-            const int r = row0 + rr, c = ct + cc;
-            ps_s[cc][rr] = (r < NF && c < c_end) ? ps[(size_t)r * TC + c]
-                                                 : 0.f;
-        }
-        for (int i = tid; i < FW_TK * FW_TN; i += FW_TN * FW_RG) {
-            const int cc = i / FW_TN, nn = i % FW_TN;
-            const int c = ct + cc, col = blockIdx.x * FW_TN + nn;
-            tau_s[cc][nn] = (c < c_end && col < TB) ? tau[(size_t)c * TB + col]
-                                                    : 0.f;
+        // the tile's steps, shared by the block's runs: D = e^{i t} and
+        // D^CH = e^{i CH t} (CH t is exact), to a few ulp
+#pragma unroll
+        for (int m = 0; m < FW_TK * FW_TN / FW_T; ++m) {
+            const int i = m * FW_T + tid;
+            const float t = tau_s[i];
+            float s1, c1, sn, cn;
+            fw_sincos(t, s1, c1);
+            fw_sincos((float)FW_CH * t, sn, cn);
+            tab[i] = make_float4(c1, s1, cn, sn);
         }
         __syncthreads();
 
-        if (k0 < NF) {                        // uniform over the warp
-            const int kmax = min(FW_TK, c_end - ct);
+        if (k0 < NF) {                         // uniform over the warp
+            const int kmax = min(FW_TK, c_end - c_begin - it * FW_TK);
             for (int cc = 0; cc < kmax; ++cc) {
-                const float t = tau_s[cc][tx];
-                float s1, c1, sg, cg, s0, c0;
-                sincosf(t, &s1, &c1);
-                sincosf((float)G * t, &sg, &cg);
-                // k0 t = x + xe exactly; e^{i(x + xe)} ~ e^{ix}(1 + i xe)
-                const float x = kf * t;
-                const float xe = fmaf(kf, t, -x);
-                sincosf(x, &s0, &c0);
-                float chc[G], chs[G];
-                chc[0] = fmaf(-s0, xe, c0);
-                chs[0] = fmaf(c0, xe, s0);
+                const float4 D = tab[cc * FW_TN + tx];
+                // rows 0 .. CH - 1 from the seed by D^(2^h) (squares of
+                // D), rows CH .. 2 CH - 1 from those by D^CH
+                float ec[2 * FW_CH], es[2 * FW_CH];
+                float pc[4], pw[4];
+                pc[0] = D.x;
+                pw[0] = D.y;
 #pragma unroll
-                for (int g = 1; g < G; ++g) {
-                    chc[g] = chc[g - 1] * c1 - chs[g - 1] * s1;
-                    chs[g] = chs[g - 1] * c1 + chc[g - 1] * s1;
+                for (int h = 1; (1 << h) < FW_CH; ++h) {
+                    pc[h] = fmaf(pc[h - 1], pc[h - 1], -pw[h - 1] * pw[h - 1]);
+                    pw[h] = 2.f * pc[h - 1] * pw[h - 1];
                 }
-                const float* prow = &ps_s[cc][ty * FW_RT];
+                fw_seed(k0f, tau_s[cc * FW_TN + tx], ec[0], es[0]);
 #pragma unroll
-                for (int j = 0; j < FW_RT / G; ++j) {
+                for (int g = 1; g < FW_CH; ++g) {
+                    const int h = fw_hbit(g), f = g - (1 << h);
+                    ec[g] = fmaf(ec[f], pc[h], -es[f] * pw[h]);
+                    es[g] = fmaf(es[f], pc[h], ec[f] * pw[h]);
+                }
 #pragma unroll
-                    for (int g = 0; g < G; ++g) {
-                        const float p = prow[j * G + g];
-                        acc_re[j * G + g] = fmaf(p, chc[g], acc_re[j * G + g]);
-                        acc_im[j * G + g] = fmaf(p, chs[g], acc_im[j * G + g]);
-                    }
-                    if (j + 1 < FW_RT / G) {
+                for (int g = 0; g < FW_CH; ++g) {
+                    ec[FW_CH + g] = fmaf(ec[g], D.z, -es[g] * D.w);
+                    es[FW_CH + g] = fmaf(es[g], D.z, ec[g] * D.w);
+                }
+                // CH chains over rows g + CH j: e_{j+1} = 2 Re(D^CH) e_j -
+                // e_{j-1}, one FMA a component and row
+                const float w = 2.f * D.z;
+                const float4* pr = reinterpret_cast<const float4*>(
+                    ps_s + cc * FW_LD + ty * FW_RT);
+                float4 p4;
 #pragma unroll
-                        for (int g = 0; g < G; ++g) {
-                            const float cn = chc[g] * cg - chs[g] * sg;
-                            chs[g] = chs[g] * cg + chc[g] * sg;
-                            chc[g] = cn;
+                for (int j = 0; j < FW_RT / FW_CH; ++j) {
+                    if (j >= 2) {
+#pragma unroll
+                        for (int g = 0; g < FW_CH; ++g) {
+                            const float nc = fmaf(w, ec[FW_CH + g], -ec[g]);
+                            const float ns = fmaf(w, es[FW_CH + g], -es[g]);
+                            ec[g] = ec[FW_CH + g];
+                            es[g] = es[FW_CH + g];
+                            ec[FW_CH + g] = nc;
+                            es[FW_CH + g] = ns;
                         }
+                    }
+                    const int g0 = j == 0 ? 0 : FW_CH;
+#pragma unroll
+                    for (int g = 0; g < FW_CH; ++g) {
+                        const int r = j * FW_CH + g;
+                        if (r % 4 == 0) p4 = pr[r / 4];
+                        const float p = r % 4 == 0 ? p4.x
+                            : r % 4 == 1 ? p4.y : r % 4 == 2 ? p4.z : p4.w;
+                        acc_re[r] = fmaf(p, ec[g0 + g], acc_re[r]);
+                        acc_im[r] = fmaf(p, es[g0 + g], acc_im[r]);
                     }
                 }
             }
         }
-        __syncthreads();
     }
 
-    if (b < TB) {
+    // this slice's sums: straight to the output when the plan has one
+    // slice, else to slice z of the scratch part [z][re, im][k][b], which
+    // fw_sum adds in order
+    if (k0 < NF && b0 + tx < TB) {
+        const size_t count = (size_t)NF * TB;
+        float* re = gridDim.z == 1 ? ore : part + blockIdx.z * 2 * count;
+        float* im = gridDim.z == 1 ? oim : re + count;
 #pragma unroll
         for (int r = 0; r < FW_RT; ++r) {
-            const int k = k0 + r;
-            if (k < NF) {
-                atomicAdd(&ore[(size_t)k * TB + b], acc_re[r]);
-                atomicAdd(&oim[(size_t)k * TB + b], acc_im[r]);
+            if (k0 + r < NF) {
+                const size_t o = (size_t)(k0 + r) * TB + b0 + tx;
+                re[o] = acc_re[r];
+                im[o] = acc_im[r];
             }
         }
     }
 }
 
-template <int G>
-void launch_fwd(const float* tau, const float* ps, float* ore, float* oim,
-                int TC, int TB, int NF, int cslice, cudaStream_t s)
+// ore, oim = the S slices of part ([z][re, im][count]) added in order
+template <int V>
+__global__ void __launch_bounds__(256)
+fw_sum(const float* __restrict__ part, float* __restrict__ ore,
+       float* __restrict__ oim, size_t count, int S)
 {
-    const dim3 block(FW_TN, FW_RG);
-    const dim3 grid((TB + FW_TN - 1) / FW_TN, (NF + FW_TR - 1) / FW_TR,
-                    (TC + cslice - 1) / cslice);
-    k_fwd<G><<<grid, block, 0, s>>>(tau, ps, ore, oim, TC, TB, NF, cslice);
+    using T = typename std::conditional<V == 4, float4, float>::type;
+    const size_t m = count / V;                // vectors a plane
+    const T* p = reinterpret_cast<const T*>(part);
+    for (size_t i = (size_t)blockIdx.x * 256 + threadIdx.x; i < 2 * m;
+         i += (size_t)gridDim.x * 256) {
+        T a = p[i];
+        for (int z = 1; z < S; ++z) {
+            const T b = p[z * 2 * m + i];
+            if constexpr (V == 4) {
+                a.x += b.x;
+                a.y += b.y;
+                a.z += b.z;
+                a.w += b.w;
+            } else {
+                a += b;
+            }
+        }
+        reinterpret_cast<T*>(i < m ? ore : oim)[i % m] = a;
+    }
 }
 
 }  // namespace
@@ -809,14 +961,14 @@ void launch_fwd(const float* tau, const float* ps, float* ore, float* oim,
 extern "C" int k_nn_launch(const void* ps, const void* m, void* out, int NF,
                            int TC, int TB, void* stream)
 {
-    return launch_sgemm<false>(ps, m, out, NF, TB, TC,
+    return launch_sgemm<false>(k_nn<16>, k_nn<4>, ps, m, out, NF, TB, TC,
                                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int k_nt_launch(const void* ct, const void* m, void* out, int NF,
                            int TB, int TC, void* stream)
 {
-    return launch_sgemm<true>(ct, m, out, NF, TC, TB,
+    return launch_sgemm<true>(k_nt<16>, k_nt<4>, ct, m, out, NF, TC, TB,
                               static_cast<cudaStream_t>(stream));
 }
 
@@ -909,14 +1061,14 @@ extern "C" int lr_plan(const void* ct, const void* m, int NF, int TB, int TC,
     return 0;
 }
 
+// k_bd launches sgemm_ring as k_nn does (its plan is sgemm_plan's with
+// nt = 0, M = NF, N = TB, K = TC); G >= 1
 extern "C" int k_bd_launch(const void* ps, const void* m, void* out, int NF,
                            int TC, int TB, int G, void* stream)
 {
-    k_bd<<<dim3(cdiv(TB, GN), cdiv(NF, GM)), GT, 0,
-           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(ps), static_cast<const float*>(m),
-        static_cast<float*>(out), NF, TC, TB, G);
-    return static_cast<int>(cudaGetLastError());
+    if (G < 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_sgemm<false>(k_bd<16>, k_bd<4>, ps, m, out, NF, TB, TC,
+                               static_cast<cudaStream_t>(stream), G);
 }
 
 extern "C" int k_rot_launch(const void* m, void* out, int n, int NF,
@@ -927,25 +1079,47 @@ extern "C" int k_rot_launch(const void* m, void* out, int n, int NF,
     return static_cast<int>(cudaGetLastError());
 }
 
-// ore and oim must hold zeros; cslice is the number of c per block
-// (grid.z = ceil(TC / cslice)). G is 1, 2, 4, 8, 16 or 32.
+// k_fwd as fwd_plan_of says, then (S > 1) fw_sum; part holds S * 2 * NF
+// * TB floats (unused for S = 1)
 extern "C" int k_fwd_launch(const void* tau, const void* ps, void* ore,
-                            void* oim, int TC, int TB, int NF, int G,
-                            int cslice, void* stream)
+                            void* oim, void* part, int TC, int TB, int NF,
+                            void* stream)
 {
-    const float* t = static_cast<const float*>(tau);
-    const float* p = static_cast<const float*>(ps);
+    const FwdPlan p = fwd_plan_of(NF, TC, TB);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaError_t err = cudaFuncSetAttribute(
+        k_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (err != cudaSuccess) return (int)err;
     float* re = static_cast<float*>(ore);
     float* im = static_cast<float*>(oim);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (G) {
-    case 1: launch_fwd<1>(t, p, re, im, TC, TB, NF, cslice, s); break;
-    case 2: launch_fwd<2>(t, p, re, im, TC, TB, NF, cslice, s); break;
-    case 4: launch_fwd<4>(t, p, re, im, TC, TB, NF, cslice, s); break;
-    case 8: launch_fwd<8>(t, p, re, im, TC, TB, NF, cslice, s); break;
-    case 16: launch_fwd<16>(t, p, re, im, TC, TB, NF, cslice, s); break;
-    case 32: launch_fwd<32>(t, p, re, im, TC, TB, NF, cslice, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-    return static_cast<int>(cudaGetLastError());
+    float* pt = static_cast<float*>(part);
+    k_fwd<<<p.grid, FW_T, p.smem, s>>>(static_cast<const float*>(tau),
+                                       static_cast<const float*>(ps), re, im,
+                                       pt, TC, TB, NF, p.cslice);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || p.grid.z == 1) return (int)err;
+    const size_t count = (size_t)NF * TB;
+    const int V = count % 4 == 0 ? 4 : 1;
+    const unsigned blocks =
+        (unsigned)std::min<size_t>((2 * count / V + 255) / 256, 4096);
+    if (V == 4)
+        fw_sum<4><<<blocks, 256, 0, s>>>(pt, re, im, count, (int)p.grid.z);
+    else
+        fw_sum<1><<<blocks, 256, 0, s>>>(pt, re, im, count, (int)p.grid.z);
+    return (int)cudaGetLastError();
+}
+
+// The launch that k_fwd_launch makes: grid.x, grid.y, grid.z (the
+// slices), c a slice and dynamic shared memory (the card's check of the
+// wrapper's fwd_plan). Touches no memory.
+extern "C" int fwd_plan(int NF, int TC, int TB, int* gx, int* gy, int* gz,
+                        int* cslice, int* smem)
+{
+    const FwdPlan p = fwd_plan_of(NF, TC, TB);
+    *gx = (int)p.grid.x;
+    *gy = (int)p.grid.y;
+    *gz = (int)p.grid.z;
+    *cslice = p.cslice;
+    *smem = p.smem;
+    return 0;
 }

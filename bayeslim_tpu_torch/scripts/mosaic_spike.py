@@ -18,8 +18,9 @@ tau (TC, TB)):
 - ``run_rot(m, NF)``   NF rotations (c, s) <- (c cd - s sd, s cd + c sd)
   from (m, m/2), cd = 0.9 m, sd = 0.1 m; out = c + s              (k_rot)
 - ``run_fwd(tau, ps, G)`` (out_re, out_im)[k, b] = sum_c ps[k, c]
-  (cos, sin)(k tau[c, b]), the phases from G chains that start at
-  g tau and advance by G tau                                      (k_fwd)
+  (cos, sin)(k tau[c, b]), tau in radians; the plain version takes
+  the phases from G chains that start at g tau and advance by G tau,
+  the kernel from its own runs and chains                         (k_fwd)
 
 A CUDA tensor launches the kernel and a CPU tensor runs the plain
 version ``run_*_plain``; there is no fallback from one to the other.
@@ -27,7 +28,8 @@ Any dtype other than float32 raises, and so does NF % G != 0 (where the
 TPU loop would drop the last rows). ``launches`` counts each kernel's
 launches. ``sgemm_plan`` gives the launch of k_nn's and k_nt's
 ring-buffered SGEMM (grid, tile, cp.async chunk, shared memory),
-``vt_plan`` and ``lr_plan`` those of k_vt and k_lr.
+``bd_plan`` k_bd's (the same SGEMM), ``vt_plan``, ``lr_plan`` and
+``fwd_plan`` those of k_vt, k_lr and k_fwd.
 """
 from __future__ import annotations
 
@@ -45,8 +47,9 @@ __all__ = ["TC", "TB", "G", "NF", "SPIKES", "launches", "mk", "unit_m",
            "run_vt_plain", "run_lr_plain", "run_bd_plain", "run_rot_plain",
            "run_fwd_plain", "RUN", "PLAIN", "LIBRARY", "make_args",
            "compare", "work", "loop_flops", "bound_ms", "FWD_G", "main",
-           "sgemm_plan", "card_sgemm_plan", "vt_plan", "card_vt_plan",
-           "lr_plan", "card_lr_plan"]
+           "sgemm_plan", "card_sgemm_plan", "bd_plan", "card_bd_plan",
+           "vt_plan", "card_vt_plan", "lr_plan", "card_lr_plan", "fwd_plan",
+           "card_fwd_plan"]
 
 TC, TB, G, NF = 256, 256, 8, 1024
 
@@ -64,11 +67,15 @@ SPIKES = (
 # launches of each CUDA kernel (incremented once per launch, nowhere else)
 launches = dict.fromkeys((name for name, _ in SPIKES), 0)
 
-# k_fwd splits its c axis over blocks until its grid has about this
-# many threads (the card holds 132 x 2048)
-_FWD_THREADS = 1 << 17
-# the chain counts G the k_fwd kernel is built for
+# the chain counts G of the plain version that k_fwd's kernel is held
+# against (the kernel runs its own FWD_CHAINS chains whatever G is)
 FWD_G = (1, 2, 4, 8, 16, 32)
+# k_fwd: a block owns FWD_TILE = (rows, columns) of the output, a thread
+# one column and FWD_RUN rows in FWD_CHAINS chains; c in tiles of FWD_TK,
+# split into at most FWD_SLICES slices, chosen to fill whole waves of
+# FWD_WAVE blocks (two an SM on 132 SMs)
+FWD_TILE, FWD_RUN, FWD_CHAINS, FWD_TK = (256, 32), 32, 4, 32
+FWD_SLICES, FWD_WAVE = 8, 264
 # the SGEMM of k_nn and k_nt (csrc/mosaic_spike.cu): output tile (rows,
 # columns), k a slice, slices in the shared-memory ring; a thread owns
 # 4 x 4 outputs
@@ -90,7 +97,7 @@ _ARGTYPES = {
     "k_lr": [_P, _P, _P, _I, _I, _I, _P],
     "k_bd": [_P, _P, _P, _I, _I, _I, _I, _P],
     "k_rot": [_P, _P, _I, _I, _P],
-    "k_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "k_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -202,11 +209,11 @@ def sgemm_plan(nt, M, N, K, ptrs=(0, 0)):
             "smem": 4 * SG_STAGES * (bm * (SG_BK + 4) + b_words)}
 
 
-def _card_plan(symbol, argtypes, *args):
-    """The four ints that csrc/mosaic_spike.cu's plan export `symbol`
-    (argument types argtypes, then four int pointers) writes back."""
-    vals = [ctypes.c_int() for _ in range(4)]
-    rime_cuda._lib(_SRC, symbol, argtypes + [ctypes.POINTER(_I)] * 4)(
+def _card_plan(symbol, argtypes, *args, n=4):
+    """The n ints that csrc/mosaic_spike.cu's plan export `symbol`
+    (argument types argtypes, then n int pointers) writes back."""
+    vals = [ctypes.c_int() for _ in range(n)]
+    rime_cuda._lib(_SRC, symbol, argtypes + [ctypes.POINTER(_I)] * n)(
         *args, *(ctypes.byref(v) for v in vals))
     return [v.value for v in vals]
 
@@ -218,6 +225,18 @@ def card_sgemm_plan(nt, M, N, K, ptrs):
     gx, gy, chunk, smem = _card_plan("sgemm_plan", [_I, _P, _P, _I, _I, _I],
                                      int(nt), *ptrs, M, N, K)
     return {"grid": (gx, gy), "chunk": chunk, "smem": smem}
+
+
+def bd_plan(NF, TC, TB, ptrs=(0, 0)):
+    """The launch of k_bd for ps (NF, TC) and m (TC, TB) at the addresses
+    ptrs = (ps, m): k_nn's SGEMM, sgemm_plan(False, M=NF, N=TB, K=TC)."""
+    return sgemm_plan(False, NF, TB, TC, ptrs)
+
+
+def card_bd_plan(NF, TC, TB, ptrs):
+    """The launch that k_bd's C launcher makes (it asks sgemm_plan_of
+    with nt = 0), as card_sgemm_plan's dict."""
+    return card_sgemm_plan(False, NF, TB, TC, ptrs)
 
 
 def vt_plan(NF, TC, TB, ptrs=(0, 0, 0)):
@@ -267,6 +286,40 @@ def card_lr_plan(NF, TC, TB, ptrs):
     gx, gy, chunk, smem = _card_plan("lr_plan", [_P, _P, _I, _I, _I],
                                      *ptrs, NF, TB, TC)
     return {"grid": (gx, gy), "chunk": chunk, "smem": smem}
+
+
+def fwd_plan(NF, TC, TB):
+    """The launch of csrc/mosaic_spike.cu's k_fwd for tau (TC, TB) and ps
+    (NF, TC). Returns {"grid": (gx, gy, S), "cslice": c a slice (whole
+    tiles), "threads", "tile": (rows, columns) a block, "run": rows a
+    thread, "chains", "smem": dynamic shared memory in bytes}. S slices
+    of c (the sum kernel adds them) minimise waves / S over 1 ..
+    min(FWD_SLICES, c tiles), ties to the fewer. Mirrors the .cu's
+    fwd_plan_of, which the launcher follows."""
+    def cdiv(a, b):
+        return -(-a // b)
+    (tr, tn), tk = FWD_TILE, FWD_TK
+    tiles = cdiv(TB, tn) * cdiv(NF, tr)
+    ntk = max(1, cdiv(TC, tk))
+    best = 1
+    for s in range(2, min(FWD_SLICES, ntk) + 1):
+        if (cdiv(tiles * s, FWD_WAVE) * best
+                < cdiv(tiles * best, FWD_WAVE) * s):
+            best = s
+    cslice = cdiv(ntk, best) * tk
+    S = max(1, cdiv(TC, cslice))
+    slot = tk * (tr + 4) + tk * tn
+    return {"grid": (cdiv(TB, tn), cdiv(NF, tr), S), "cslice": cslice, "threads": tr * tn // FWD_RUN,
+            "tile": FWD_TILE, "run": FWD_RUN, "chains": FWD_CHAINS,
+            "smem": 4 * (2 * slot + 4 * tk * tn)}
+
+
+def card_fwd_plan(NF, TC, TB):
+    """The launch that k_fwd's C launcher makes, asked of the built
+    library, as fwd_plan's dict with only "grid", "cslice" and "smem"."""
+    gx, gy, gz, cslice, smem = _card_plan("fwd_plan", [_I, _I, _I], NF, TC,
+                                          TB, n=5)
+    return {"grid": (gx, gy, gz), "cslice": cslice, "smem": smem}
 
 
 def _sgemm(name, a, b, nt):
@@ -350,16 +403,6 @@ def run_rot(m, NF):
     return out
 
 
-def _fwd_slice(nf, tc, tb):
-    """c per block of k_fwd: the c axis is split until the grid holds
-    about _FWD_THREADS threads (a block is 32 columns x 256 rows)."""
-    def cdiv(a, b):
-        return -(-a // b)
-    threads = cdiv(tb, 32) * cdiv(nf, 256) * 256
-    nslices = min(max(1, cdiv(_FWD_THREADS, threads)), cdiv(tc, 32))
-    return cdiv(cdiv(tc, nslices), 32) * 32
-
-
 def run_fwd(tau, ps, G):
     """(out_re, out_im), each (NF, TB): sum_c ps[k, c] (cos, sin)(k tau)."""
     cuda = _operands("run_fwd", tau, ps)
@@ -370,10 +413,13 @@ def run_fwd(tau, ps, G):
     if G not in FWD_G:
         raise ValueError(f"run_fwd kernel takes G in {FWD_G}, got {G}")
     (nf, tc), tb = ps.shape, tau.shape[1]
-    ore = torch.zeros((nf, tb), dtype=torch.float32, device=ps.device)
-    oim = torch.zeros_like(ore)
-    _launch("k_fwd", ps.device, tau, ps, ore, oim, tc, tb, nf, G,
-            _fwd_slice(nf, tc, tb))
+    _, gy, S = fwd_plan(nf, tc, tb)["grid"]
+    if gy > 65535:
+        raise ValueError(f"run_fwd: {nf} rows exceed the kernel's grid")
+    ore, oim = _empty((nf, tb), ps), _empty((nf, tb), ps)
+    # the slices' partial sums, added in order by the sum kernel
+    part = _empty((S, 2, nf, tb), ps) if S > 1 else 0
+    _launch("k_fwd", ps.device, tau, ps, ore, oim, part, tc, tb, nf)
     return ore, oim
 
 
@@ -529,10 +575,11 @@ def loop_flops(name, NF=NF, TC=TC, TB=TB):
     """FP32 operations that the TPU body's loop does: NF multiply-adds
     per output in k_vt, 6 FLOP per element per step in k_rot, a rotation
     (6) and two multiply-adds (4) per (k, c, b) in k_fwd, the product's
-    in the others. The kernels of k_rot and k_fwd do this loop, so its
-    rate is the rate of their work; k_vt's kernel does the column sum
-    that work() counts instead, so for k_vt the rate is only the pace at
-    which it covers the TPU body's loop."""
+    in the others. k_rot's kernel does this loop, so its rate is the
+    rate of its work; k_vt's kernel does the column sum that work()
+    counts, and k_fwd's a two-term recurrence of 4 FLOP per triple
+    beside the sum's 4, so for those two the rate is only the pace at
+    which they cover the TPU body's loop."""
     trip = float(NF) * TC * TB
     return {"k_vt": 2 * trip, "k_rot": 6 * trip,
             "k_fwd": 10 * trip}.get(name, work(name, NF, TC, TB)[0])

@@ -95,7 +95,7 @@ def build_variants(edits=None, symbols=("k_nn_launch", "k_nt_launch"),
         fns = []
         for sym in symbols:
             fn = getattr(cdll, sym)
-            fn.argtypes = spike._ARGTYPES[sym[:4]]
+            fn.argtypes = spike._ARGTYPES[sym[:-len("_launch")]]
             fn.restype = ctypes.c_int
             fns.append(fn)
         out[name] = (*fns, report)
@@ -119,7 +119,7 @@ def main(seed=0):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     kernel = tuple(rime_cuda._lib("mosaic_spike.cu", sym,
-                                  spike._ARGTYPES[sym[:4]])
+                                  spike._ARGTYPES[sym[:-len("_launch")]])
                    for sym in ("k_nn_launch", "k_nt_launch"))
     variants = build_variants()
     fns = {"kernel": kernel + ("",), **variants}

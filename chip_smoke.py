@@ -53,20 +53,24 @@ Phases, one line each; any failure exits non-zero:
    rime_dtau beside the previous design's time, with real and complex
    ps, and
    k_rot and k_fwd timed at hera-stat's forward shape beside rime_fwd's
-   times at both shapes (as a fraction of k_fwd's);
+   times at both shapes (as a fraction of k_fwd's) and k_fwd's previous
+   design's;
 9. main path 3, the microbenchmark spikes (bayeslim_tpu_torch/scripts/
    mosaic_spike.py, the seven kernels of csrc/mosaic_spike.cu): the
-   ptxas report (registers, spills, static shared memory) of k_nn, k_nt,
-   k_vt, k_lr and k_bd, no FP64 in the SASS of the four redesigned ones
-   (k_nn, k_nt, k_vt, k_lr), and their launch plans beside the C
-   launchers'; each kernel against its plain version in float64 at the
-   script's sizes and at a size that fills no tile (k_fwd there at every
-   chain count G it is built for; the four redesigned ones also at a
-   ragged size with 4-byte loads, and launched twice, bit-equal); the
-   spike's own entry point, main(), with every kernel's launches counted
-   (exactly 1 + 400 each); the plain versions' times, the redesigned
-   kernels' beside their library call's and the previous design's.
-   Then the JSON line of all nine kernels.
+   ptxas report (registers, spills, static shared memory) of the six
+   redesigned ones (k_nn, k_nt, k_vt, k_lr, k_bd, k_fwd), no FP64 in
+   the SASS of any kernel of the file (the redesigned ones in every
+   instance the source makes), and their launch plans
+   beside the C launchers'; each kernel against its plain version in
+   float64 at the script's sizes and at a size that fills no tile (k_fwd
+   there against every chain count G of the plain version); the six
+   redesigned ones also at ragged sizes (4-byte loads; for k_bd and
+   k_fwd NF a multiple of G, and NF = 97 with G = 1) and launched twice,
+   bit-equal; the spike's own entry point, main(), with every kernel's
+   launches counted (exactly 1 + 400 each); the plain versions' times,
+   the redesigned kernels' beside their library call's (k_bd's also
+   beside torch.matmul(ps, m) alone) and the previous design's. Then the
+   JSON line of all nine kernels.
 
 The last line is {"ok": true, "device": {...}}. Exits non-zero without
 printing a result when no CUDA device or no package is present.
@@ -96,11 +100,13 @@ DTAU_BEFORE_MS, CAL_EVAL_BEFORE_MS = 3.7004, 29.05
 # on an NVIDIA H100 80GB HBM3 at 700 W
 STAT_STEPS_BEFORE_MS, STAT_PEAK_BEFORE_GIB = (22.8, 19.4), 2.15
 # the redesigned spikes' previous designs at the script's sizes, ms a
-# launch (the same card): k_nn's and k_nt's 64 x 64 SGEMM tile shared
-# with k_bd, k_vt's serial column walk per output, k_lr's one row a
-# block with a 32-lane butterfly per output
+# launch (the same card): k_nn's, k_nt's and k_bd's 64 x 64 SGEMM tile,
+# k_vt's serial column walk per output, k_lr's one row a block with a
+# 32-lane butterfly per output, k_fwd's G chains a thread with atomics
 BEFORE_MS = {"k_nn": 0.0251, "k_nt": 0.0287, "k_vt": 0.0275,
-             "k_lr": 0.0238}
+             "k_lr": 0.0238, "k_bd": 0.0233, "k_fwd": 0.0371}
+# k_fwd's previous design at hera-stat's forward shape (the same card)
+FWD_SPIKE_BEFORE_MS = 2.0162
 # delays past hex-11's longest (~1.0e-6 s) that phases 2 and 3 hold to
 # the same bar: |tau| within 1 % of this
 FAR_DELAY = 3e-6
@@ -740,25 +746,37 @@ def phase_small(bt, torch, rime_cuda, dev):
         check(all(v <= TOL for v in errs.values()), f"card vs CPU {label}")
 
 
+def kernel_instances(src, names):
+    """{kernel: instances the CUDA source makes}: its distinct template
+    arguments (`name<16>`, `name<4>`), or 1 for a kernel that is no
+    template."""
+    import re
+    return {n: len(set(re.findall(rf"\b{n}<(\d+)>", src))) or 1
+            for n in names}
+
+
 def phase_spike(torch, spike, dev, built):
     """Phase 9: the mosaic_spike kernels. Returns their entries of the
     JSON line of kernels."""
     path, _, report = built["mosaic_spike.cu"]
     redesigned = tuple(BEFORE_MS)
     for name, line in ptxas_by_function(report).items():
-        if any(k in name for k in redesigned + ("k_bd",)):
+        if any(k in name for k in redesigned):
             print(f"phase 9 mosaic_spike.cu ptxas: {name}: {line}", flush=True)
     fp64 = fp64_by_function(path)
     if fp64 is None:
         print("phase 9 mosaic_spike.cu SASS: no cuobjdump, FP64 not counted",
               flush=True)
     else:
-        fp64 = {k: v for k, v in fp64.items()
-                if any(n in k for n in redesigned)}
-        print(f"phase 9 mosaic_spike.cu SASS: FP64 instructions of the "
-              f"redesigned kernels {fp64}", flush=True)
-        check(len(fp64) == 2 * len(redesigned) and not any(fp64.values()),
-              f"the redesigned spikes run FP64 instructions: {fp64}")
+        with open(os.path.join(ROOT, "bayeslim_tpu_torch", "csrc",
+                               "mosaic_spike.cu")) as f:
+            want = kernel_instances(f.read(), redesigned)
+        got = {n: sum(n in k for k in fp64) for n in redesigned}
+        print(f"phase 9 mosaic_spike.cu SASS: FP64 instructions by kernel "
+              f"{fp64}; instances of the redesigned kernels {got} (the "
+              f"source makes {want})", flush=True)
+        check(got == want and not any(fp64.values()),
+              f"the spikes run FP64 instructions: {fp64}")
     # the script's sizes (TC = TB, so k_nn's and k_nt's M, N, K agree)
     dims = (spike.NF, spike.TC, spike.TB)
     plans = {name: (spike.sgemm_plan(nt, *dims),
@@ -768,6 +786,11 @@ def phase_spike(torch, spike, dev, built):
                                                               (0, 0, 0)))
     plans["k_lr"] = (spike.lr_plan(*dims), spike.card_lr_plan(*dims,
                                                               (0, 0)))
+    plans["k_bd"] = (spike.bd_plan(*dims), spike.card_bd_plan(*dims, (0, 0)))
+    for label, fdims in (("", dims), (" (hera-stat's forward shape)",
+                                      (1024, 6144, 630))):
+        plans["k_fwd" + label] = (spike.fwd_plan(*fdims),
+                                  spike.card_fwd_plan(*fdims))
     for name, (plan, card) in plans.items():
         print(f"phase 9 {name} launch at the script's sizes: {plan}; the "
               f"C launcher's: {card}", flush=True)
@@ -779,20 +802,27 @@ def phase_spike(torch, spike, dev, built):
              ("odd", (96, 200, 100, 8)))
     cases = [(label, name, size) for label, size in sizes
              for name, _ in spike.SPIKES]
-    # k_fwd is built for each chain count G: the others at the odd size
+    # k_fwd against the plain version's every chain count G: the others
+    # at the odd size
     cases += [("odd", "k_fwd", (96, 200, 100, g)) for g in spike.FWD_G
               if g != spike.G]
     # the redesigned kernels' 4-byte loads: rows of a length that is no
-    # multiple of 4, rows and columns off the tile
-    cases += [("ragged", name, (97, 203, 101, 8)) for name in redesigned]
+    # multiple of 4, rows and columns off the tile (k_bd and k_fwd take
+    # NF % G == 0)
+    cases += [("ragged", name, (97, 203, 101, 8))
+              for name in redesigned if name not in ("k_bd", "k_fwd")]
+    cases += [("ragged", name, size) for name in ("k_bd", "k_fwd")
+              for size in ((104, 203, 101, 8), (97, 203, 101, 1))]
     for label, name, size in cases:
         rel, err, n = spike.compare(name, *size, device=dev)
         torch.cuda.synchronize()
         same = ""
         if name in redesigned:
             args = spike.make_args(name, *size, device=dev, distinct=True)
-            eq = bool(torch.equal(spike.RUN[name](*args),
-                                  spike.RUN[name](*args)))
+            one, two = spike.RUN[name](*args), spike.RUN[name](*args)
+            eq = all(torch.equal(a, b) for a, b in zip(
+                one if isinstance(one, tuple) else (one,),
+                two if isinstance(two, tuple) else (two,)))
             same = f"; a second launch {'bit-equal' if eq else 'DIFFERS'}"
             check(eq, f"{name} at {size}: two launches differ")
         print(f"phase 9 {name} vs plain (float64), {label} NF, TC, TB, "
@@ -823,9 +853,15 @@ def phase_spike(torch, spike, dev, built):
         lib = (f"library {t['library_ms']:.4f} ms" if t["library_ms"]
                is not None else "no single PyTorch call computes it, so no "
                "library time")
-        if name in BEFORE_MS:
+        if name in BEFORE_MS and t["library_ms"] is not None:
             lib += (f" (kernel {t['ms'] / t['library_ms']:.2f}x the library "
-                    f"call); the previous design ran {BEFORE_MS[name]} "
+                    f"call)")
+        if name == "k_bd":
+            mm = spike.timeit(torch.matmul, *args[:2], n=nrep)
+            lib += (f", torch.matmul(ps, m) alone {mm:.4f} ms (kernel "
+                    f"{t['ms'] / mm:.2f}x it)")
+        if name in BEFORE_MS:
+            lib += (f"; the previous design ran {BEFORE_MS[name]} "
                     f"ms on an NVIDIA H100 80GB HBM3 at 700 W, "
                     f"{BEFORE_MS[name] / t['ms']:.2f}x this time")
         print(f"phase 9 times: {name} at NF, TC, TB = {spike.NF}, "
@@ -859,10 +895,14 @@ def phase_fwd_beside_spikes(torch, spike, dev, fwd_shape, timing):
         bms, by = spike.bound_ms(name, R, K, N)
         tflops = spike.loop_flops(name, R, K, N) / ms / 1e9
         split[name] = ms
+        old = (f"; the previous design ran {FWD_SPIKE_BEFORE_MS} ms on an "
+               f"NVIDIA H100 80GB HBM3 at 700 W, "
+               f"{FWD_SPIKE_BEFORE_MS / ms:.2f}x this time"
+               if name == "k_fwd" else "")
         print(f"phase 8 times at hera-stat's forward shape NF={R} TC={K} "
               f"TB={N} G=8: {name} {ms:.4f} ms, bound {bms:.4f} ms ({by}), "
               f"kernel at {bms / ms:.1%} of bound; loop {tflops:.2f} "
-              f"TFLOP/s", flush=True)
+              f"TFLOP/s{old}", flush=True)
     kf = split["k_fwd"]
     print(f"phase 8 rime_fwd beside the spikes: forward shape "
           f"{timing[0][0]:.4f} ms = {timing[0][0] / kf:.1%} of k_fwd's "

@@ -292,7 +292,8 @@ def test_spike_kernel_vs_plain(cuda, name, NF, TC, TB, G):
 @pytest.mark.cuda
 @pytest.mark.parametrize("G", spike.FWD_G)
 def test_spike_fwd_every_chain_count(cuda, G):
-    """k_fwd is built for each G in FWD_G; each against float64."""
+    """k_fwd against the plain version at each chain count G in FWD_G
+    (the kernel runs its own chains), in float64."""
     rel, _, n = spike.compare("k_fwd", 96, 200, 100, G, device=cuda)
     assert n == 1
     assert rel <= 1e-4
@@ -403,3 +404,53 @@ def test_spike_vt_lr_plans_are_the_launchers(cuda, NF, TC, TB, offsets):
     want = spike.lr_plan(NF, TC, TB, ptrs[:2])
     assert spike.card_lr_plan(NF, TC, TB, ptrs[:2]) == {
         k: want[k] for k in ("grid", "chunk", "smem")}
+
+
+def _outs(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["k_bd", "k_fwd"])
+@pytest.mark.parametrize("NF,TC,TB,G", [
+    (1024, 256, 256, 8), (96, 200, 100, 8),
+    (104, 203, 101, 8),                     # off every tile, NF % G == 0
+    (97, 203, 101, 1)])                     # NF odd: G = 1
+def test_spike_bd_fwd_vs_plain_and_bit_equal(cuda, name, NF, TC, TB, G):
+    """k_bd's scaled SGEMM and k_fwd's runs, chains and cluster sum
+    against float64, on and off the tiles; two launches bit-equal (one
+    fixed order an output, no atomics)."""
+    rel, _, n = spike.compare(name, NF, TC, TB, G, device=cuda)
+    assert n == 1 and rel <= 1e-4
+    args = spike.make_args(name, NF, TC, TB, G, device=cuda, distinct=True)
+    one, two = spike.RUN[name](*args), spike.RUN[name](*args)
+    assert all(torch.equal(a, b) for a, b in zip(_outs(one), _outs(two)))
+
+
+@pytest.mark.cuda
+def test_spike_bd_unaligned_operands(cuda):
+    """k_bd's operands 4 bytes past a 16-byte boundary take 4-byte
+    chunks, and agree with float64."""
+    NF, TC, TB, G = 104, 200, 100, 8
+    buf = spike.mk((NF * TC + TC * TB + 2,), 3, device=cuda)
+    ps = buf[1:1 + NF * TC].view(NF, TC)
+    m = buf[2 + NF * TC:2 + NF * TC + TC * TB].view(TC, TB)
+    assert spike.bd_plan(NF, TC, TB, (ps.data_ptr(), m.data_ptr()))[
+        "chunk"] == 4
+    ref = spike.run_bd_plain(ps.double(), m.double(), G)
+    assert _relerr(spike.run_bd(ps, m, G).cpu(), ref.cpu()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("NF,TC,TB,offsets", [
+    (1024, 256, 256, (0, 0)), (104, 203, 101, (0, 0)), (96, 200, 100, (4, 0)),
+    (96, 200, 100, (0, 8)), (1024, 6144, 630, (0, 0)), (5, 3, 1, (0, 0))])
+def test_spike_bd_fwd_plans_are_the_launchers(cuda, NF, TC, TB, offsets):
+    base = torch.empty(64, device=cuda).data_ptr()
+    ptrs = tuple(base + o for o in offsets)
+    want = spike.bd_plan(NF, TC, TB, ptrs)
+    assert spike.card_bd_plan(NF, TC, TB, ptrs) == {
+        k: want[k] for k in ("grid", "chunk", "smem")}
+    want = spike.fwd_plan(NF, TC, TB)
+    assert spike.card_fwd_plan(NF, TC, TB) == {
+        k: want[k] for k in ("grid", "cslice", "smem")}

@@ -21,7 +21,8 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from bayeslim_tpu_torch.scripts import mosaic_spike as spike
-from bayeslim_tpu_torch.scripts import sgemm_variants, vt_lr_variants
+from bayeslim_tpu_torch.scripts import (bd_fwd_variants, sgemm_variants,
+                                        vt_lr_variants)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TC, TB, NF, G = 16, 24, 32, 4
@@ -202,37 +203,49 @@ def test_roofline_is_the_larger_time():
 
 
 @pytest.mark.parametrize("nf,tc,tb", [(1024, 256, 256), (1024, 6144, 630),
-                                      (96, 200, 100), (32, 16, 24)])
+                                      (96, 200, 100), (32, 16, 24),
+                                      (104, 203, 101), (97, 203, 101),
+                                      (5, 3, 1), (4096, 33, 7)])
 def test_fwd_slices_cover_the_c_axis(nf, tc, tb):
-    cslice = spike._fwd_slice(nf, tc, tb)
-    nslices = -(-tc // cslice)
-    assert cslice % 32 == 0 and cslice * nslices >= tc
-    assert cslice * (nslices - 1) < tc          # no empty slice
+    """fwd_plan's slices of c: whole tiles, at most FWD_SLICES of them,
+    none empty, together covering every c once."""
+    plan = spike.fwd_plan(nf, tc, tb)
+    cslice, S = plan["cslice"], plan["grid"][2]
+    assert 1 <= S <= spike.FWD_SLICES
+    assert cslice % spike.FWD_TK == 0 and cslice * S >= tc
+    assert cslice * (S - 1) < tc                # no empty slice
+    (tr, tn) = plan["tile"]
+    assert plan["grid"][:2] == (-(-tb // tn), -(-nf // tr))
 
 
-def _owners(nt, M, N, K):
-    """How many (block, thread) pairs store each output of the SGEMM of
-    k_nn / k_nt under sgemm_plan's launch, by the .cu's mapping: thread
-    t owns rows ty + TY i and columns tx + TX j (k_nt) or 4 tx + j
-    (k_nn), tx = t % TX, ty = t // TX, i, j < 4, TX = BN / 4, TY = BM /
-    4, stores masked at (M, N)."""
+def _sgemm_cells(nt, M, N, K):
+    """(rows, columns) of every output that a (block, thread, i, j) of
+    sgemm_plan's launch stores, by the .cu's mapping: thread t owns rows
+    ty + TY i and columns tx + TX j (k_nt) or 4 tx + j (k_nn), tx = t %
+    TX, ty = t // TX, i, j < 4, TX = BN / 4, TY = BM / 4, stores masked
+    at (M, N)."""
     plan = spike.sgemm_plan(nt, M, N, K)
     (gx, gy), (bm, bn, _) = plan["grid"], plan["tile"]
     TX, TY = bn // 4, bm // 4
     t = np.arange(plan["threads"])
-    assert len(t) == TX * TY
     tx, ty = t % TX, t // TX
-    rows = (ty[:, None] + TY * np.arange(4)[None]).repeat(4, 1)   # (T, 16)
-    cols = (tx[:, None] + TX * np.arange(4)[None] if nt
-            else 4 * tx[:, None] + np.arange(4)[None])
-    cols = np.tile(cols, (1, 4))
+    assert len(t) == TX * TY
+    rows = (ty[:, None] + TY * np.arange(4)[None]).repeat(4, 1)
+    cols = np.tile(tx[:, None] + TX * np.arange(4)[None] if nt
+                   else 4 * tx[:, None] + np.arange(4)[None], (1, 4))
     assert rows.max() < bm and cols.max() < bn
+    by, bx = np.divmod(np.arange(gx * gy), gx)
+    r = (by[:, None] * bm + rows.ravel()[None]).ravel()
+    c = (bx[:, None] * bn + cols.ravel()[None]).ravel()
+    keep = (r < M) & (c < N)
+    return r[keep], c[keep]
+
+
+def _owners(nt, M, N, K):
+    """How many (block, thread) pairs store each output of the SGEMM of
+    k_nn / k_nt under sgemm_plan's launch (_sgemm_cells' mapping)."""
     count = np.zeros((M, N), dtype=int)
-    for by in range(gy):
-        for bx in range(gx):
-            r, c = by * bm + rows.ravel(), bx * bn + cols.ravel()
-            keep = (r < M) & (c < N)
-            np.add.at(count, (r[keep], c[keep]), 1)
+    np.add.at(count, _sgemm_cells(nt, M, N, K), 1)
     return count
 
 
@@ -563,3 +576,296 @@ def test_vt_lr_variants_edit_the_kernel_source(name, variant):
         k = _constants(new, "VT")
         if k:
             assert k["VT_GC"] % k["VT_CL"] == 0 and k["VT_CL"] <= 16
+
+
+# ---- k_bd and k_fwd: host emulations of the kernels' arithmetic and
+# order, through the index formulas of csrc/mosaic_spike.cu (sgemm_ring's
+# epilogue with SCALE; k_fwd, fw_seed) under bd_plan / fwd_plan
+
+BD_FWD_SIZES = [(1024, 256, 256), (96, 200, 100), (104, 203, 101),
+                (97, 203, 101), (NF, TC, TB)]
+
+
+def _fma(a, b, c):
+    """fmaf on float32 values: a * b is exact in float64, the sum rounds
+    once to float32 (its float64 rounding first is below 2^-29 of it)."""
+    return _f32(np.float64(a) * np.float64(b) + np.float64(c))
+
+
+def _bd_emulate(ps, m, G, ptrs=(0, 0)):
+    """k_bd in float32 as the .cu orders it: one fmaf chain over c = 0 ..
+    TC - 1 an output (zero-filled c add exact zeros), then the epilogue's
+    scale 1 + (r mod G), one product, as the output is stored. Returns
+    (out, times each output was stored, times it was scaled)."""
+    (nf, tc), tb = ps.shape, m.shape[1]
+    assert spike.bd_plan(nf, tc, tb, ptrs) == spike.sgemm_plan(
+        False, nf, tb, tc, ptrs)
+    acc = np.zeros((nf, tb), dtype=np.float32)
+    for k in range(tc):
+        acc = _fma(ps[:, k:k + 1], m[k:k + 1], acc)
+    r, c = _sgemm_cells(False, nf, tb, tc)
+    out = np.full((nf, tb), np.nan, dtype=np.float32)
+    stores = np.zeros((nf, tb), dtype=int)
+    scaled = np.zeros((nf, tb), dtype=int)
+    scale = _f32(1 + r % G)
+    out[r, c] = _f32(scale * acc[r, c])
+    np.add.at(stores, (r, c), 1)
+    np.add.at(scaled, (r, c), 1)
+    return out, stores, scaled
+
+
+@pytest.mark.parametrize("nf,tc,tb,g", [
+    size + (g,) for size in BD_FWD_SIZES for g in (1, 8) if size[0] % g == 0])
+def test_bd_emulation_stores_and_scales_every_output_once(nf, tc, tb, g):
+    ps = spike.mk((nf, tc), 1, device="cpu").numpy()
+    m = spike.mk((tc, tb), 2, device="cpu").numpy()
+    out, stores, scaled = _bd_emulate(ps, m, g)
+    assert (stores == 1).all() and (scaled == 1).all()
+    ref = spike.run_bd_plain(torch.as_tensor(ps).double(),
+                             torch.as_tensor(m).double(), g).numpy()
+    assert _relerr(out, ref) <= 1e-6
+
+
+@pytest.mark.parametrize("ptrs", [(4, 0), (0, 8)])
+def test_bd_emulation_with_4_byte_chunks(ptrs):
+    """Unaligned operands take 4-byte chunks: the same order, the same
+    sums."""
+    ps = spike.mk((104, 200), 1, device="cpu").numpy()
+    m = spike.mk((200, 100), 2, device="cpu").numpy()
+    assert spike.bd_plan(104, 200, 100, ptrs)["chunk"] == 4
+    out, stores, _ = _bd_emulate(ps, m, 8, ptrs)
+    assert (stores == 1).all()
+    np.testing.assert_array_equal(out, _bd_emulate(ps, m, 8)[0])
+
+
+def test_bd_plan_is_k_nns_sgemm_at_the_spike_shape():
+    """k_bd runs on k_nn's SGEMM: 128 blocks of 128 threads, 16-byte
+    chunks, its M, N, K = NF, TB, TC (the launcher's argument order)."""
+    plan = spike.bd_plan(1024, 200, 256)
+    assert plan == spike.sgemm_plan(False, 1024, 256, 200)
+    assert np.prod(spike.bd_plan(spike.NF, spike.TC, spike.TB)["grid"]) == 128
+
+
+# k_fwd's constants (csrc/mosaic_spike.cu fw_seed): 2 pi in three parts
+FW_P1, FW_P2, FW_P3 = _f32(6.28125), _f32(1.9353072e-3), _f32(1.0253132e-11)
+FW_INV2PI = _f32(0.159154943)
+# the SFU's __sincosf on [-pi, pi]: at most 2^-21.41 absolute error
+SFU_ERR = 2.0 ** -21.41
+
+
+def _sincos_sfu(x):
+    """__sincosf(x), |x| <= pi (+ rounding), as the correctly rounded
+    values each moved away from zero by the error bound."""
+    s, c = np.sin(np.float64(x)), np.cos(np.float64(x))
+    return _f32(s + np.sign(s) * SFU_ERR), _f32(c + np.sign(c) * SFU_ERR)
+
+
+def _fw_seed(k, t):
+    """fw_seed: e^{i k t} from the exact split k t = x + xe, x reduced by
+    2 pi in three parts, then the SFU. Returns (cos, sin, |reduced|)."""
+    x = _f32(np.float64(k) * np.float64(t))
+    xe = _fma(k, t, -x)
+    q = _f32(np.rint(_f32(np.float64(x) * np.float64(FW_INV2PI))))
+    hi = _fma(-q, FW_P1, x)
+    lo = _fma(-q, FW_P3, _fma(-q, FW_P2, xe))
+    r = _f32(np.float64(hi) + np.float64(lo))
+    s, c = _sincos_sfu(r)
+    return c, s, np.abs(r)
+
+
+def _fw_sincos(x):
+    """fw_sincos in float32, step by step: x - j pi/2 in three parts,
+    Cephes' polynomials on [-pi/4, pi/4], the quadrant. Returns (sin,
+    cos)."""
+    x = _f32(x)
+    j = _f32(np.rint(_f32(np.float64(x) * np.float64(_f32(0.636619747)))))
+    r = _fma(-j, _f32(1.57079625), x)
+    r = _fma(-j, _f32(7.54978942e-8), r)
+    r = _fma(-j, _f32(5.39030253e-15), r)
+    r2 = _f32(np.float64(r) * np.float64(r))
+    ps = _fma(r2, _f32(-1.95152959e-4), _f32(8.33216087e-3))
+    ps = _fma(r2, ps, _f32(-1.66666546e-1))
+    sr = _fma(_f32(np.float64(r) * np.float64(r2)), ps, r)
+    pc = _fma(r2, _f32(2.44331571e-5), _f32(-1.38873163e-3))
+    pc = _fma(r2, pc, _f32(4.16666456e-2))
+    pc = _fma(r2, pc, _f32(-0.5))
+    cr = _fma(r2, pc, _f32(1.0))
+    q = j.astype(np.int64) & 3
+    s = np.where(q & 1, cr, sr)
+    c = np.where(q & 1, sr, cr)
+    return (_f32(np.where(q & 2, -s, s)),
+            _f32(np.where((q + 1) & 2, -c, c)))
+
+
+@pytest.mark.parametrize("tmax", [1e-3, 1.0, 24.0, 1e3])
+def test_fw_sincos_within_a_few_ulp(tmax):
+    """The table's sin and cos (and D^CH's, at CH t up to 4 x 5.5)
+    within 3e-7 absolute of float64."""
+    rng = np.random.default_rng(5)
+    x = _f32(np.concatenate([rng.uniform(-tmax, tmax, 20000),
+                             [0.0, tmax, -tmax, np.pi / 4, 3 * np.pi / 4]]))
+    s, c = _fw_sincos(x)
+    assert np.abs(s - np.sin(np.float64(x))).max() <= 3e-7
+    assert np.abs(c - np.cos(np.float64(x))).max() <= 3e-7
+
+
+def _fw_phasors(k0, t, RT=spike.FWD_RUN, CH=spike.FWD_CHAINS):
+    """The phasors e^{i k t} of rows k0 .. k0 + RT - 1 (k0 (R, 1), t
+    (n,)) as the kernel forms them: the table's D and D^CH (fw_sincos),
+    the seed, rows 1 .. CH - 1 by D^(2^h), rows CH .. 2 CH - 1 by D^CH,
+    then CH two-term chains. Returns cos and
+    sin, each (R, RT, n)."""
+    t = _f32(t)
+    s1, c1 = _fw_sincos(t)
+    sn, cn = _fw_sincos(_f32(CH * t))
+    c1, s1, cn, sn = (np.broadcast_to(v, (k0.shape[0], t.size))
+                      for v in (c1, s1, cn, sn))
+    pc, pw = [c1], [s1]
+    h = 1
+    while (1 << h) < CH:
+        pc.append(_fma(pc[-1], pc[-1], -_f32(pw[-1] * pw[-1])))
+        pw.append(_f32(_f32(2 * pc[-2]) * pw[-1]))
+        h += 1
+    ec, es = [None] * (2 * CH), [None] * (2 * CH)
+    ec[0], es[0], _ = _fw_seed(_f32(np.broadcast_to(k0, (k0.shape[0], t.size))),
+                               np.broadcast_to(t, (k0.shape[0], t.size)))
+    for g in range(1, CH):
+        h = g.bit_length() - 1
+        f = g - (1 << h)
+        ec[g] = _fma(ec[f], pc[h], -_f32(es[f] * pw[h]))
+        es[g] = _fma(es[f], pc[h], _f32(ec[f] * pw[h]))
+    for g in range(CH):
+        ec[CH + g] = _fma(ec[g], cn, -_f32(es[g] * sn))
+        es[CH + g] = _fma(es[g], cn, _f32(ec[g] * sn))
+    w = _f32(2 * cn)
+    rows_c, rows_s = list(ec[:CH]), list(es[:CH])
+    for j in range(1, RT // CH):
+        if j >= 2:
+            for g in range(CH):
+                nc = _fma(w, ec[CH + g], -ec[g])
+                ns = _fma(w, es[CH + g], -es[g])
+                ec[g], es[g] = ec[CH + g], es[CH + g]
+                ec[CH + g], es[CH + g] = nc, ns
+        rows_c += ec[CH:]
+        rows_s += es[CH:]
+    return np.stack(rows_c, 1), np.stack(rows_s, 1)
+
+
+def _fwd_emulate(tau, ps):
+    """k_fwd in float32 as the .cu orders it, under fwd_plan: each
+    slice's partial sums (one fmaf chain a row and column over its c in
+    order), then the slices added in order (the sum kernel). Returns
+    (re, im)."""
+    (nf, tc), tb = ps.shape, tau.shape[1]
+    plan = spike.fwd_plan(nf, tc, tb)
+    RT, S, cslice = plan["run"], plan["grid"][2], plan["cslice"]
+    nruns = -(-nf // RT)
+    k0 = (RT * np.arange(nruns, dtype=np.float32))[:, None]
+    psp = np.zeros((nruns * RT, tc), dtype=np.float32)
+    psp[:nf] = ps
+    psp = psp.reshape(nruns, RT, tc)
+    out = None
+    for z in range(S):
+        acc = np.zeros((2, nruns, RT, tb), dtype=np.float32)
+        for c in range(z * cslice, min(tc, (z + 1) * cslice)):
+            ec, es = _fw_phasors(k0, tau[c])
+            p = psp[:, :, c, None]
+            acc[0] = _fma(p, ec, acc[0])
+            acc[1] = _fma(p, es, acc[1])
+        out = acc if out is None else _f32(out + acc)
+    out = out.reshape(2, nruns * RT, tb)[:, :nf]
+    return out[0], out[1]
+
+
+@pytest.mark.parametrize("nf,tc,tb", BD_FWD_SIZES)
+def test_fwd_emulation_against_float64(nf, tc, tb):
+    """The kernel's whole sum, seeds, chains and slices, within 1e-4 of
+    float64 (the card's bar); its worst here is ~1e-6."""
+    tau = spike.mk((tc, tb), 1, device="cpu").numpy()
+    ps = spike.mk((nf, tc), 2, device="cpu").numpy()
+    re, im = _fwd_emulate(tau, ps)
+    rre, rim = (x.numpy() for x in spike.run_fwd_plain(
+        torch.as_tensor(tau).double(), torch.as_tensor(ps).double(), 1))
+    scale = max(np.abs(rre).max(), np.abs(rim).max())
+    err = max(np.abs(re - rre).max(), np.abs(im - rim).max()) / scale
+    assert err <= 2e-6
+
+
+@pytest.mark.parametrize("tmax", [1e-3, 1.0, 5.5])
+def test_fwd_phasors_worst_error(tmax):
+    """Every row's phasor e^{i k t} against float64 for k up to 1023 and
+    t up to the edges of N(0, 1) (|t| = 5.5: k t reaches 5,600 rad):
+    within 4e-6 absolute (the SFU seed at its error bound ~4e-7, the
+    reduction's roundings ~2e-7, the fill's products and 6 chain steps
+    the rest), and the reduced argument of every seed within pi + 1e-5."""
+    rng = np.random.default_rng(7)
+    t = _f32(np.concatenate([rng.uniform(-tmax, tmax, 509), [tmax, -tmax, 0]]))
+    k0 = (32 * np.arange(32, dtype=np.float32))[:, None]
+    ec, es = _fw_phasors(k0, t)
+    k = (k0[:, :, None] + np.arange(32)[None, :, None]).astype(np.float64)
+    ph = k * np.float64(t)[None, None]
+    err = max(np.abs(ec - np.cos(ph)).max(), np.abs(es - np.sin(ph)).max())
+    assert err <= 4e-6
+    _, _, red = _fw_seed(_f32(np.broadcast_to(k0, (32, t.size))),
+                         np.broadcast_to(t, (32, t.size)))
+    assert red.max() <= np.pi + 1e-5
+
+
+def test_fwd_seed_reduction_first_step_is_exact():
+    """x - q FW_P1 is exact (FW_P1 has 8 significant bits, |q| < 2^16,
+    and Sterbenz), so only the small parts round."""
+    assert float(FW_P1) * 32 == 201 and float(FW_P1) + float(FW_P2) + float(
+        FW_P3) == pytest.approx(2 * np.pi, abs=1e-15)
+    rng = np.random.default_rng(3)
+    x = _f32(rng.uniform(-4e5, 4e5, 10000))
+    q = _f32(np.rint(_f32(np.float64(x) * np.float64(FW_INV2PI))))
+    exact = np.float64(x) - np.float64(q) * np.float64(FW_P1)
+    np.testing.assert_array_equal(_fma(-q, FW_P1, x), exact)
+
+
+def test_fwd_plan_fills_whole_waves():
+    """The spike's shape: 32 output tiles in 8 slices of one c tile (256
+    blocks, one wave at two an SM); hera-stat's forward
+    shape: 80 tiles in 3 slices (240 blocks, one wave: 4 slices would
+    leave a second wave of 56)."""
+    assert spike.fwd_plan(1024, 256, 256)["grid"] == (8, 4, 8)
+    assert spike.fwd_plan(1024, 6144, 630)["grid"] == (20, 4, 3)
+    for size in [(1024, 256, 256), (1024, 6144, 630), (97, 203, 101)]:
+        plan = spike.fwd_plan(*size)
+        assert 2 * plan["smem"] <= 233472 and plan["threads"] == 256
+
+
+@pytest.mark.parametrize("name", ["k_bd", "k_fwd"])
+def test_bd_fwd_emulation_matches_jax_interpret(jax_spike, name):
+    """k_bd's and k_fwd's arithmetic against the TPU bodies, run by
+    pl.pallas_call in interpret mode (G = 4 chains in the JAX body; the
+    kernel's own chains are the same function)."""
+    args = spike.make_args(name, NF, TC, TB, G, device="cpu", seed=3,
+                           distinct=True)
+    tensors = [a.numpy() for a in args if isinstance(a, torch.Tensor)]
+    outs, scratch = JAX_CALLS[name]
+    ref = _pallas(getattr(jax_spike, name),
+                  [jnp.asarray(t) for t in tensors], outs, scratch)
+    if name == "k_bd":
+        got, ref = [_bd_emulate(*tensors, G)[0]], [ref]
+    else:
+        got = _fwd_emulate(*tensors)
+    for g, r, shape in zip(got, ref, outs):
+        assert g.shape == shape
+        assert _relerr(g, r) <= 1e-5
+
+
+@pytest.mark.parametrize("name,variant", [
+    (name, v) for name, edits in bd_fwd_variants.EDITS.items()
+    for v in edits])
+def test_bd_fwd_variants_edit_the_kernel_source(name, variant):
+    """Each design alternative of scripts/bd_fwd_variants.py is a text
+    edit of csrc/mosaic_spike.cu that finds its text exactly once and
+    changes it."""
+    src = open(os.path.join(REPO, "bayeslim_tpu_torch", "csrc",
+                            "mosaic_spike.cu")).read()
+    for old, new in bd_fwd_variants.EDITS[name][variant]:
+        assert src.count(old) == 1 and old != new
+        k = _constants(new, "FW")
+        if k:
+            assert k["FW_RT"] % k["FW_CH"] == 0 and k["FW_RT"] >= 2 * k["FW_CH"]
