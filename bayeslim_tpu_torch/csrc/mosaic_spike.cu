@@ -22,19 +22,18 @@
 // (2 NF TC TB FLOP on ~1.6 MB); k_fwd is operations too, the
 // contraction's two FMAs per (k, c, b). k_vt needs only a column sum
 // and one product, and k_rot's result only ~11 complex products by
-// repeated squaring, so both are bytes. k_rot keeps the TPU body's
-// loop, as the spike measures it: a dependent chain of NF rotations (6
-// FLOP each) per element; k_fwd keeps its phasor recurrence, in chains
-// of one FMA a component and row beside the sum's two; k_vt does its
+// repeated squaring, so both are bytes. k_rot computes its closed form,
+// a float-float power in O(log NF) operations an element, not the TPU
+// body's NF rotations; k_fwd keeps its phasor recurrence, in chains of
+// one FMA a component and row beside the sum's two; k_vt does its
 // function's column sum. Every kernel uses plain FP32 arithmetic: no
-// TF32, no tensor cores.
+// TF32, no tensor cores, no FP64.
 //
 // k_nn, k_nt and k_bd share a ring-buffered SGEMM, k_lr has a
 // register-tiled product with its b axis split over lanes, k_vt a
-// cluster-wide column sum and k_fwd rime_fwd.cu's runs and chains
-// (designs below), all redesigned for the card. k_rot is the one first,
-// simple kernel left: one owner thread per element, nothing
-// asynchronous.
+// cluster-wide column sum, k_fwd rime_fwd.cu's runs and chains and
+// k_rot an elementwise power (designs below), all redesigned for the
+// card.
 //
 // ---- The SGEMM of k_nn and k_nt (sgemm_ring). C (M, N) = A (M, K) B,
 // B stored (K, N) for k_nn and (N, K) for k_nt (C = A B^T). At the
@@ -210,6 +209,67 @@
 // a block has one c tile, and its fixed phases (staging, table, the
 // 16 MB of partials and their sum) take about half the time: the seeds
 // and table alone ran 0.54x, the launch and the sum kernel alone 0.18x.
+//
+// ---- k_rot: out = c_NF + s_NF of the TPU body's recurrence (c, s) <-
+// (c cd - s sd, s cd + c sd) from (m, m/2), cd = 0.9 m, sd = 0.1 m.
+// Each step multiplies z = c + i s by w = m (0.9 + 0.1 i), so with rho
+// = sqrt(0.82) and theta = atan2(0.1, 0.9)
+//
+//   out = Re + Im of m (1 + i/2) w^NF = A_NF m (rho m)^NF,
+//   A_NF = 1.5 cos(NF theta) + 0.5 sin(NF theta),
+//
+// A_NF one constant a call. Bound by bytes (m read once, out written
+// once: 8 bytes an element). The first kernel ran the TPU body's NF
+// dependent rotations (6 FLOP a step) per element: O(NF) work for a
+// function that needs O(log NF), and its float32 error grew with NF
+// (4.8e-5 relative at NF = 1024, 2.2e-4 at 4096: the rounding of cd,
+// sd and w, which NF multiplies in any order of the steps, so a plain
+// float32 power of w is no better). What the design does:
+//
+// - The host computes A_NF and rho in float64 and passes each as a
+//   float32 pair hi + lo (scripts/mosaic_spike.py::rot_consts).
+// - x = rho m as a float pair (FF: h + l, ~48 bits), then x^NF by
+//   right-to-left binary powering in float-float: bit_length(NF) - 1
+//   squarings of x and popcount(NF) products into r, which starts at
+//   A_NF m, so the last product is the result. 5 FP32 instructions a
+//   squaring or product (ff_sqr, ff_mul), 3 for the last (only its
+//   rounded h is kept): ~60 an element at NF = 1024. rho stays inside
+//   the base, so (rho m)^k stays near 1 wherever the result is finite;
+//   m^(NF+1) or rho^NF alone would leave float32's range (1.6e44 and
+//   7e-45 at NF = 1024). NF is the same for every thread, so the loop
+//   over its bits never diverges; it is unrolled by 4, which lets the
+//   compiler rename the pairs' registers instead of copying them back.
+// - Accuracy: each product keeps h + l within ~2^-45 of its exact
+//   value, so the power is within ~NF 2^-45 of (rho m)^NF (the pair
+//   rho adds NF 2^-48), and the result within its final float32
+//   rounding (~6e-8) for NF up to ~2^16 (the CPU model: <= 5.1e-8 at
+//   NF <= 16384), within 1e-6 up to NF ~ 2^25. Explicit __fmul_rn /
+//   __fmaf_rn / __fadd_rn: nvcc contracts nothing, and the numpy model
+//   in tests/test_torch_mosaic_spike.py follows them bit for bit.
+// - Memory: a thread takes 4 elements by one 16-byte load and
+//   store (their 4 powers interleave as independent chains), in a
+//   grid-stride loop over one wave of resident blocks that issues each
+//   group's load before the previous group's power; when m or out
+//   is not 16-byte aligned the launcher takes the same kernel with one
+//   element a thread, and a ragged n leaves a scalar tail to the first
+//   block. No early exit: where the power overflows or underflows
+//   (mk's N(0, 1) inputs) the output is inf, NaN or 0, as the loop's
+//   is, in the same time.
+// - Fixed order: two launches are bit-equal, and the vector and scalar
+//   paths give an element the same bits.
+//
+// Measured (scripts/rot_variants.py on the card; PERF.md), NF = 1024 at
+// hera-stat's forward shape (6144 x 630), L2 warm / emptied before each
+// launch: 0.0120 / 0.0192 ms against the first design's 0.663 / 0.668
+// ms. A complex float-float power of w ran 4.3 / 3.0x this time; a
+// plain float32 power 1.06 / 1.02x, at 6.7e-5 / 9.9e-4 relative error
+// (NF = 1024 / 16384); one element a thread 2.0 / 1.7x, 8 elements
+// 1.02 / 1.01x, one group a thread 1.09 / 1.05x, no prefetch 1.03 /
+// 1.00x; the bit loop not unrolled 1.12 / 1.07x (its SASS copied the
+// pairs back with 4 MOVs an iteration), by 2 or 8 1.04-1.06 / 0.99-1.00x.
+// The loads and stores alone took 0.50 / 0.80x and the launch alone
+// 0.12 / 0.10x: with L2 warm the power's instructions bound the kernel,
+// with L2 emptied mostly the memory path (31 MB at ~2.3 TB/s there).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -671,24 +731,126 @@ k_lr(const float* __restrict__ ct, const float* __restrict__ m,
     }
 }
 
-// ---- k_rot: one thread per element; the NF-step chain is serial, so
-// the card hides its latency only with many elements in flight.
-constexpr int ROT_T = 256;
+// ---- k_rot: A_NF m (rho m)^NF by a float-float power (header)
+constexpr int ROT_T = 256;             // threads a block
 
-__global__ void __launch_bounds__(ROT_T)
-k_rot(const float* __restrict__ m, float* __restrict__ out, int n, int NF)
+// h + l, |l| <= ~ulp(h) / 2: a float32 pair of ~48 bits
+struct FF {
+    float h, l;
+};
+
+// a times b (a float32), within ~2^-46 of the exact product; h is the
+// float32 rounding of the result
+__device__ __forceinline__ FF ff_mul1(FF a, float b)
 {
-    const int i = blockIdx.x * ROT_T + threadIdx.x;
-    if (i >= n) return;
-    const float mv = m[i];
-    const float cd = mv * 0.9f, sd = mv * 0.1f;
-    float c = mv, s = mv * 0.5f;
-    for (int j = 0; j < NF; ++j) {
-        const float cn = c * cd - s * sd;
-        s = s * cd + c * sd;
-        c = cn;
+    const float t = __fmul_rn(a.l, b);
+    const float h = __fmaf_rn(a.h, b, t);
+    return {h, __fadd_rn(__fmaf_rn(a.h, b, -h), t)};
+}
+
+// a times b, within ~2^-45 (the l l term is dropped)
+__device__ __forceinline__ FF ff_mul(FF a, FF b)
+{
+    const float t = __fmaf_rn(a.h, b.l, __fmul_rn(a.l, b.h));
+    const float h = __fmaf_rn(a.h, b.h, t);
+    return {h, __fadd_rn(__fmaf_rn(a.h, b.h, -h), t)};
+}
+
+// a squared, within ~2^-45
+__device__ __forceinline__ FF ff_sqr(FF a)
+{
+    const float t = __fmul_rn(a.h, __fadd_rn(a.l, a.l));
+    const float h = __fmaf_rn(a.h, a.h, t);
+    return {h, __fadd_rn(__fmaf_rn(a.h, a.h, -h), t)};
+}
+
+// v[e] <- A_NF v[e] (rho v[e])^NF, a = A_NF and rho as float pairs:
+// right-to-left binary powering, the V elements' chains interleaved
+template <int V>
+__device__ __forceinline__ void rot_pow(float (&v)[V], unsigned NF, FF a,
+                                        FF rho)
+{
+    FF r[V], b[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+        r[e] = ff_mul1(a, v[e]);
+        b[e] = ff_mul1(rho, v[e]);
     }
-    out[i] = c + s;
+    unsigned k = NF;
+#pragma unroll 4
+    for (; k > 1; k >>= 1) {
+        if (k & 1) {
+#pragma unroll
+            for (int e = 0; e < V; ++e) r[e] = ff_mul(r[e], b[e]);
+        }
+#pragma unroll
+        for (int e = 0; e < V; ++e) b[e] = ff_sqr(b[e]);
+    }
+#pragma unroll
+    for (int e = 0; e < V; ++e) v[e] = k ? ff_mul(r[e], b[e]).h : r[e].h;
+}
+
+// group g of V elements: V / 4 float4s, or one float
+template <int V>
+__device__ __forceinline__ void rot_load(float (&v)[V],
+                                         const float* __restrict__ m, int g)
+{
+    if constexpr (V % 4 == 0) {
+#pragma unroll
+        for (int q = 0; q < V / 4; ++q) {
+            const float4 x = reinterpret_cast<const float4*>(m)[g * (V / 4) + q];
+            v[4 * q] = x.x;
+            v[4 * q + 1] = x.y;
+            v[4 * q + 2] = x.z;
+            v[4 * q + 3] = x.w;
+        }
+    } else {
+        v[0] = m[g];
+    }
+}
+
+template <int V>
+__device__ __forceinline__ void rot_store(float* __restrict__ out, int g,
+                                          const float (&v)[V])
+{
+    if constexpr (V % 4 == 0) {
+#pragma unroll
+        for (int q = 0; q < V / 4; ++q)
+            reinterpret_cast<float4*>(out)[g * (V / 4) + q] = make_float4(
+                v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    } else {
+        out[g] = v[0];
+    }
+}
+
+// V elements a thread (4 when m and out are 16-byte aligned, else 1),
+// grid-stride over the n / V groups, each group's load issued before
+// the previous group's power; the first block takes the n % V left over
+template <int V>
+__global__ void __launch_bounds__(ROT_T)
+k_rot(const float* __restrict__ m, float* __restrict__ out, int n, int NF,
+      float a_hi, float a_lo, float rho_hi, float rho_lo)
+{
+    static_assert(V == 1 || V % 4 == 0, "one element or float4s a thread");
+    const FF a = {a_hi, a_lo}, rho = {rho_hi, rho_lo};
+    const int groups = n / V, stride = gridDim.x * ROT_T;
+    int g = blockIdx.x * ROT_T + threadIdx.x;
+    float next[V];
+    if (g < groups) rot_load<V>(next, m, g);
+    for (; g < groups; g += stride) {
+        float v[V];
+#pragma unroll
+        for (int e = 0; e < V; ++e) v[e] = next[e];
+        if (g + stride < groups) rot_load<V>(next, m, g + stride);
+        rot_pow<V>(v, (unsigned)NF, a, rho);
+        rot_store<V>(out, g, v);
+    }
+    if (V > 1 && blockIdx.x == 0 && threadIdx.x < n - groups * V) {
+        const int i = groups * V + threadIdx.x;
+        float v[1] = {m[i]};
+        rot_pow<1>(v, (unsigned)NF, a, rho);
+        out[i] = v[0];
+    }
 }
 
 // ---- k_fwd: the forward loop in rime_fwd.cu's design (header)
@@ -1071,11 +1233,36 @@ extern "C" int k_bd_launch(const void* ps, const void* m, void* out, int NF,
                                static_cast<cudaStream_t>(stream), G);
 }
 
+// k_rot on n >= 1 elements; NF >= 0, (a_hi, a_lo) = A_NF and (rho_hi,
+// rho_lo) = sqrt(0.82) as float pairs (scripts/mosaic_spike.py::
+// rot_consts). 4 elements a thread when m and out are 16-byte aligned,
+// else 1, over one wave of resident blocks (fewer when n / V needs
+// fewer).
 extern "C" int k_rot_launch(const void* m, void* out, int n, int NF,
-                            void* stream)
+                            float a_hi, float a_lo, float rho_hi,
+                            float rho_lo, void* stream)
 {
-    k_rot<<<cdiv(n, ROT_T), ROT_T, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(m), static_cast<float*>(out), n, NF);
+    if (n < 1 || NF < 0) return static_cast<int>(cudaErrorInvalidValue);
+    const bool vec = aligned16(m) && aligned16(out);
+    const int V = vec ? 4 : 1;
+    auto kernel = vec ? k_rot<4> : k_rot<1>;
+    static int wave[2] = {0, 0};       // blocks of a full wave, by vec
+    if (wave[vec] == 0) {
+        int dev = 0, sms = 0, per_sm = 0;
+        cudaError_t err = cudaGetDevice(&dev);
+        if (err == cudaSuccess)
+            err = cudaDeviceGetAttribute(
+                &sms, cudaDevAttrMultiProcessorCount, dev);
+        if (err == cudaSuccess)
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, kernel, ROT_T, 0);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        wave[vec] = std::max(1, sms * per_sm);
+    }
+    const int grid = std::max(1, std::min(cdiv(n / V, ROT_T), wave[vec]));
+    kernel<<<grid, ROT_T, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(m), static_cast<float*>(out), n, NF, a_hi,
+        a_lo, rho_hi, rho_lo);
     return static_cast<int>(cudaGetLastError());
 }
 

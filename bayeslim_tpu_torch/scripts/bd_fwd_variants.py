@@ -39,7 +39,7 @@ from . import mosaic_spike as spike
 from .sgemm_variants import build_variants
 
 # ---- k_bd candidate (b): k_lr's lane split with m staged [c][b]
-_K_ROT = "// ---- k_rot: one thread per element"
+_K_ROT = "// ---- k_rot: A_NF m (rho m)^NF by a float-float power"
 _BD_LANES = r'''// variant: k_lr's lane split for k_bd, m staged [c][b] with its
 // 16-byte chunks swizzled by (row / 4) mod 8
 constexpr int BL_BM = 32, BL_BN = 32, BL_BK = 64, BL_LDA = BL_BK + 16;

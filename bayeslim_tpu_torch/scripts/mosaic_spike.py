@@ -16,7 +16,9 @@ tau (TC, TB)):
 - ``run_lr(ct, m)``    as run_nt, the sum over b split over lanes  (k_lr)
 - ``run_bd(ps, m, G)`` out[j, b] = (1 + j mod G) (ps @ m)[j, b]    (k_bd)
 - ``run_rot(m, NF)``   NF rotations (c, s) <- (c cd - s sd, s cd + c sd)
-  from (m, m/2), cd = 0.9 m, sd = 0.1 m; out = c + s              (k_rot)
+  from (m, m/2), cd = 0.9 m, sd = 0.1 m; out = c + s; the kernel
+  computes it as A_NF m (rho m)^NF by a float-float power, its
+  constants from ``rot_consts(NF)``                                (k_rot)
 - ``run_fwd(tau, ps, G)`` (out_re, out_im)[k, b] = sum_c ps[k, c]
   (cos, sin)(k tau[c, b]), tau in radians; the plain version takes
   the phases from G chains that start at g tau and advance by G tau,
@@ -29,11 +31,13 @@ TPU loop would drop the last rows). ``launches`` counts each kernel's
 launches. ``sgemm_plan`` gives the launch of k_nn's and k_nt's
 ring-buffered SGEMM (grid, tile, cp.async chunk, shared memory),
 ``bd_plan`` k_bd's (the same SGEMM), ``vt_plan``, ``lr_plan`` and
-``fwd_plan`` those of k_vt, k_lr and k_fwd.
+``fwd_plan`` those of k_vt, k_lr and k_fwd. ``timeit`` times a kernel
+with L2 warm, ``timeit_flushed`` with L2 emptied before each launch.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -42,9 +46,10 @@ from ..ops import rime_cuda
 from ..utils.dtypes import resolve_device
 
 __all__ = ["TC", "TB", "G", "NF", "SPIKES", "launches", "mk", "unit_m",
-           "timeit", "run_nn", "run_nt", "run_vt", "run_lr", "run_bd",
-           "run_rot", "run_fwd", "run_nn_plain", "run_nt_plain",
-           "run_vt_plain", "run_lr_plain", "run_bd_plain", "run_rot_plain",
+           "timeit", "timeit_flushed", "rot_consts", "run_nn", "run_nt",
+           "run_vt", "run_lr", "run_bd", "run_rot", "run_fwd",
+           "run_nn_plain", "run_nt_plain", "run_vt_plain", "run_lr_plain",
+           "run_bd_plain", "run_rot_plain",
            "run_fwd_plain", "RUN", "PLAIN", "LIBRARY", "make_args",
            "compare", "work", "loop_flops", "bound_ms", "FWD_G", "main",
            "sgemm_plan", "card_sgemm_plan", "bd_plan", "card_bd_plan",
@@ -89,14 +94,14 @@ VT_GROUP, VT_CLUSTER, VT_THREADS = 16, 4, 256
 LR_TILE, LR_BK, LR_STAGES, LR_SPLIT, LR_LANE = (32, 32), 64, 2, 8, (8, 8)
 _SRC = "mosaic_spike.cu"
 # argument types of csrc/mosaic_spike.cu's C launchers
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "k_nn": [_P, _P, _P, _I, _I, _I, _P],
     "k_nt": [_P, _P, _P, _I, _I, _I, _P],
     "k_vt": [_P, _P, _P, _I, _I, _I, _P],
     "k_lr": [_P, _P, _P, _I, _I, _I, _P],
     "k_bd": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "k_rot": [_P, _P, _I, _I, _P],
+    "k_rot": [_P, _P, _I, _I, _F, _F, _F, _F, _P],
     "k_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
@@ -121,22 +126,20 @@ def unit_m(shape, seed=0, device=None):
                            device=resolve_device(device))
 
 
-def timeit(f, *args, n=400):
-    """Mean ms per call of n back-to-back calls of f(*args) on the
-    card's clock: after one warm-up call, the n calls are captured in
-    one CUDA graph, which is replayed once to load it and once more
-    between two CUDA events. The host's launch time is thus left out,
-    as the JAX script's timeit leaves it out by running its n calls in
-    one compiled scan."""
+def _graph_ms(body, n):
+    """ms of n back-to-back calls of body() on the card's clock: after
+    one warm-up call, the n calls are captured in one CUDA graph, which
+    is replayed once to load it and once more between two CUDA
+    events."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        f(*args)
+        body()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(n):
-            f(*args)
+            body()
     graph.replay()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -145,7 +148,26 @@ def timeit(f, *args, n=400):
     graph.replay()
     b.record()
     b.synchronize()
-    return a.elapsed_time(b) / n
+    return a.elapsed_time(b)
+
+
+def timeit(f, *args, n=400):
+    """Mean ms per call of n back-to-back calls of f(*args) in one CUDA
+    graph (_graph_ms). The host's launch time is thus left out, as the
+    JAX script's timeit leaves it out by running its n calls in one
+    compiled scan. Inputs that fit in the 50 MB L2 stay there from one
+    call to the next."""
+    return _graph_ms(lambda: f(*args), n) / n
+
+
+def timeit_flushed(f, *args, n=20, flush_mb=100):
+    """Mean ms per call of f(*args) with the L2 emptied before each call:
+    n pairs (a sum over flush_mb MB, then f) in one CUDA graph, less n
+    sums alone in another. A read, not a write, empties it, so no dirty
+    lines of the flush are written back during f."""
+    buf = torch.ones(flush_mb * 2 ** 18, device=torch.cuda.current_device())
+    pair = _graph_ms(lambda: (buf.sum(), f(*args)), n)
+    return (pair - _graph_ms(buf.sum, n)) / n
 
 
 def _operands(name, *ts):
@@ -179,8 +201,8 @@ def _launch(name, dev, *args):
     stream (tensors passed as pointers) and count it."""
     keep = [a.contiguous() if isinstance(a, torch.Tensor) else a
             for a in args]
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
-            for a in keep]
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor)
+            else a if isinstance(a, float) else int(a) for a in keep]
     rc = rime_cuda._lib(_SRC, f"{name}_launch", _ARGTYPES[name])(
         *ptrs, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
@@ -391,15 +413,33 @@ def run_bd(ps, m, G):
     return out
 
 
+def rot_consts(NF):
+    """k_rot's constants (A_NF hi, lo, rho hi, lo): A_NF = 1.5 cos(NF
+    theta) + 0.5 sin(NF theta), theta = atan2(0.1, 0.9), and rho =
+    sqrt(0.82), each taken in float64 and split into float32 values hi
+    = float32(x), lo = float32(x - hi)."""
+    theta = math.atan2(0.1, 0.9)
+    out = []
+    for x in (1.5 * math.cos(NF * theta) + 0.5 * math.sin(NF * theta),
+              math.sqrt(0.82)):
+        hi = float(np.float32(x))
+        out += [hi, float(np.float32(x - hi))]
+    return tuple(out)
+
+
 def run_rot(m, NF):
-    """NF phasor rotations of every element of m (TC, TB)."""
+    """NF phasor rotations of every element of m (TC, TB); the kernel
+    takes 0 <= NF < 2^31."""
     cuda = _operands("run_rot", m)
     if NF < 0:
         raise ValueError(f"run_rot: NF={NF} < 0")
+    if NF >= 2 ** 31:
+        raise ValueError(f"run_rot: NF={NF} exceeds the kernel's 32-bit NF")
     if not cuda:
         return run_rot_plain(m, NF)
     out = torch.empty_like(m, memory_format=torch.contiguous_format)
-    _launch("k_rot", m.device, m, out, m.numel(), NF)
+    if m.numel():
+        _launch("k_rot", m.device, m, out, m.numel(), NF, *rot_consts(NF))
     return out
 
 
@@ -575,11 +615,11 @@ def loop_flops(name, NF=NF, TC=TC, TB=TB):
     """FP32 operations that the TPU body's loop does: NF multiply-adds
     per output in k_vt, 6 FLOP per element per step in k_rot, a rotation
     (6) and two multiply-adds (4) per (k, c, b) in k_fwd, the product's
-    in the others. k_rot's kernel does this loop, so its rate is the
-    rate of its work; k_vt's kernel does the column sum that work()
-    counts, and k_fwd's a two-term recurrence of 4 FLOP per triple
-    beside the sum's 4, so for those two the rate is only the pace at
-    which they cover the TPU body's loop."""
+    in the others. k_vt's kernel does the column sum that work() counts,
+    k_rot's a float-float power of O(log NF) operations per element,
+    and k_fwd's a two-term recurrence of 4 FLOP per triple beside the
+    sum's 4, so for those three the rate is only the pace at which they
+    cover the TPU body's loop."""
     trip = float(NF) * TC * TB
     return {"k_vt": 2 * trip, "k_rot": 6 * trip,
             "k_fwd": 10 * trip}.get(name, work(name, NF, TC, TB)[0])

@@ -52,21 +52,24 @@ Phases, one line each; any failure exits non-zero:
    kernel's bound, rime_fwd with its K split against one slice,
    rime_dtau beside the previous design's time, with real and complex
    ps, and
-   k_rot and k_fwd timed at hera-stat's forward shape beside rime_fwd's
-   times at both shapes (as a fraction of k_fwd's) and k_fwd's previous
-   design's;
+   k_fwd timed at hera-stat's forward shape beside rime_fwd's times at
+   both shapes (as a fraction of k_fwd's) and k_fwd's previous
+   design's; k_rot there on mk's and unit_m's inputs, with L2 warm and
+   emptied before each launch, beside its previous design's time;
 9. main path 3, the microbenchmark spikes (bayeslim_tpu_torch/scripts/
    mosaic_spike.py, the seven kernels of csrc/mosaic_spike.cu): the
-   ptxas report (registers, spills, static shared memory) of the six
-   redesigned ones (k_nn, k_nt, k_vt, k_lr, k_bd, k_fwd), no FP64 in
-   the SASS of any kernel of the file (the redesigned ones in every
-   instance the source makes), and their launch plans
+   ptxas report (registers, spills, static shared memory) of all seven,
+   all redesigned (k_nn, k_nt, k_vt, k_lr, k_bd, k_fwd, k_rot), no FP64
+   in the SASS of any kernel of the file (in every instance the source
+   makes), and the launch plans of the six with a plan
    beside the C launchers'; each kernel against its plain version in
    float64 at the script's sizes and at a size that fills no tile (k_fwd
-   there against every chain count G of the plain version); the six
-   redesigned ones also at ragged sizes (4-byte loads; for k_bd and
-   k_fwd NF a multiple of G, and NF = 97 with G = 1) and launched twice,
-   bit-equal; the spike's own entry point, main(), with every kernel's
+   there against every chain count G of the plain version); all seven
+   also at ragged sizes (4-byte loads; for k_bd and k_fwd NF a multiple
+   of G, and NF = 97 with G = 1) and launched twice, bit-equal; k_rot's
+   float-float power at NF = 0 ... 16384 on unit_m's inputs at the
+   script's, odd and ragged sizes (1e-4, and printed against 1e-6);
+   the spike's own entry point, main(), with every kernel's
    launches counted (exactly 1 + 400 each); the plain versions' times,
    the redesigned kernels' beside their library call's (k_bd's also
    beside torch.matmul(ps, m) alone) and the previous design's. Then the
@@ -102,11 +105,16 @@ STAT_STEPS_BEFORE_MS, STAT_PEAK_BEFORE_GIB = (22.8, 19.4), 2.15
 # the redesigned spikes' previous designs at the script's sizes, ms a
 # launch (the same card): k_nn's, k_nt's and k_bd's 64 x 64 SGEMM tile,
 # k_vt's serial column walk per output, k_lr's one row a block with a
-# 32-lane butterfly per output, k_fwd's G chains a thread with atomics
+# 32-lane butterfly per output, k_fwd's G chains a thread with atomics,
+# k_rot's NF-step loop a thread
 BEFORE_MS = {"k_nn": 0.0251, "k_nt": 0.0287, "k_vt": 0.0275,
-             "k_lr": 0.0238, "k_bd": 0.0233, "k_fwd": 0.0371}
-# k_fwd's previous design at hera-stat's forward shape (the same card)
-FWD_SPIKE_BEFORE_MS = 2.0162
+             "k_lr": 0.0238, "k_bd": 0.0233, "k_fwd": 0.0371,
+             "k_rot": 0.0132}
+# k_fwd's and k_rot's previous designs at hera-stat's forward shape (the
+# same card)
+SPIKE_BEFORE_MS = {"k_fwd": 2.0162, "k_rot": 0.6652}
+# the NF at which phase 9 holds k_rot's float-float power to float64
+ROT_NF = (0, 1, 2, 3, 7, 1023, 1024, 4096, 16384)
 # delays past hex-11's longest (~1.0e-6 s) that phases 2 and 3 hold to
 # the same bar: |tau| within 1 % of this
 FAR_DELAY = 3e-6
@@ -818,7 +826,9 @@ def phase_spike(torch, spike, dev, built):
         torch.cuda.synchronize()
         same = ""
         if name in redesigned:
-            args = spike.make_args(name, *size, device=dev, distinct=True)
+            # (k_rot on unit_m's inputs: mk's overflow to NaN at 1024)
+            args = spike.make_args(name, *size, device=dev, distinct=True,
+                                   unit_rot=True)
             one, two = spike.RUN[name](*args), spike.RUN[name](*args)
             eq = all(torch.equal(a, b) for a, b in zip(
                 one if isinstance(one, tuple) else (one,),
@@ -831,6 +841,19 @@ def phase_spike(torch, spike, dev, built):
         check(n == 1 and np.isfinite(rel) and rel <= TOL,
               f"{name} vs plain at {size}: rel {rel:.2e}, {n} launches")
         worst[name] = max(worst[name], err)
+    # k_rot's float-float power across NF (the first design's float32
+    # loop: 4.82e-5 relative at 1024, 2.2e-4 at 4096)
+    for tc, tb in ((spike.TC, spike.TB), (200, 100), (203, 101)):
+        for nf in ROT_NF:
+            rel, err, n = spike.compare("k_rot", nf, tc, tb, 1, device=dev)
+            torch.cuda.synchronize()
+            print(f"phase 9 k_rot vs plain (float64), unit_m's inputs at "
+                  f"NF = {nf}, TC, TB = {tc}, {tb}: rel {rel:.2e} (tol "
+                  f"{TOL:g}; the design's bar 1e-6 "
+                  f"{'held' if rel <= 1e-6 else 'MISSED'}), {n} launch",
+                  flush=True)
+            check(n == 1 and np.isfinite(rel) and rel <= TOL,
+                  f"k_rot vs plain at NF = {nf}, {tc} x {tb}: rel {rel:.2e}")
 
     # the spike's own entry point, its counts set to 0 just before: one
     # warm-up launch and nrep captured in the timing graph per kernel
@@ -884,31 +907,43 @@ def phase_spike(torch, spike, dev, built):
 
 
 def phase_fwd_beside_spikes(torch, spike, dev, fwd_shape, timing):
-    """Phase 8, end: the phasor recurrence alone (k_rot) and the spike's
-    G-chain loop (k_fwd) at hera-stat's forward shape fwd_shape = (R, K,
-    N), beside rime_fwd's times at both shapes (timing, phase 8)."""
+    """Phase 8, end: the spike's forward loop (k_fwd) at hera-stat's
+    forward shape fwd_shape = (R, K, N), beside rime_fwd's times at both
+    shapes (timing, phase 8), and k_rot at the same shape (NF = R, TC x
+    TB = K x N) on mk's and unit_m's inputs, L2 warm and emptied before
+    each launch, each beside its previous design's time."""
     R, K, N = fwd_shape
-    split = {}
-    for name in ("k_rot", "k_fwd"):
-        args = spike.make_args(name, NF=R, TC=K, TB=N, G=8, device=dev)
-        ms = spike.timeit(spike.RUN[name], *args, n=20)
+
+    def line(name, ms, how=""):
         bms, by = spike.bound_ms(name, R, K, N)
         tflops = spike.loop_flops(name, R, K, N) / ms / 1e9
-        split[name] = ms
-        old = (f"; the previous design ran {FWD_SPIKE_BEFORE_MS} ms on an "
-               f"NVIDIA H100 80GB HBM3 at 700 W, "
-               f"{FWD_SPIKE_BEFORE_MS / ms:.2f}x this time"
-               if name == "k_fwd" else "")
+        old = SPIKE_BEFORE_MS[name]
         print(f"phase 8 times at hera-stat's forward shape NF={R} TC={K} "
-              f"TB={N} G=8: {name} {ms:.4f} ms, bound {bms:.4f} ms ({by}), "
-              f"kernel at {bms / ms:.1%} of bound; loop {tflops:.2f} "
-              f"TFLOP/s{old}", flush=True)
-    kf = split["k_fwd"]
+              f"TB={N} G=8: {name}{how} {ms:.5f} ms, bound {bms:.5f} ms "
+              f"({by}), kernel at {bms / ms:.1%} of bound; the TPU body's "
+              f"loop covered at {tflops:.2f} TFLOP/s; the previous design "
+              f"ran {old} ms on an NVIDIA H100 80GB HBM3 at 700 W, "
+              f"{old / ms:.2f}x this time", flush=True)
+
+    args = spike.make_args("k_fwd", NF=R, TC=K, TB=N, G=8, device=dev)
+    kf = spike.timeit(spike.run_fwd, *args, n=20)
+    line("k_fwd", kf)
+    rot = {}
+    for label, unit in (("mk's", False), ("unit_m's", True)):
+        m, _ = spike.make_args("k_rot", NF=R, TC=K, TB=N, device=dev,
+                               unit_rot=unit)
+        for how, timer, n in (("L2 warm", spike.timeit, 100),
+                              ("L2 emptied", spike.timeit_flushed, 20)):
+            rot[label, how] = timer(spike.run_rot, m, R, n=n)
+            line("k_rot", rot[label, how], f" on {label} inputs, {how},")
+    for how in ("L2 warm", "L2 emptied"):
+        a, b = rot["mk's", how], rot["unit_m's", how]
+        print(f"phase 8 k_rot {how}: mk's inputs / unit_m's {a / b:.3f}",
+              flush=True)
     print(f"phase 8 rime_fwd beside the spikes: forward shape "
           f"{timing[0][0]:.4f} ms = {timing[0][0] / kf:.1%} of k_fwd's "
           f"{kf:.4f} ms at that shape, backward shape {timing[1][0]:.4f} ms "
-          f"= {timing[1][0] / kf:.1%} of it; the phasor recurrence alone "
-          f"(k_rot) {split['k_rot']:.4f} ms", flush=True)
+          f"= {timing[1][0] / kf:.1%} of it", flush=True)
 
 
 def main():

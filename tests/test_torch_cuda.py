@@ -454,3 +454,43 @@ def test_spike_bd_fwd_plans_are_the_launchers(cuda, NF, TC, TB, offsets):
     want = spike.fwd_plan(NF, TC, TB)
     assert spike.card_fwd_plan(NF, TC, TB) == {
         k: want[k] for k in ("grid", "cslice", "smem")}
+
+
+# the NF at which k_rot's float-float power is held to 1e-6 of float64
+ROT_NF = (0, 1, 2, 3, 7, 1023, 1024, 4096, 16384)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("NF", ROT_NF)
+def test_spike_rot_power_within_float64(cuda, NF):
+    """k_rot's float-float power against the float64 loop on unit_m's
+    inputs at a ragged size (n % 4 = 3: the scalar tail), within 1e-6
+    at every NF (the first design's float32 loop: 4.8e-5 at 1024)."""
+    rel, _, n = spike.compare("k_rot", NF, 203, 101, 1, device=cuda)
+    assert n == 1 and rel <= 1e-6
+
+
+@pytest.mark.cuda
+def test_spike_rot_unaligned_operand(cuda):
+    """m 4 bytes past a 16-byte boundary takes one element a thread: the
+    same bits as the aligned float4 path, within 1e-6 of float64."""
+    NF, TC, TB = 1024, 97, 101
+    buf = spike.unit_m((1, TC * TB + 1), 5, device=cuda)
+    m = buf[0, 1:].view(TC, TB)
+    assert m.data_ptr() % 16 == 4
+    got = spike.run_rot(m, NF)
+    assert torch.equal(got, spike.run_rot(m.clone(), NF))
+    ref = spike.run_rot_plain(m.double(), NF)
+    assert _relerr(got.cpu(), ref.cpu()) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("TC,TB", [(256, 256), (203, 101), (1, 3)])
+def test_spike_rot_launches_are_bit_equal(cuda, TC, TB):
+    """Two launches of k_rot agree bit for bit (a fixed order an
+    element), also where n < 4 leaves only the tail."""
+    m = spike.unit_m((TC, TB), 4, device=cuda)
+    one, two = spike.run_rot(m, 1024), spike.run_rot(m, 1024)
+    assert torch.equal(one, two)
+    ref = spike.run_rot_plain(m.double(), 1024)
+    assert _relerr(one.cpu(), ref.cpu()) <= 1e-6

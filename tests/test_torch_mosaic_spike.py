@@ -21,8 +21,8 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from bayeslim_tpu_torch.scripts import mosaic_spike as spike
-from bayeslim_tpu_torch.scripts import (bd_fwd_variants, sgemm_variants,
-                                        vt_lr_variants)
+from bayeslim_tpu_torch.scripts import (bd_fwd_variants, rot_variants,
+                                        sgemm_variants, vt_lr_variants)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TC, TB, NF, G = 16, 24, 32, 4
@@ -869,3 +869,115 @@ def test_bd_fwd_variants_edit_the_kernel_source(name, variant):
         k = _constants(new, "FW")
         if k:
             assert k["FW_RT"] % k["FW_CH"] == 0 and k["FW_RT"] >= 2 * k["FW_CH"]
+
+
+# ---- k_rot: A_NF m (rho m)^NF by a float-float power (csrc/mosaic_spike.cu)
+
+def _fmul(a, b):
+    """__fmul_rn: the float32 product, exact in float64, rounded once."""
+    return _f32(np.float64(a) * np.float64(b))
+
+
+def _fadd(a, b):
+    """__fadd_rn on the pair arithmetic's operands (their exponents are a
+    few apart, so the float64 sum is exact and rounds once)."""
+    return _f32(np.float64(a) + np.float64(b))
+
+
+def _ff_mul1(a, b):
+    """ff_mul1: the pair a times the float32 b."""
+    t = _fmul(a[1], b)
+    h = _fma(a[0], b, t)
+    return h, _fadd(_fma(a[0], b, -h), t)
+
+
+def _ff_mul(a, b):
+    """ff_mul: the pair a times the pair b (a.l b.l dropped)."""
+    t = _fma(a[0], b[1], _fmul(a[1], b[0]))
+    h = _fma(a[0], b[0], t)
+    return h, _fadd(_fma(a[0], b[0], -h), t)
+
+
+def _ff_sqr(a):
+    """ff_sqr: the pair a squared."""
+    t = _fmul(a[0], _fadd(a[1], a[1]))
+    h = _fma(a[0], a[0], t)
+    return h, _fadd(_fma(a[0], a[0], -h), t)
+
+
+def _rot_emulate(m, nf):
+    """k_rot in float32, step by step as rot_pow: r = A_NF m and b = rho
+    m as pairs, then for each bit of NF above the highest a product into
+    r (bit set) and a squaring of b, and last r times b, of which only
+    the rounded h is kept (NF = 0: r's h)."""
+    ah, al, rh, rl = (np.float32(c) for c in spike.rot_consts(nf))
+    m = _f32(m)
+    r, b = _ff_mul1((ah, al), m), _ff_mul1((rh, rl), m)
+    k = nf
+    while k > 1:
+        if k & 1:
+            r = _ff_mul(r, b)
+        b = _ff_sqr(b)
+        k >>= 1
+    return _fma(r[0], b[0], _fma(r[0], b[1], _fmul(r[1], b[0]))) if k else r[0]
+
+
+ROT_NF = [0, 1, 2, 3, 7, 32, 1023, 1024, 4096, 16384]
+
+
+@pytest.mark.parametrize("tc,tb", [(256, 256), (200, 100), (203, 101)])
+@pytest.mark.parametrize("nf", ROT_NF)
+def test_rot_emulation_against_float64(nf, tc, tb):
+    """The kernel's float-float power within 1e-6 of the float64 loop on
+    unit_m's inputs at every NF (its worst is the final float32
+    rounding, ~5e-8; the first design's float32 loop: 4.8e-5 at 1024,
+    2.2e-4 at 4096)."""
+    m = spike.unit_m((tc, tb), 2, device="cpu")
+    ref = spike.run_rot_plain(m.double(), nf).numpy()
+    got = _rot_emulate(m.numpy(), nf)
+    assert got.dtype == np.float32 and got.shape == (tc, tb)
+    assert _relerr(got, ref) <= 1e-6
+
+
+@pytest.mark.parametrize("unit", [False, True])
+def test_rot_emulation_matches_jax_interpret(jax_spike, unit):
+    """The kernel's arithmetic against the TPU body's float32 loop, run
+    by pl.pallas_call in interpret mode at the test sizes (NF = 32), on
+    mk's and on unit_m's inputs."""
+    m, nf = spike.make_args("k_rot", NF, TC, TB, G, device="cpu", seed=3,
+                            unit_rot=unit)
+    ref = _pallas(jax_spike.k_rot, [jnp.asarray(m.numpy())], [(TC, TB)])
+    assert nf == NF and np.isfinite(np.asarray(ref)).all()
+    assert _relerr(_rot_emulate(m.numpy(), NF), ref) <= 1e-5
+
+
+@pytest.mark.parametrize("nf", ROT_NF + [2 ** 31 - 1])
+def test_rot_consts_split_their_float64_values(nf):
+    """A_NF and rho as float32 pairs: hi is float32(x), |lo| within half
+    an ulp of hi, hi + lo within 1e-14 of x."""
+    theta = np.arctan2(0.1, 0.9)
+    want = (1.5 * np.cos(nf * theta) + 0.5 * np.sin(nf * theta),
+            np.sqrt(0.82))
+    c = spike.rot_consts(nf)
+    for (hi, lo), x in zip((c[:2], c[2:]), want):
+        assert hi == float(np.float32(x)) and lo == float(np.float32(lo))
+        assert abs(lo) <= abs(np.spacing(np.float32(hi))) / 2
+        assert abs(hi + lo - x) <= 1e-14 * abs(x)
+
+
+def test_rot_takes_nf_below_2_to_the_31():
+    m = spike.unit_m((TC, TB), 0, device="cpu")
+    for nf in (-1, 2 ** 31):
+        with pytest.raises(ValueError, match="NF"):
+            spike.run_rot(m, nf)
+
+
+@pytest.mark.parametrize("variant", list(rot_variants.EDITS))
+def test_rot_variants_edit_the_kernel_source(variant):
+    """Each design alternative of scripts/rot_variants.py is a text edit
+    of csrc/mosaic_spike.cu that finds its text exactly once and
+    changes it."""
+    src = open(os.path.join(REPO, "bayeslim_tpu_torch", "csrc",
+                            "mosaic_spike.cu")).read()
+    for old, new in rot_variants.EDITS[variant]:
+        assert src.count(old) == 1 and old != new
