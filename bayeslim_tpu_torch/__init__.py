@@ -8,7 +8,7 @@ csrc/rime_fwd.cu and csrc/rime_dtau.cu). The layout mirrors
 bayeslim_tpu module for module:
 
 - utils/     : dtype/device policy, ParamDict, nn.Module base and
-               Sequential, indexing, HEALPix
+               Sequential, indexing, HEALPix, pixel interpolation
 - ops/       : fringe phase math, the RIME reduction, its CUDA kernels
 - data/      : VisData / MapData containers
 - models/    : telescope/array, sky, beam, RIME, Jones gains
@@ -28,8 +28,10 @@ __version__ = "0.1.0"
 from . import utils, ops, data, models, inference
 from .utils import (ParamDict, Module, Sequential, model2pdict,
                     load_numpy_pdict, set_default_dtype, resolve_device)
-from .data import VisData, MapData
+from .data import VisData, MapData, concat_VisData
 from .models import (RIME, TelescopeModel, ArrayModel, PixelBeam,
-                     AiryResponse, PixelSky, PixelSkyResponse, JonesModel,
-                     JonesResponse)
+                     AiryResponse, GaussResponse, UniformResponse,
+                     PixelResponse, PixelSky, PixelSkyResponse, PointSky,
+                     PointSkyResponse, CompositeModel, Stokes2Coherency,
+                     CoherencySky, JonesModel, JonesResponse)
 from .inference import LogProb, Trainer, BFGS, LBFGS, DiagMat

@@ -1,3 +1,3 @@
 """Data containers."""
 from . import containers
-from .containers import TensorData, VisData, MapData
+from .containers import TensorData, VisData, MapData, concat_VisData

@@ -2,7 +2,8 @@
 Data containers: TensorData, VisData, MapData (the slice's subset).
 
 Counterpart of bayeslim_tpu/data/containers.py (TensorData :138,
-VisData :306, MapData :1048). Shapes follow the JAX package:
+VisData :306, MapData :1048, concat_VisData :1549). Shapes follow the
+JAX package:
 
 - visibilities (Npol, Npol, Nbls, Ntimes, Nfreqs), complex
 - sky maps     (Npol, 1, Nfreqs, Npix) with angs (2, Npix) [RA, Dec deg]
@@ -18,7 +19,7 @@ import torch
 
 from ..utils.indexing import AntposDict, ants2blnum, blnum2ants
 
-__all__ = ["TensorData", "VisData", "MapData"]
+__all__ = ["TensorData", "VisData", "MapData", "concat_VisData"]
 
 
 def _sum_log_real(x):
@@ -159,3 +160,49 @@ class MapData(TensorData):
         self.set_cov(cov, cov_axis, icov=icov)
         self.history = history
         self.px_area = px_area
+
+
+def _cat(arrs, axis, interleave=False):
+    """Concatenate tensors or arrays along axis; interleave round-robins
+    them instead: out[i::n] = arrs[i] along axis."""
+    torch_in = isinstance(arrs[0], torch.Tensor)
+    out = torch.cat(arrs, dim=axis) if torch_in \
+        else np.concatenate([np.asarray(a) for a in arrs], axis=axis)
+    if not interleave:
+        return out
+    n, N = len(arrs), out.shape[axis]
+    pos = [np.arange(i, N, n) for i in range(n)]
+    if [len(p) for p in pos] != [a.shape[axis] for a in arrs]:
+        raise ValueError("interleave: lengths along the axis do not "
+                         "round-robin")
+    inv = np.argsort(np.concatenate(pos))
+    if torch_in:
+        return out.index_select(axis, torch.as_tensor(inv,
+                                                      device=out.device))
+    return np.take(out, inv, axis=axis)
+
+
+def concat_VisData(vds, axis, interleave=False, lazy=False):
+    """Concatenate VisData along 'bl', 'time' or 'freq': data, flags and
+    a diagonal icov (where every object has one) and the axis' metadata.
+    interleave round-robins the entries along the axis. lazy=True (a
+    CatTensor that concatenates on access) needs the rest of the data
+    layer, which is not ported yet."""
+    if lazy:
+        raise NotImplementedError(
+            "concat_VisData(lazy=True) needs CatTensor, which is not "
+            "ported yet")
+    if isinstance(vds, VisData):
+        return vds
+    if len(vds) == 1:
+        return vds[0]
+    ax = {"bl": 2, "time": 3, "freq": 4}[axis]
+    out = vds[0].copy()
+    out.data = _cat([v.data for v in vds], ax, interleave)
+    if all(v.flags is not None for v in vds):
+        out.flags = _cat([v.flags for v in vds], ax, interleave)
+    if all(v.icov is not None and v.cov_axis is None for v in vds):
+        out.icov = _cat([v.icov for v in vds], ax, interleave)
+    meta = {"bl": "blnums", "time": "times", "freq": "freqs"}[axis]
+    setattr(out, meta, _cat([getattr(v, meta) for v in vds], 0, interleave))
+    return out

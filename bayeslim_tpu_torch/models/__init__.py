@@ -1,7 +1,10 @@
 """Telescope, sky, beam, the RIME forward model and antenna gains."""
 from . import beam, bessel, calibration, rime, sky, telescope
-from .beam import PixelBeam, AiryResponse
+from .beam import (PixelBeam, AiryResponse, GaussResponse, UniformResponse,
+                   PixelResponse)
 from .calibration import JonesModel, JonesResponse
 from .rime import RIME
-from .sky import PixelSky, PixelSkyResponse
+from .sky import (PixelSky, PixelSkyResponse, PointSky, PointSkyResponse,
+                  CompositeModel, Stokes2Coherency, CoherencySky,
+                  stokes2coherency)
 from .telescope import TelescopeModel, ArrayModel, build_reds

@@ -1,22 +1,29 @@
 """
-RIME forward model: V_pq(t, f) = sum_pix A(pix) I(pix) exp(2 pi i f b_pq.s/c).
+RIME forward model: V_pq(t, f) = sum_pix A_p(pix) B(pix) A_q^H(pix)
+exp(2 pi i f b_pq.s/c).
 
-Counterpart of bayeslim_tpu/models/rime.py (precompute :203,
-`_sim_component` :313, forward :369).
+Counterpart of bayeslim_tpu/models/rime.py (setup_sim_bls :86,
+setup_sim_times :140, the batching API :161-210, precompute :203-260,
+`_sim_component` :313, forward :369, run_batches :405).
 
-- ``precompute`` runs once on the host: eq2top per (time, sky pixel),
-  the padded FOV cut (indices + mask) and unit pointing vectors s, all
-  stored as device tensors.
-- ``forward`` loops over times (the JAX package's lax.map): beam
-  evaluation and beam-weighted sky in model-pair space (``make_psky``,
-  checkpointed as the JAX one is, so the backward keeps only psky per
-  time), and the pixel
-  reduction ``rime_reduce`` with the delay factored as blvecs @ s/c,
-  which on CUDA runs the fused kernel. The simulated baselines expand
-  to the data baselines through a host index (sim -> data redundancy).
-
-This slice carries one baseline group, one time group and a single sky
-component (Nbatch == 1) and the shared-beam case (Nmp == 1).
+- Minibatches: baseline groups (a dict or a list of lists of sim_bls)
+  times time groups, selected by ``batch_idx`` (Nbatch of them); each
+  baseline group has its own sim -> data redundancy expansion.
+- ``precompute`` runs once on the host, per (time group, sky
+  component) and time: eq2top of the component's pixels, the padded FOV
+  cut (indices + mask), the unit pointing vectors s (true angles), the
+  beam's angles with its pointing offset folded in and, for a
+  pixelized beam, its interpolation ctx; all stored as device tensors.
+- ``forward`` loops over the active group's times (the JAX package's
+  lax.map or vmap: here ``time_mode`` 'scan' and 'vmap' are the same
+  eager loop) and sums the sky components: beam evaluation and the
+  beam-weighted sky in model-pair space (``make_psky``, checkpointed as
+  the JAX one is, so the backward keeps only psky per time), then the
+  pixel reduction ``rime_reduce`` with the delay factored as
+  blvecs @ s/c, which on CUDA runs the fused kernel (grouped by model
+  pair when Nmp > 1). ``remat`` checkpoints each whole time step
+  instead. The simulated baselines expand to the data baselines through
+  a host index.
 """
 from __future__ import annotations
 
@@ -24,124 +31,281 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..data.containers import VisData
+from ..data.containers import VisData, concat_VisData
 from ..ops.rime_kernel import rime_reduce
 from ..utils.dtypes import C_MS
-from ..utils.indexing import ants2blnum
+from ..utils.indexing import ants2blnum, flatten
 from ..utils.module import Module
 from .beam import cut_sky_fov
+from .sky import CompositeModel
 
 __all__ = ["RIME"]
+
+
+def _ckpt(fn, *args):
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 class RIME(Module):
     """The sky-integral RIME forward model.
 
-    Tensors it precomputes take the device and dtype of the sky params.
-    use_kernel is passed to rime_reduce ("auto": the fused kernel on
-    CUDA for eligible problems).
+    Tensors it precomputes take the device and dtype of the array's
+    antenna positions. use_kernel is passed to rime_reduce ("auto": the
+    fused kernel on CUDA for eligible problems). remat: checkpoint each
+    time step (psky and the reduction), trading the forward's reduction
+    again in the backward for the step's saved tensors.
     """
 
     def __init__(self, sky, telescope, beam, array, sim_bls, times, freqs,
-                 data_bls=None, name=None, pix_chunk=1024, use_kernel="auto"):
+                 data_bls=None, name=None, pix_chunk=1024, remat=False,
+                 time_mode="scan", use_kernel="auto"):
         super().__init__(name=name)
+        if time_mode not in ("scan", "vmap"):
+            raise ValueError(f"unknown time_mode {time_mode!r}")
         self.sky = sky
         self.telescope = telescope
         self.beam = beam
         self.array = array
         self.pix_chunk = pix_chunk
+        self.remat = remat
+        self.time_mode = time_mode
         self.use_kernel = use_kernel
         self.freqs = np.asarray(freqs, dtype=np.float64)
         self.Nfreqs = len(self.freqs)
         self.array.set_freqs(self.freqs)
-        self.times = np.atleast_1d(np.asarray(times, dtype=np.float64))
         self.setup_sim_bls(sim_bls, data_bls)
+        self.setup_sim_times(times)
         self.precompute()
 
+    # ------------------------------------------------------------ setup
     def setup_sim_bls(self, sim_bls, data_bls=None):
-        """Simulated baselines, their antenna indices on the device, and
+        """Baseline groups (a dict, a list of lists, or one list of
+        baselines), their antenna indices on the device, and per group
         the sim -> data expansion index for redundant data."""
-        self.sim_bls = [tuple(b) for b in sim_bls]
-        a1, a2 = self.array.bl_index(self.sim_bls)
+        if isinstance(sim_bls, dict):
+            groups = {k: [tuple(b) for b in v] for k, v in sim_bls.items()}
+        elif isinstance(sim_bls[0], tuple):
+            groups = {0: [tuple(b) for b in sim_bls]}
+        else:
+            groups = {i: [tuple(b) for b in g] for i, g in enumerate(sim_bls)}
+        self.sim_bl_groups = groups
+        self.all_sim_bls = flatten(groups.values())
+        self.Nbl_groups = len(groups)
+        self.bl_group_id = 0
         dev = self.array.antvecs.device
-        self._a1 = torch.as_tensor(a1, device=dev)
-        self._a2 = torch.as_tensor(a2, device=dev)
-        self._sim2data = None
-        self.data_bls = list(self.sim_bls)
-        if data_bls is not None:
-            data_bls = [tuple(b) for b in data_bls]
-            bl2red = self.array.bl2red
+        self._blidx_groups = {
+            k: tuple(torch.as_tensor(ix, device=dev)
+                     for ix in self.array.bl_index(v))
+            for k, v in groups.items()}
+        self.data_bl_groups, self._sim2data = {}, {}
+        bl2red = self.array.bl2red
+        for k, blg in groups.items():
+            if data_bls is None:
+                self.data_bl_groups[k] = list(blg)
+                self._sim2data[k] = None
+                continue
             # group -> first simulated baseline of that group
             sim_of = {}
-            for i, bl in enumerate(self.sim_bls):
+            for i, bl in enumerate(blg):
                 sim_of.setdefault(bl2red[bl], i)
-            dbls = [bl for bl in data_bls if bl2red[bl] in sim_of]
+            dbls = [tuple(bl) for bl in data_bls
+                    if bl2red[tuple(bl)] in sim_of]
             if set(sim_of) != {bl2red[bl] for bl in dbls}:
                 raise ValueError(
                     "non-overlapping bl type(s) in data_bls and sim_bls")
-            self.data_bls = dbls
-            self._sim2data = torch.as_tensor(
+            self.data_bl_groups[k] = dbls
+            self._sim2data[k] = torch.as_tensor(
                 [sim_of[bl2red[bl]] for bl in dbls], device=dev)
-        self._data_blnums = ants2blnum(self.data_bls)
+        self._data_blnums = {k: ants2blnum(v)
+                             for k, v in self.data_bl_groups.items()}
+        if hasattr(self, "_pre"):
+            self.precompute()
+
+    def setup_sim_times(self, times):
+        """Time groups: a dict, a list of arrays, or one array (2D: one
+        group a row)."""
+        if isinstance(times, dict):
+            groups = {k: np.asarray(v, dtype=np.float64)
+                      for k, v in times.items()}
+        elif isinstance(times, list) and np.ndim(times[0]) > 0:
+            groups = {i: np.asarray(t, dtype=np.float64)
+                      for i, t in enumerate(times)}
+        else:
+            t = np.atleast_1d(np.asarray(times, dtype=np.float64))
+            groups = {0: t} if t.ndim == 1 else \
+                {i: t[i] for i in range(t.shape[0])}
+        self.sim_time_groups = groups
+        self.all_sim_times = np.concatenate(list(groups.values()))
+        self.Ntime_groups = len(groups)
+        self.time_group_id = 0
+        if hasattr(self, "_pre"):
+            self.precompute()
+
+    # ----------------------------------------------------- batching API
+    @property
+    def Ntimes_all(self):
+        return len(self.all_sim_times)
+
+    @property
+    def Nbls_all(self):
+        return len(self.all_sim_bls)
+
+    @property
+    def Nbatch(self):
+        return self.Nbl_groups * self.Ntime_groups
+
+    @property
+    def batch_idx(self):
+        return self.time_group_id * self.Nbl_groups + self.bl_group_id
+
+    @batch_idx.setter
+    def batch_idx(self, val):
+        if not 0 <= val < self.Nbatch:
+            raise ValueError(f"batch_idx {val} not in [0, {self.Nbatch})")
+        self.time_group_id = int(val // self.Nbl_groups)
+        self.bl_group_id = int(val % self.Nbl_groups)
+
+    @property
+    def sim_bls(self):
+        return self.sim_bl_groups[self.bl_group_id]
+
+    @property
+    def data_bls(self):
+        return self.data_bl_groups[self.bl_group_id]
+
+    @property
+    def sim_times(self):
+        return self.sim_time_groups[self.time_group_id]
+
+    @property
+    def Npix_cut(self):
+        """Padded FOV pixels of the active time group's first sky
+        component."""
+        return int(self._pre[(self.time_group_id, 0)][0]["cut"].shape[0])
+
+    # ------------------------------------------------------- precompute
+    def _sky_components(self):
+        if isinstance(self.sky, CompositeModel):
+            return list(self.sky.models.values())
+        return [self.sky]
 
     def precompute(self):
-        """Per time: zen/az of the sky pixels, the padded FOV cut and
-        the pointing vectors of the cut pixels (host), as tensors."""
-        params = self.sky.params
-        dev, rdt = params.device, params.dtype
-        ra, dec = self.sky.angs_np[0], self.sky.angs_np[1]
-        raw = [self.telescope.eq2top(t, ra, dec) for t in self.times]
-        ncut = max(int((zen < self.beam.fov / 2).sum()) for zen, _ in raw)
-        base = self.pix_chunk if ncut >= self.pix_chunk else 8
-        pad = int(np.ceil(max(ncut, 1) / base) * base)
-        self._pre = []
-        for zen, az in raw:
-            cut, mask = self.beam.fov_cut(zen, pad_to=pad)
-            self._pre.append(dict(
-                zen=torch.as_tensor(zen[cut], dtype=rdt, device=dev),
-                az=torch.as_tensor(az[cut], dtype=rdt, device=dev),
-                cut=torch.as_tensor(cut, device=dev),
-                mask=torch.as_tensor(mask, dtype=rdt, device=dev),
-                s_c=torch.as_tensor(
-                    self.array.s_vector(zen[cut], az[cut]), dtype=rdt,
-                    device=dev) / C_MS))
-        self.Npix_cut = pad
-        mp1, mp2, mp_idx = self.beam.modelpairs(self.sim_bls)
-        self._mp = (torch.as_tensor(mp1, device=dev),
-                    torch.as_tensor(mp2, device=dev), mp_idx)
+        """Per (time group, sky component) and time: the beam's zen / az
+        (pointing offset folded in), the padded FOV cut and mask, the
+        pointing vectors / c of the cut pixels (true angles) and the beam
+        response's interpolation ctx where it has one, as tensors; and
+        per baseline group the model pairs."""
+        dev, rdt = self.array.antvecs.device, self.array.antvecs.dtype
 
-    def forward(self, *args, **kwargs):
-        """Forward model -> VisData (Npol, Npol, Ndata_bls, Ntimes, Nfreqs)."""
-        sky = self.sky().data                       # (Nstokes, 1, Nf, Npix)
-        blvecs = self.array.antvecs[self._a2] - self.array.antvecs[self._a1]
-        mp1, mp2, mp_idx = self._mp
+        def t(x, dtype=rdt):
+            return torch.as_tensor(x, dtype=dtype, device=dev)
+        self._pre = {}
+        for tg, times in self.sim_time_groups.items():
+            for ci, comp in enumerate(self._sky_components()):
+                ra, dec = comp.angs_np[0], comp.angs_np[1]
+                raw = [self.telescope.eq2top(tm, ra, dec) for tm in times]
+                ncut = max(int((zen < self.beam.fov / 2).sum())
+                           for zen, _ in raw)
+                # pad to a multiple of the pixel chunk (or of 8)
+                base = self.pix_chunk if ncut >= self.pix_chunk else 8
+                pad = int(np.ceil(max(ncut, 1) / base) * base)
+                pres = []
+                for zen, az in raw:
+                    cut, mask = self.beam.fov_cut(zen, pad_to=pad)
+                    zen_c, az_c = zen[cut], az[cut]
+                    # s in the working dtype, then / c there, as the
+                    # JAX package does
+                    s_c = t(self.array.s_vector(zen_c, az_c)) / C_MS
+                    zen_b, az_b = self.beam.apply_pointing(zen_c, az_c)
+                    pre = dict(zen=t(zen_b), az=t(az_b),
+                               cut=t(cut, torch.int64), mask=t(mask),
+                               s_c=s_c)
+                    if hasattr(self.beam.R, "precompute"):
+                        inds, wgts = self.beam.R.precompute(zen_b, az_b)
+                        pre["ctx"] = (t(inds, torch.int64), t(wgts))
+                    pres.append(pre)
+                self._pre[(tg, ci)] = pres
+        self._mp_groups = {}
+        for k, bls in self.sim_bl_groups.items():
+            mp1, mp2, mp_idx = self.beam.modelpairs(bls)
+            self._mp_groups[k] = (t(mp1, torch.int64), t(mp2, torch.int64),
+                                  mp_idx)
 
-        def make_psky(sky, zen, az, cut, mask):
+    # ---------------------------------------------------------- forward
+    def _sim_component(self, sky, pres, blvecs, mp1, mp2, mp_idx):
+        """Simulate one sky component (Nvec, Nvec, Nfreqs, Npix) over the
+        active time group: (Npol, Npol, Nsim_bls, Ntimes, Nfreqs)."""
+        grad = torch.is_grad_enabled()
+
+        def make_psky(sky, zen, az, cut, mask, *ctx):
             csky = cut_sky_fov(sky, cut) * mask
-            beam = self.beam.gen_beam(zen, az)
+            beam = self.beam.gen_beam(zen, az, ctx=ctx or None,
+                                      angles_offset=True)
             return self.beam.apply_beam_mp(beam, mp1, mp2, csky)
 
+        def one_time(sky, blvecs, pre, nested):
+            args = (sky, pre["zen"], pre["az"], pre["cut"], pre["mask"]) \
+                + pre.get("ctx", ())
+            # psky's construction chains many (Nfreqs, Ncut)
+            # intermediates: checkpoint it, so the backward keeps only
+            # psky per time and recomputes the rest (the beam and sky
+            # hold no randomness)
+            psky = _ckpt(make_psky, *args) if nested else make_psky(*args)
+            return rime_reduce(psky, None, self.freqs, mp_idx=mp_idx,
+                               chunk=self.pix_chunk,
+                               use_kernel=self.use_kernel, blvecs=blvecs,
+                               s_c=pre["s_c"])
+
         vis_t = []
-        for pre in self._pre:
-            args = (sky, pre["zen"], pre["az"], pre["cut"], pre["mask"])
-            # psky's construction chains many (Nfreqs, Ncut) intermediates:
-            # checkpoint it, so the backward keeps only psky per time and
-            # recomputes the rest (the beam and sky hold no randomness)
-            psky = checkpoint(make_psky, *args, use_reentrant=False,
-                              preserve_rng_state=False) \
-                if torch.is_grad_enabled() else make_psky(*args)
-            vis_t.append(rime_reduce(psky, None, self.freqs, mp_idx=mp_idx,
-                                     chunk=self.pix_chunk,
-                                     use_kernel=self.use_kernel,
-                                     blvecs=blvecs, s_c=pre["s_c"]))
-        vis = torch.stack(vis_t, dim=3)             # (Np, Np, Nb, Nt, Nf)
-        if self._sim2data is not None:
-            vis = vis.index_select(2, self._sim2data)
+        for pre in pres:
+            if self.remat and grad:
+                vis_t.append(_ckpt(lambda s, b, p=pre: one_time(s, b, p,
+                                                                False),
+                                   sky, blvecs))
+            else:
+                vis_t.append(one_time(sky, blvecs, pre, grad))
+        return torch.stack(vis_t, dim=3)           # (Np, Np, Nb, Nt, Nf)
+
+    def forward(self, *args, **kwargs):
+        """Forward model -> VisData (Npol, Npol, Ndata_bls, Ntimes,
+        Nfreqs) of the active batch."""
+        comps = self.sky()
+        if not isinstance(comps, list):
+            comps = [comps]
+        bg = self.bl_group_id
+        a1, a2 = self._blidx_groups[bg]
+        blvecs = self.array.antvecs[a2] - self.array.antvecs[a1]
+        mp1, mp2, mp_idx = self._mp_groups[bg]
+        vis = None
+        for ci, comp in enumerate(comps):
+            v = self._sim_component(comp.data,
+                                    self._pre[(self.time_group_id, ci)],
+                                    blvecs, mp1, mp2, mp_idx)
+            vis = v if vis is None else vis + v
+        if self._sim2data[bg] is not None:
+            vis = vis.index_select(2, self._sim2data[bg])
         pol = None
         if self.beam.Npol == 1 and self.beam.pol is not None:
             pol = f"{self.beam.pol}{self.beam.pol}"
         vd = VisData()
         vd.setup_meta(self.telescope, self.array.to_antpos())
-        vd.setup_data(self._data_blnums, self.times, self.freqs, pol=pol,
-                      data=vis, history=f"RIME forward ({self.name})")
+        vd.setup_data(self._data_blnums[bg], self.sim_times, self.freqs,
+                      pol=pol, data=vis, history=f"RIME forward ({self.name})")
         return vd
+
+    def run_batches(self, concat=True):
+        """Forward every batch; concat=True joins them along baselines
+        within a time group, then along time; else a list by batch."""
+        vis_times, vis_bls = [], []
+        for i in range(self.Nbatch):
+            self.batch_idx = i
+            vis_bls.append(self.forward())
+            if self.bl_group_id == self.Nbl_groups - 1:
+                if concat:
+                    vis_times.append(concat_VisData(vis_bls, "bl"))
+                else:
+                    vis_times.extend(vis_bls)
+                vis_bls = []
+        self.batch_idx = 0
+        return concat_VisData(vis_times, "time") if concat else vis_times

@@ -3,7 +3,8 @@ The fused RIME kernels on the card, their plain PyTorch versions, and
 the autograd Function that puts them on the RIME path.
 
 Counterpart of bayeslim_tpu/ops/rime_pallas.py (`_fwd_pallas` :619,
-`_dtau_pallas` :773, `rime_fused_bs` :941-1018).
+`_dtau_pallas` :773, `rime_fused` :880-938, `rime_fused_bs` :941-1018,
+`rime_pallas_reduce` :1022-1045).
 
 Contract (`rime_fwd`): for ps rows (R, K), real or complex, and
 tauT (K, N) float,
@@ -54,7 +55,8 @@ from torch.autograd.function import once_differentiable
 from .phase import _split_f32, fringe_cycles
 
 __all__ = ["rime_fwd", "rime_fwd_plain", "rime_dtau", "rime_dtau_plain",
-           "rime_fused_bs", "RimeFusedBS", "build", "launches",
+           "rime_fused", "RimeFused", "rime_fused_bs", "RimeFusedBS",
+           "rime_pallas_reduce", "build", "launches",
            "dtau_launches", "no_tf32", "roofline_ms", "fwd_plan", "fwd_info",
            "dtau_plan", "dtau_info"]
 
@@ -514,3 +516,63 @@ def rime_fused_bs(ps2d, blvecs, s_c, f0, df, nf, conj=False):
     RimeFusedBS)."""
     return RimeFusedBS.apply(ps2d, blvecs, s_c, float(f0), float(df),
                              int(nf), bool(conj))
+
+
+class RimeFused(torch.autograd.Function):
+    """``rime_fwd`` with the delays given as an (Nbls, Npix) matrix tau
+    (counterpart of rime_fused, rime_pallas.py:880).
+
+    ps2d : (nstack * nf, Npix) real or complex; tau : (Nbls, Npix).
+    Returns (nstack * nf, Nbls) complex.
+
+    Backward, each kernel launched only for a gradient that is asked
+    for (rime_pallas.py::_rime_fused_bwd :916): dps is ``rime_fwd`` with
+    baselines and pixels swapped and ``conj`` flipped, as in
+    RimeFusedBS; dtau is ``rime_dtau`` with ct = conj(g), transposed to
+    (Nbls, Npix) and not contracted further.
+    """
+
+    @staticmethod
+    def forward(ctx, ps2d, tau, f0, df, nf, conj):
+        ctx.save_for_backward(ps2d, tau)
+        ctx.meta = (f0, df, nf, conj)
+        return rime_fwd(ps2d, tau.t(), f0, df, nf, conj=conj)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        ps2d, tau = ctx.saved_tensors
+        f0, df, nf, conj = ctx.meta
+        need_ps, need_tau = ctx.needs_input_grad[:2]
+        g = g.contiguous()
+        dps = dtau = None
+        if need_ps:
+            dps = rime_fwd(g, tau, f0, df, nf, conj=not conj,
+                           out_imag=ps2d.is_complex()).to(ps2d.dtype)
+        if need_tau:
+            dtau = rime_dtau(g.conj_physical(), ps2d, tau.t(), f0, df, nf,
+                             conj=conj).t().to(tau.dtype)
+        return dps, dtau, None, None, None, None
+
+
+def rime_fused(ps2d, tau, f0, df, nf, conj=False):
+    """Differentiable fused reduction with the delay matrix given (see
+    RimeFused)."""
+    return RimeFused.apply(ps2d, tau, float(f0), float(df), int(nf),
+                           bool(conj))
+
+
+def rime_pallas_reduce(psky, tau, freqs, conj=False):
+    """Fused RIME reduction, forward only (counterpart of
+    rime_pallas.py::rime_pallas_reduce :1022): psky (Nfreqs, Npix) real
+    or complex and tau (Nbls, Npix) on a regular frequency grid ->
+    (Nbls, Nfreqs) complex, by one ``rime_fwd`` call."""
+    freqs = np.asarray(freqs, dtype=np.float64)
+    nf = len(freqs)
+    if tuple(psky.shape) != (nf, tau.shape[1]):
+        raise ValueError(f"rime_pallas_reduce: psky {tuple(psky.shape)} is "
+                         f"not (Nfreqs, Npix) = ({nf}, {tau.shape[1]})")
+    df = float(freqs[1] - freqs[0]) if nf > 1 else 0.0
+    if nf > 1 and not np.allclose(np.diff(freqs), df, rtol=1e-10):
+        raise ValueError("rime_pallas_reduce needs a regular frequency grid")
+    return rime_fwd(psky, tau.t(), float(freqs[0]), df, nf, conj=conj).t()

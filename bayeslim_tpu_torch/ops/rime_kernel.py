@@ -10,10 +10,14 @@ Counterpart of bayeslim_tpu/ops/rime_kernel.py (`_pallas_eligible` :59,
 - ``rime_reduce`` reduces pixel chunk by chunk, each chunk under
   ``torch.utils.checkpoint`` so the backward recomputes the chunk's
   fringe instead of storing it. Eligible problems (float32, a regular
-  frequency grid, psky shared across baselines, delays factored as
-  blvecs @ s_c) go to the fused kernel through ``RimeFusedBS``
+  frequency grid, psky in model-pair space) go to the fused kernel
   instead: automatically on CUDA, or everywhere with use_kernel=True
-  (on the CPU the fused Function runs the kernel's plain version).
+  (on the CPU the fused Functions run the kernel's plain version).
+  Leading (polarization) blocks stack as rows of one launch; with
+  Nmp > 1 model pairs and a host baseline -> pair map the baselines are
+  grouped by pair, one fused call a pair, and the result
+  inverse-permuted. Delays factored as blvecs @ s_c go through
+  ``RimeFusedBS``, a given delay matrix tau through ``RimeFused``.
 """
 from __future__ import annotations
 
@@ -22,18 +26,19 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .phase import fringe_cycles
-from .rime_cuda import no_tf32, rime_fused_bs
+from .rime_cuda import no_tf32, rime_fused, rime_fused_bs
 
 __all__ = ["rime_reduce", "rime_reduce_ref"]
 
 
-def _kernel_eligible(psky, mp_idx, freqs, use_kernel, blvecs):
-    """float32, regular frequency grid, psky shared across baselines
-    (Nmp == 1), factored delays; on CUDA unless forced."""
-    if not use_kernel or blvecs is None or psky.ndim < 3:
+def _kernel_eligible(psky, mp_idx, freqs, use_kernel, blvecs, tau=None):
+    """float32, regular frequency grid, delays given (factored or as a
+    matrix), psky in model-pair space (shared across baselines, or
+    Nmp pairs with an mp_idx); on CUDA unless forced."""
+    if not use_kernel or (blvecs is None and tau is None) or psky.ndim < 3:
         return False
-    if mp_idx is not None or psky.shape[-3] != 1:
-        return False
+    if mp_idx is None and psky.shape[-3] != 1:
+        return False      # per-baseline psky: the kernel shares rows
     if psky.dtype not in (torch.float32, torch.complex64):
         return False
     if len(freqs) > 1:
@@ -45,16 +50,50 @@ def _kernel_eligible(psky, mp_idx, freqs, use_kernel, blvecs):
     return True
 
 
-def _rime_fused_dispatch(psky, freqs, conj, blvecs, s_c):
-    """Stack the leading (polarization) blocks of a (..., 1, Nfreqs,
-    Npix) psky as rows and run the fused kernel on the 2D problem."""
+def _rime_fused_dispatch(psky, freqs, conj, mp_idx, blvecs, s_c, tau):
+    """Map the (..., Nmp, Nfreqs, Npix) contract onto the 2D stacked-row
+    fused kernel: leading (polarization) blocks stack as rows; with
+    Nmp > 1 the baselines are grouped by model pair (mp_idx is host
+    metadata), one fused call a pair on that pair's baselines, and the
+    concatenated result is inverse-permuted."""
+    if isinstance(mp_idx, torch.Tensor):
+        raise NotImplementedError(
+            "a device mp_idx (baseline sharding: every pair over all "
+            "baselines, mask-selected) waits for the multi-device port "
+            "(parallel/sharding.py); pass the baseline -> pair map as a "
+            "host array")
     lead = psky.shape[:-3]
-    nf, npx = psky.shape[-2:]
+    nmp, nf, npx = psky.shape[-3:]
+    nb = blvecs.shape[0] if blvecs is not None else tau.shape[0]
     f0 = float(freqs[0])
     df = float(freqs[1] - freqs[0]) if nf > 1 else 0.0
-    out = rime_fused_bs(psky.reshape(-1, npx), blvecs, s_c, f0, df, nf,
-                        conj)                             # (L*nf, nb)
-    out = out.reshape(lead + (nf, blvecs.shape[0]))
+
+    def run(ps2d, sel=None):
+        if blvecs is not None:
+            bv = blvecs if sel is None else blvecs.index_select(0, sel)
+            return rime_fused_bs(ps2d, bv, s_c, f0, df, nf, conj)
+        t = tau if sel is None else tau.index_select(0, sel)
+        return rime_fused(ps2d, t, f0, df, nf, conj)
+
+    if mp_idx is None or nmp == 1:
+        out = run(psky.reshape(-1, npx))                  # (L*nf, nb)
+    else:
+        mp = np.asarray(mp_idx)
+        dev = psky.device
+        outs, order = [], []
+        for m in range(nmp):
+            idx = np.where(mp == m)[0]
+            if len(idx) == 0:
+                continue
+            order.append(idx)
+            outs.append(run(psky[..., m, :, :].reshape(-1, npx),
+                            torch.as_tensor(idx, device=dev)))
+        perm = np.concatenate(order)
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(len(perm))
+        out = torch.cat(outs, dim=-1).index_select(
+            -1, torch.as_tensor(inv, device=dev))
+    out = out.reshape(lead + (nf, nb))
     return out.movedim(-2, -1)                            # (..., nb, nf)
 
 
@@ -106,13 +145,15 @@ def rime_reduce(psky, tau, freqs, mp_idx=None, conj=False, chunk=1024,
 
     tau may be None when (blvecs, s_c) are given: tau = blvecs @ s_c is
     then built inside the fused Function's passes, or here for the
-    chunked path. use_kernel: "auto" takes the fused kernel for eligible
-    problems on CUDA, True forces the fused Function (its plain version
-    on the CPU), False disables it.
+    chunked path. mp_idx: a host (Nbls,) baseline -> model-pair index
+    (None: psky shared across baselines). use_kernel: "auto" takes the
+    fused kernel for eligible problems on CUDA, True forces the fused
+    Functions (their plain version on the CPU), False disables them.
     """
     freqs = np.asarray(freqs, dtype=np.float64)
-    if _kernel_eligible(psky, mp_idx, freqs, use_kernel, blvecs):
-        return _rime_fused_dispatch(psky, freqs, conj, blvecs, s_c)
+    if _kernel_eligible(psky, mp_idx, freqs, use_kernel, blvecs, tau):
+        return _rime_fused_dispatch(psky, freqs, conj, mp_idx, blvecs, s_c,
+                                    tau)
     if tau is None:
         with no_tf32():
             tau = blvecs @ s_c

@@ -1,8 +1,10 @@
-"""Substrate: dtype/device policy, ParamDict, Module, indexing, HEALPix."""
-from . import dtypes, healpix, indexing, module, paramdict
+"""Substrate: dtype/device policy, ParamDict, Module, indexing, HEALPix,
+pixel interpolation."""
+from . import dtypes, healpix, indexing, interp, module, paramdict
 from .dtypes import (_float, set_default_dtype, resolve_device,
                      viewreal, viewcomp, D2R, R2D, C_MS)
 from .paramdict import ParamDict, load_numpy_pdict
 from .module import Module, Sequential, model2pdict
 from .indexing import (AntposDict, ants2blnum, blnum2ants, make_hex,
                        flatten, gauss_taper)
+from .interp import PixInterp, interp_gather, bipoly_interp_weights

@@ -18,9 +18,11 @@ Phases, one line each; any failure exits non-zero:
    case: small shapes, ragged runs (nstack = 3 at nf = 5 and 1000),
    K = 1, N = 1, K below one slice, delays of at most 1e-9 s, zero
    delays (the output is then the sum over c), hera-stat's longest
-   delays, delays past hex-11 (every |tau| within 1 % of 3e-6 s), and
-   the hera-stat forward and backward shapes; each case launched twice,
-   the two outputs bit-equal;
+   delays, delays past hex-11 (every |tau| within 1 % of 3e-6 s), the
+   hera-stat forward and backward shapes, and hera-prod's (4 stacked
+   rows a channel, R = 4096, complex ps, complex out: the forward
+   K = 6144, N = 630 and the role-swapped backward); each case launched
+   twice, the two outputs bit-equal;
 3. the delay-cotangent kernel (rime_dtau) against its plain version the
    same way, on phase 2's cases: small shapes, ragged passes (nstack = 3
    at nf = 5 and 1000), K = 1, N = 1, N below one block, delays of at
@@ -46,10 +48,11 @@ Phases, one line each; any failure exits non-zero:
    be exactly Ntimes x pixel chunks x function evaluations; then one
    function evaluation under torch.profiler;
 7. small posteriors on the card (float32, kernels) against the port on
-   the CPU (float64, plain versions): a small sky/beam posterior and
-   the hera-cal chain, loss and gradients;
-8. kernel and plain-version times at the main paths' shapes, each
-   kernel's bound, rime_fwd with its K split against one slice,
+   the CPU (float64, plain versions): a small sky/beam posterior, the
+   hera-cal chain and the hera-prod chain (its loss and gradients
+   accumulated over 2 time batches), loss and gradients;
+8. kernel and plain-version times at the main paths' shapes (rime_fwd
+   also at hera-prod's two), each kernel's bound, rime_fwd with its K split against one slice,
    rime_dtau beside the previous design's time, with real and complex
    ps, and
    k_fwd timed at hera-stat's forward shape beside rime_fwd's times at
@@ -72,8 +75,24 @@ Phases, one line each; any failure exits non-zero:
    the spike's own entry point, main(), with every kernel's
    launches counted (exactly 1 + 400 each); the plain versions' times,
    the redesigned kernels' beside their library call's (k_bd's also
-   beside torch.matmul(ps, m) alone) and the previous design's. Then the
-   JSON line of all nine kernels.
+   beside torch.matmul(ps, m) alone) and the previous design's;
+10. the kernel entry points beyond the main paths' on the card against
+   the CPU float64 plain path, with their launch counts: the Nmp > 1
+   grouped dispatch (a hex-3 array whose antennas carry 2 Gaussian beam
+   models, up to 4 model pairs; sky, beams and antenna positions trainable:
+   one rime_fwd a pair, time and pass, one rime_dtau a pair and time),
+   RimeFused (a delay matrix given: value, psky and tau gradients) and
+   rime_pallas_reduce;
+11. main path 4, hera-prod at full width
+   (bayeslim_tpu_torch/scripts/hera_prod.py): the same array expanded
+   to all 54,615 cross baselines, 1024 frequencies, an nside-32 sky of
+   4 Stokes planes emitted as a 2x2 coherency, a fixed 2x2 Jones
+   PixelResponse beam on the same grid, 2 time batches of 2 times, 4-pol
+   complex gains; 3 Adam steps on sky and gains, each accumulating over
+   both batches; rime_fwd launches must be exactly 2 x times x batches
+   per step and rime_dtau none; the build seconds, step walls, losses
+   and peak memory; then one step under torch.profiler. Then the JSON
+   line of all nine kernels.
 
 The last line is {"ok": true, "device": {...}}. Exits non-zero without
 printing a result when no CUDA device or no package is present.
@@ -118,6 +137,15 @@ ROT_NF = (0, 1, 2, 3, 7, 1023, 1024, 4096, 16384)
 # delays past hex-11's longest (~1.0e-6 s) that phases 2 and 3 hold to
 # the same bar: |tau| within 1 % of this
 FAR_DELAY = 3e-6
+# hera-stat's and hera-cal's steps in PR 9 (chip_smoke.py, NVIDIA H100
+# 80GB HBM3 at 700 W): hera-stat's second and third step walls (ms), a
+# hera-cal function evaluation's device time (ms)
+PR9_STAT_STEPS_MS, PR9_CAL_EVAL_MS = (20.8, 18.9), 24.55
+# hera-prod's rime_fwd launches (4 stacked rows a channel, 1024 channels,
+# complex ps and output): (label, K, N, conj) of the forward (K the FOV
+# pixels, N the redundant groups) and the role-swapped backward
+PROD_SHAPES = (("hera-prod fwd", 6144, 630, False),
+               ("hera-prod bwd", 630, 6144, True))
 # the TPU kernel each spike replaces (scripts/mosaic_spike.py)
 SPIKE_LINES = {"k_nn": 46, "k_nt": 65, "k_vt": 84, "k_lr": 100, "k_bd": 119,
                "k_rot": 147, "k_fwd": 180}
@@ -433,25 +461,32 @@ def phase_build(torch, rime_cuda, dev, built):
 def phase_fwd_vs_plain(torch, rime_cuda, dev, rng, f0, df):
     """Phase 2; returns the worst abs error by shape label."""
     tmax = longest_delay()
-    # (label, nf, R, K, N, delays drawn uniform in +-tau_max)
-    shapes = [("small", 5, 2 * 5, 300, 70, 1e-6),     # runs of 5 rows
-              ("small", 24, 3 * 24, 100, 45, 1e-6),
-              ("ragged runs", 5, 3 * 5, 300, 70, 1e-6),
-              ("ragged runs", 1000, 3 * 1000, 100, 45, 1e-6),
-              ("K=1", 24, 3 * 24, 1, 45, 1e-6),
-              ("N=1", 24, 3 * 24, 100, 1, 1e-6),
-              ("K below one slice", 1024, 1024, 100, 630, 1e-6),
-              ("delays <= 1e-9 s", 24, 3 * 24, 300, 45, 1e-9),
-              ("zero delays", 24, 3 * 24, 300, 45, 0.0),
+    every = [(r, c, o) for r in (True, False) for c in (False, True)
+             for o in (True, False)]
+    # (label, nf, R, K, N, delays drawn uniform in +-tau_max, the
+    # (ps_real, conj, out_imag) cases)
+    shapes = [("small", 5, 2 * 5, 300, 70, 1e-6, every),   # runs of 5 rows
+              ("small", 24, 3 * 24, 100, 45, 1e-6, every),
+              ("ragged runs", 5, 3 * 5, 300, 70, 1e-6, every),
+              ("ragged runs", 1000, 3 * 1000, 100, 45, 1e-6, every),
+              ("K=1", 24, 3 * 24, 1, 45, 1e-6, every),
+              ("N=1", 24, 3 * 24, 100, 1, 1e-6, every),
+              ("K below one slice", 1024, 1024, 100, 630, 1e-6, every),
+              ("delays <= 1e-9 s", 24, 3 * 24, 300, 45, 1e-9, every),
+              ("zero delays", 24, 3 * 24, 300, 45, 0.0, every),
               (f"hera-stat longest delays (+-{tmax:.4e} s)", 1024, 1024,
-               256, 64, tmax),
+               256, 64, tmax, every),
               (f"delays past hex-11 (+-{FAR_DELAY:g} s)", 1024, 1024, 256,
-               64, FAR_DELAY),
-              ("hera-fwd", 1024, 1024, 6144, 630, 1e-6),
-              ("hera-bwd", 1024, 1024, 630, 6144, 1e-6)]
+               64, FAR_DELAY, every),
+              ("hera-fwd", 1024, 1024, 6144, 630, 1e-6, every),
+              ("hera-bwd", 1024, 1024, 630, 6144, 1e-6, every)]
+    shapes += [(label, 1024, 4096, K, N, 1e-6, [(False, conj, True)])
+               for label, K, N, conj in PROD_SHAPES]
     worst, worst_rel = {}, {}
-    for label, nf, R, K, N, tau_max in shapes:
+    for label, nf, R, K, N, tau_max, cases in shapes:
         for ps_real in (True, False):
+            if not any(c[0] == ps_real for c in cases):
+                continue
             ps, tauT = rand_case(rng, R, K, N, ps_real, tau_max)
             if label.startswith(("hera-stat longest", "delays past")):
                 # every delay within 1 % of the largest, either sign
@@ -460,44 +495,43 @@ def phase_fwd_vs_plain(torch, rime_cuda, dev, rng, f0, df):
             ps32 = torch.as_tensor(ps, dtype=torch.float32 if ps_real
                                    else torch.complex64, device=dev)
             tau32 = torch.as_tensor(tauT, dtype=torch.float32, device=dev)
-            for conj in (False, True):
-                for out_imag in (True, False):
-                    _, _, per_sm, sms = rime_cuda.fwd_info(dev, ps_real,
-                                                           out_imag)
-                    S = rime_cuda.fwd_plan(R, K, N, nf, sms, per_sm)[0]
-                    a = rime_cuda.rime_fwd(ps32, tau32, f0, df, nf, conj,
+            for _, conj, out_imag in [c for c in cases if c[0] == ps_real]:
+                _, _, per_sm, sms = rime_cuda.fwd_info(dev, ps_real,
+                                                       out_imag)
+                S = rime_cuda.fwd_plan(R, K, N, nf, sms, per_sm)[0]
+                a = rime_cuda.rime_fwd(ps32, tau32, f0, df, nf, conj,
+                                       out_imag)
+                b = rime_cuda.rime_fwd_plain(
+                    ps32.to(torch.complex128 if not ps_real
+                            else torch.float64),
+                    tau32.double(), f0, df, nf, conj, out_imag)
+                if tau_max == 0.0:
+                    # exp(0) = 1: the output is the sum over c
+                    s = ps32.to(torch.complex128 if not ps_real
+                                else torch.float64).sum(1, keepdim=True)
+                    b = (s.real if s.is_complex() and not out_imag
+                         else s).expand(R, N)
+                again = rime_cuda.rime_fwd(ps32, tau32, f0, df, nf, conj,
                                            out_imag)
-                    b = rime_cuda.rime_fwd_plain(
-                        ps32.to(torch.complex128 if not ps_real
-                                else torch.float64),
-                        tau32.double(), f0, df, nf, conj, out_imag)
-                    if tau_max == 0.0:
-                        # exp(0) = 1: the output is the sum over c
-                        s = ps32.to(torch.complex128 if not ps_real
-                                    else torch.float64).sum(1, keepdim=True)
-                        b = (s.real if s.is_complex() and not out_imag
-                             else s).expand(R, N)
-                    again = rime_cuda.rime_fwd(ps32, tau32, f0, df, nf, conj,
-                                               out_imag)
-                    torch.cuda.synchronize()
-                    same = bool(torch.equal(a, again))
-                    a, b = a.cpu().numpy(), b.cpu().numpy()
-                    err = relerr(a, b)
-                    abs_err = float(np.abs(a - b).max())
-                    case = (f"{label} R={R} K={K} N={N} nf={nf} "
-                            f"ps_real={ps_real} conj={conj} "
-                            f"out_imag={out_imag}")
-                    print(f"phase 2 rime_fwd vs plain: {case}: rel "
-                          f"{err:.2e} (tol {TOL:g}) abs {abs_err:.2e}; "
-                          f"K slices {S}; a second launch "
-                          f"{'bit-equal' if same else 'DIFFERS'}",
-                          flush=True)
-                    check(a.shape == (R, N) and np.isfinite(err)
-                          and err <= TOL,
-                          f"rime_fwd vs plain {case}: {err:.2e}")
-                    check(same, f"rime_fwd {case}: two launches differ")
-                    worst[label] = max(worst.get(label, 0.0), abs_err)
-                    worst_rel[label] = max(worst_rel.get(label, 0.0), err)
+                torch.cuda.synchronize()
+                same = bool(torch.equal(a, again))
+                a, b = a.cpu().numpy(), b.cpu().numpy()
+                err = relerr(a, b)
+                abs_err = float(np.abs(a - b).max())
+                case = (f"{label} R={R} K={K} N={N} nf={nf} "
+                        f"ps_real={ps_real} conj={conj} "
+                        f"out_imag={out_imag}")
+                print(f"phase 2 rime_fwd vs plain: {case}: rel "
+                      f"{err:.2e} (tol {TOL:g}) abs {abs_err:.2e}; "
+                      f"K slices {S}; a second launch "
+                      f"{'bit-equal' if same else 'DIFFERS'}",
+                      flush=True)
+                check(a.shape == (R, N) and np.isfinite(err)
+                      and err <= TOL,
+                      f"rime_fwd vs plain {case}: {err:.2e}")
+                check(same, f"rime_fwd {case}: two launches differ")
+                worst[label] = max(worst.get(label, 0.0), abs_err)
+                worst_rel[label] = max(worst_rel.get(label, 0.0), err)
     far = [k for k in worst_rel if k.startswith("delays past")][0]
     print(f"phase 2 rime_fwd worst error at {far}: rel "
           f"{worst_rel[far]:.2e}, abs {worst[far]:.2e}", flush=True)
@@ -577,7 +611,7 @@ def phase_function(torch, rime_cuda, dev, rng, f0, df):
             s = rng.standard_normal((3, npx))
             s_c = s / np.linalg.norm(s, axis=0) / 2.99792458e8
             d = rng.standard_normal((2 * nf, nb)) * 10
-            res = []
+            res, counts = [], []
             for device, rdt in ((dev, torch.float32), ("cpu", torch.float64)):
                 cdt = torch.complex64 if rdt == torch.float32 \
                     else torch.complex128
@@ -609,12 +643,12 @@ def phase_hera_stat(bt, torch, rime_cuda, pix_chunks):
     torch.cuda.synchronize()
     print(f"phase 5 hera-stat build: {len(rime.array.ants)} antennas, "
           f"{len(sim_bls)} redundant groups, {rime.Nfreqs} freqs, "
-          f"{len(rime.times)} times, {rime.Npix_cut} FOV pixels; "
+          f"{len(rime.sim_times)} times, {rime.Npix_cut} FOV pixels; "
           f"{time.time() - t0:.1f} s", flush=True)
     trainer = bt.Trainer(prob, lr=1e-3)
     torch.cuda.reset_peak_memory_stats()
     nchunks = len(pix_chunks(len(sim_bls), rime.Npix_cut))
-    expect = 3 * 2 * len(rime.times) * nchunks
+    expect = 3 * 2 * len(rime.sim_times) * nchunks
     rime_cuda.launches = rime_cuda.dtau_launches = 0
     losses, step_s = [], []
     for _ in range(3):
@@ -636,8 +670,9 @@ def phase_hera_stat(bt, torch, rime_cuda, pix_chunks):
           f"3 {step_s[1] * 1e3:.1f} / {step_s[2] * 1e3:.1f} ms (before: "
           f"{STAT_STEPS_BEFORE_MS[0]} / {STAT_STEPS_BEFORE_MS[1]} ms), peak "
           f"device memory {peak:.2f} GiB (before: {STAT_PEAK_BEFORE_GIB} "
-          f"GiB), both before-values on an NVIDIA H100 80GB HBM3 at 700 W",
-          flush=True)
+          f"GiB), both before-values on an NVIDIA H100 80GB HBM3 at 700 W; "
+          f"PR 9's steps 2 and 3 there: {PR9_STAT_STEPS_MS[0]} / "
+          f"{PR9_STAT_STEPS_MS[1]} ms", flush=True)
     check(all(np.isfinite(losses)), "non-finite hera-stat loss")
     check(launches == expect, f"launch count {launches} != {expect}")
     check(dtau == 0, f"hera-stat launched rime_dtau {dtau} times")
@@ -657,10 +692,11 @@ def phase_hera_cal(bt, torch, rime_cuda, pix_chunks, size=HERA):
     torch.cuda.synchronize()
     print(f"phase 6 hera-cal build: {len(rime.array.ants)} antennas, "
           f"{nsim} redundant groups simulated, expanded to {ndata} data "
-          f"baselines, {rime.Nfreqs} freqs, {len(rime.times)} times, "
+          f"baselines, {rime.Nfreqs} freqs, {len(rime.sim_times)} times, "
           f"{rime.Npix_cut} FOV pixels, {nparams} trainable parameters "
-          f"(antenna positions and gains); target {tuple(prob.target.data.shape)} "
-          f"{prob.target.data.dtype}; {time.time() - t0:.1f} s", flush=True)
+          f"(antenna positions and gains); target "
+          f"{tuple(prob.target[0].data.shape)} {prob.target[0].data.dtype}; "
+          f"{time.time() - t0:.1f} s", flush=True)
     start = {k: v.detach().clone() for k, v in seq.named_parameters()}
 
     def ant_rms(av):
@@ -683,7 +719,7 @@ def phase_hera_cal(bt, torch, rime_cuda, pix_chunks, size=HERA):
         step_s.append(time.time() - t1)
         evals.append(opt.func_evals)
     fwd, dtau = rime_cuda.launches, rime_cuda.dtau_launches
-    expect = len(rime.times) * nchunks * opt.func_evals
+    expect = len(rime.sim_times) * nchunks * opt.func_evals
     av = seq.rime.array.antvecs.detach()
     moved = float((av - start[ANTVECS]).abs().max())
     print(f"phase 6 hera-cal main path: L-BFGS (strong Wolfe, lr 1, H0 a "
@@ -691,8 +727,8 @@ def phase_hera_cal(bt, torch, rime_cuda, pix_chunks, size=HERA):
           f"mm for antennas and {steps[GAINS]:g} for gains): start loss "
           f"{float(loss0)}, losses {losses}; step walls {step_s} s; "
           f"function evaluations after each step {evals}; rime_fwd launches "
-          f"{fwd}, rime_dtau launches {dtau} (each expected {len(rime.times)} "
-          f"times x {nchunks} chunks x {opt.func_evals} evaluations = "
+          f"{fwd}, rime_dtau launches {dtau} (each expected "
+          f"{len(rime.sim_times)} times x {nchunks} chunks x {opt.func_evals} evaluations = "
           f"{expect}); antennas moved at most {moved * 1e3:.3f} mm, E/N rms "
           f"error vs truth {ant_rms(start[ANTVECS]) * 1e3:.3f} -> "
           f"{ant_rms(av) * 1e3:.3f} mm; peak device memory "
@@ -708,18 +744,20 @@ def phase_hera_cal(bt, torch, rime_cuda, pix_chunks, size=HERA):
                    "phase 6 profile of one function evaluation")
     if busy is not None:
         print(f"phase 6 device time of one function evaluation {busy:.2f} ms "
-              f"(with rime_dtau's previous design: {CAL_EVAL_BEFORE_MS} ms)",
-              flush=True)
+              f"(with rime_dtau's previous design: {CAL_EVAL_BEFORE_MS} ms; "
+              f"PR 9: {PR9_CAL_EVAL_MS} ms, both on an NVIDIA H100 80GB "
+              f"HBM3 at 700 W)", flush=True)
     return fwd, dtau
 
 
-def phase_small(bt, torch, rime_cuda, dev):
+def phase_small(bt, torch, rime_cuda, dev, hera_prod):
     """Phase 7: small posteriors, card (float32) vs CPU (float64)."""
     kw = dict(hexN=2, nside=8, nfreq=8, fmax=120e6, ntime=2, stat=False,
               pix_chunk=512)
     cpu_prob, _ = build_posterior(bt, device="cpu", dtype=torch.float64, **kw)
     gpu_prob, _ = build_posterior(bt, device=dev, dtype=torch.float32, **kw)
-    gpu_prob.target.data = cpu_prob.target.data.to(torch.complex64).to(dev)
+    gpu_prob.target[0].data = cpu_prob.target[0].data.to(torch.complex64).to(
+        dev)
     prng = np.random.default_rng(1)
     pert = {k: v.detach().numpy() * (1 + 0.2 * prng.standard_normal(v.shape))
             for k, v in cpu_prob.collect_main_params().items()}
@@ -731,10 +769,22 @@ def phase_small(bt, torch, rime_cuda, dev):
               ant_sigma=0.05, gain_sigma=0.1)
     cpu_cal, _ = build_cal(bt, device="cpu", dtype=torch.float64, **kw)
     gpu_cal, _ = build_cal(bt, device=dev, dtype=torch.float32, **kw)
-    gpu_cal.target.data = cpu_cal.target.data.to(torch.complex64).to(dev)
+    gpu_cal.target[0].data = cpu_cal.target[0].data.to(torch.complex64).to(
+        dev)
     start = {k: v.detach().numpy() for k, v in
              cpu_cal.collect_main_params().items()}
     pairs.append(("hera-cal chain", cpu_cal, gpu_cal, start, True))
+
+    # the hera-prod chain at hex-2: 2 batches of 2 times, accumulated
+    kw = dict(hexN=2, nside=8, nfreq=16, fmax=120e6, ntime=2, nbatch=2,
+              pix_chunk=512)
+    cpu_prod, _ = hera_prod.build(bt, device="cpu", dtype=torch.float64, **kw)
+    gpu_prod, _ = hera_prod.build(bt, device=dev, dtype=torch.float32, **kw)
+    for g, c in zip(gpu_prod.target, cpu_prod.target):
+        g.data = c.data.to(torch.complex64).to(dev)
+    start = {k: v.detach().numpy() for k, v in
+             cpu_prod.collect_main_params().items()}
+    pairs.append(("hera-prod chain", cpu_prod, gpu_prod, start, False))
     for label, cpu, gpu, params, antpos in pairs:
         bt.load_numpy_pdict(cpu.model, params)
         bt.load_numpy_pdict(gpu.model, params)
@@ -752,6 +802,171 @@ def phase_small(bt, torch, rime_cuda, dev):
                   f"{k} rel {v:.2e}" for k, v in errs.items())
               + f" (tol {TOL:g})", flush=True)
         check(all(v <= TOL for v in errs.values()), f"card vs CPU {label}")
+
+
+def build_nmp(bt, device, dtype, hexN=3, nside=16, nfreq=64, ntime=2):
+    """A small per-antenna-beam posterior through the port's public API:
+    a hex array whose first half of antennas carries Gaussian beam model
+    0 and the rest model 1 (up to 4 model pairs on its baselines), the
+    power-law pixel sky of build_sky_beam, trainable sky, beams and
+    antenna positions; target the forward at a truth away from the
+    start in every parameter. Returns (prob, number of model pairs)."""
+    import torch
+    from bayeslim_tpu_torch.utils import AntposDict, healpix as hp, make_hex
+    device = bt.resolve_device(device)
+    kw = dict(device=device, dtype=dtype)
+    rng = np.random.default_rng(3)
+    T = bt.TelescopeModel(LOC)
+    ants, antvecs = make_hex(hexN, D=15.0)
+    freqs = np.linspace(100e6, 120e6, nfreq)
+    arr = bt.ArrayModel(AntposDict(ants, antvecs), freqs=freqs,
+                        parameter=True, **kw)
+    npix = hp.nside2npix(nside)
+    theta, phi = hp.pix2ang(nside, np.arange(npix))
+    params = np.zeros((1, 1, 2, npix))
+    params[0, 0, 0] = rng.uniform(1, 10, npix)
+    params[0, 0, 1] = -2.5
+    sky = bt.PixelSky(params, np.stack([phi * 180 / np.pi,
+                                        90 - theta * 180 / np.pi]),
+                      hp.nside2pixarea(nside), R=bt.PixelSkyResponse(
+                          freqs, freq_mode="powerlaw", f0=float(freqs[0]),
+                          **kw), **kw)
+    bp = np.ones((1, 1, 2, nfreq, 2)) * np.array([0.5, 0.8])[:, None, None]
+    ant2beam = {a: int(i >= len(ants) // 2) for i, a in enumerate(ants)}
+    beam = bt.PixelBeam(bp, freqs, R=bt.GaussResponse(), pol="e",
+                        ant2beam=ant2beam, fov=180.0, **kw)
+    bls = arr.get_bls(keep_autos=False)
+    times = 2458168.3 + np.arange(ntime) * 5e-4
+    rime = bt.RIME(sky, T, beam, arr, bls, times, freqs, pix_chunk=512)
+    # the truth: antennas moved by N(0, 5 cm), beams 10 % wider, the sky
+    # 5 % brighter
+    moved = arr.antvecs.detach().clone()
+    moved[:, :2] += torch.as_tensor(0.05 * rng.standard_normal(
+        (len(ants), 2)), dtype=dtype, device=device)
+    truth = bt.ParamDict({"array.antvecs": moved,
+                          "beam.params": beam.params.detach() * 1.1,
+                          "sky.params": sky.params.detach() * 1.05})
+    with torch.no_grad():
+        data = rime.updated(truth)().data
+    tgt = bt.VisData()
+    tgt.setup_meta(T, arr.to_antpos())
+    tgt.setup_data(bls, times, freqs, pol="ee", data=data)
+    nmp = len(np.unique(beam.modelpairs(bls)[2]))
+    return bt.LogProb(rime, tgt), nmp
+
+
+def phase_entry_points(bt, torch, rime_cuda, dev, rng, f0, df):
+    """Phase 10: the Nmp > 1 grouped dispatch, RimeFused and
+    rime_pallas_reduce on the card against the CPU float64 plain path,
+    with their launch counts."""
+    cpu, nmp = build_nmp(bt, "cpu", torch.float64)
+    gpu, _ = build_nmp(bt, dev, torch.float32)
+    gpu.target[0].data = cpu.target[0].data.to(torch.complex64).to(dev)
+    rime = gpu.model
+    nt = len(rime.sim_times)
+    rime_cuda.launches = rime_cuda.dtau_launches = 0
+    vg, gg = gpu.value_and_grad()
+    torch.cuda.synchronize()
+    n = (rime_cuda.launches, rime_cuda.dtau_launches)
+    vc, gc = cpu.value_and_grad()
+    errs = {"loss": abs(float(vg) - float(vc)) / abs(float(vc))}
+    errs.update({k: relerr(gg[k].cpu().numpy(), gc[k].numpy()) for k in gc})
+    print(f"phase 10 Nmp > 1 grouped dispatch: {len(rime.array.ants)} "
+          f"antennas, 2 beam models, {nmp} model pairs over "
+          f"{len(rime.sim_bls)} baselines, {nt} times, {rime.Npix_cut} FOV "
+          f"pixels; launches rime_fwd {n[0]} (expected {nmp} pairs x {nt} "
+          f"times x 2 passes = {2 * nmp * nt}), rime_dtau {n[1]} (expected "
+          f"{nmp * nt}); card vs CPU float64: " + ", ".join(
+              f"{k} rel {v:.2e}" for k, v in errs.items())
+          + f" (tol {TOL:g})", flush=True)
+    check(nmp > 1, f"the Nmp > 1 case has {nmp} model pair")
+    check(n == (2 * nmp * nt, nmp * nt),
+          f"Nmp > 1 launches rime_fwd {n[0]}, rime_dtau {n[1]}")
+    check(all(np.isfinite(v) and v <= TOL for v in errs.values()),
+          "Nmp > 1 grouped dispatch vs plain")
+
+    nf, npx, nb = 16, 700, 37
+    for ps_real in (True, False):
+        for conj in (False, True):
+            ps, tauT = rand_case(rng, 2 * nf, npx, nb, ps_real)
+            d = rng.standard_normal((2 * nf, nb)) * 10
+            res, counts = [], []
+            for device, rdt in ((dev, torch.float32), ("cpu", torch.float64)):
+                cdt = torch.complex64 if rdt == torch.float32 \
+                    else torch.complex128
+                args = [torch.as_tensor(x, dtype=dt, device=device)
+                        .requires_grad_(True) for x, dt in (
+                            (ps, rdt if ps_real else cdt), (tauT.T, rdt))]
+                rime_cuda.launches = rime_cuda.dtau_launches = 0
+                out = rime_cuda.rime_fused(*args, f0, df, nf, conj)
+                loss = torch.sum(torch.abs(out - torch.as_tensor(
+                    d, dtype=rdt, device=device)) ** 2)
+                loss.backward()
+                counts.append((rime_cuda.launches, rime_cuda.dtau_launches))
+                res.append([out.detach().cpu().numpy()]
+                           + [a.grad.cpu().numpy() for a in args])
+            card_counts = counts[0]
+            errs = [relerr(a, b) for a, b in zip(*res)]
+            print(f"phase 10 RimeFused: ps_real={ps_real} conj={conj}: "
+                  f"value rel {errs[0]:.2e}, psky grad rel {errs[1]:.2e}, "
+                  f"tau grad rel {errs[2]:.2e} (tol {TOL:g}); launches "
+                  f"rime_fwd {card_counts[0]}, rime_dtau {card_counts[1]} "
+                  f"(expected 2, 1)", flush=True)
+            check(all(e <= TOL for e in errs), "RimeFused vs plain")
+            check(card_counts == (2, 1), f"RimeFused launches {card_counts}")
+    ps, tauT = rand_case(rng, nf, npx, nb, False)
+    freqs = f0 + np.arange(nf) * df
+    rime_cuda.launches = 0
+    a = rime_cuda.rime_pallas_reduce(
+        torch.as_tensor(ps, dtype=torch.complex64, device=dev),
+        torch.as_tensor(tauT.T, dtype=torch.float32, device=dev), freqs)
+    n = rime_cuda.launches
+    b = rime_cuda.rime_pallas_reduce(torch.as_tensor(ps),
+                                     torch.as_tensor(tauT.T), freqs)
+    err = relerr(a.cpu().numpy(), b.numpy())
+    print(f"phase 10 rime_pallas_reduce: rel {err:.2e} (tol {TOL:g}), "
+          f"{n} launch", flush=True)
+    check(a.shape == (nb, nf) and err <= TOL and n == 1,
+          f"rime_pallas_reduce vs plain: {err:.2e}, {n} launches")
+
+
+def phase_hera_prod(bt, torch, rime_cuda, pix_chunks, hera_prod):
+    """Phase 11: main path 4 at full width. Returns (launches of
+    rime_fwd, launches of rime_dtau)."""
+    steps = 3
+    res = hera_prod.run(bt, rime_cuda, hera_prod.SIZE, steps=steps)
+    prob = res["prob"]
+    rime = prob.model.rime
+    nsim, ndata = len(rime.sim_bls), len(rime.data_bls)
+    ntime, nbatch = len(rime.sim_times), rime.Nbatch
+    nparams = sum(p.numel() for p in prob.model.parameters())
+    nchunks = len(pix_chunks(nsim, rime.Npix_cut))
+    print(f"phase 11 hera-prod build: {len(rime.array.ants)} antennas, "
+          f"{nsim} redundant groups simulated, expanded to {ndata} data "
+          f"baselines, 4 pols, {rime.Nfreqs} freqs, {nbatch} batches of "
+          f"{ntime} times, {rime.Npix_cut} FOV pixels of "
+          f"{rime.sky.params.shape[-1]}, a fixed 2x2 Jones PixelResponse "
+          f"beam, {nparams} trainable parameters (4 Stokes planes and 4-pol "
+          f"complex gains); targets {nbatch} x "
+          f"{tuple(prob.target[0].data.shape)} "
+          f"{prob.target[0].data.dtype}; {res['build_s']:.1f} s", flush=True)
+    expect = steps * nbatch * ntime * 2 * nchunks
+    losses, step_s = res["losses"], res["step_s"]
+    print(f"phase 11 hera-prod main path: Adam (lr 1e-3) over both batches "
+          f"a step: losses {losses}; step wall first {step_s[0] * 1e3:.1f} "
+          f"ms, then {', '.join(f'{t * 1e3:.1f}' for t in step_s[1:])} ms; "
+          f"rime_fwd launches {res['fwd']} (expected {steps} steps x "
+          f"{nbatch} batches x {ntime} times x 2 passes x {nchunks} chunks "
+          f"= {expect}), rime_dtau launches {res['dtau']} (expected 0: "
+          f"antenna positions are fixed); peak device memory "
+          f"{res['peak_gib']:.2f} GiB", flush=True)
+    check(all(np.isfinite(losses)), "non-finite hera-prod loss")
+    check(losses[-1] < losses[0], "hera-prod loss did not decrease")
+    check(res["fwd"] == expect and res["dtau"] == 0,
+          f"hera-prod launches rime_fwd {res['fwd']}, rime_dtau "
+          f"{res['dtau']} != {expect}, 0")
+    profile(torch, res["trainer"].step, "phase 11 profile of one step")
+    return res["fwd"], res["dtau"]
 
 
 def kernel_instances(src, names):
@@ -960,6 +1175,7 @@ def main():
     import bayeslim_tpu_torch as bt
     from bayeslim_tpu_torch.ops import rime_cuda
     from bayeslim_tpu_torch.ops.rime_cuda import _pix_chunks
+    from bayeslim_tpu_torch.scripts import hera_prod
     from bayeslim_tpu_torch.scripts import mosaic_spike as spike
 
     dev = torch.device("cuda")
@@ -985,7 +1201,7 @@ def main():
     rime, sim_bls, stat_launches = phase_hera_stat(bt, torch, rime_cuda,
                                                    _pix_chunks)
     cal_fwd, cal_dtau = phase_hera_cal(bt, torch, rime_cuda, _pix_chunks)
-    phase_small(bt, torch, rime_cuda, dev)
+    phase_small(bt, torch, rime_cuda, dev, hera_prod)
 
     # ---- 8. times at the main paths' shapes and the kernels' bounds
     R, K, N = rime.Nfreqs, rime.Npix_cut, len(sim_bls)
@@ -1015,6 +1231,27 @@ def main():
             ps32, tau32, f0, df, R, conj, out_imag, 1, Kk), 20)
         print(f"phase 8 K split: rime_fwd {label}: {S} slices (used) "
               f"{ms:.4f} ms, one slice {nms:.4f} ms", flush=True)
+    # hera-prod: 4 stacked rows a channel, complex ps, complex output
+    prod_t = {}
+    for label, Kk, Nn, conj in PROD_SHAPES:
+        Rr = 4 * R
+        ps, tauT = rand_case(rng, Rr, Kk, Nn, False)
+        ps32 = torch.as_tensor(ps, dtype=torch.complex64, device=dev)
+        tau32 = torch.as_tensor(tauT, dtype=torch.float32, device=dev)
+        ms = cuda_ms(torch, lambda: rime_cuda.rime_fwd(
+            ps32, tau32, f0, df, R, conj, True), 20)
+        pms = cuda_ms(torch, lambda: rime_cuda.rime_fwd_plain(
+            ps32, tau32, f0, df, R, conj, True), 3)
+        bms, by = kernel_bound_ms(rime_cuda, Rr, Kk, Nn, False, True)
+        _, _, per_sm, sms = rime_cuda.fwd_info(dev, False, True)
+        S, _ = rime_cuda.fwd_plan(Rr, Kk, Nn, R, sms, per_sm)
+        prod_t[label] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
+        print(f"phase 8 times: rime_fwd {label} R={Rr} K={Kk} N={Nn} "
+              f"ps_real=False conj={conj} out_imag=True: kernel {ms:.4f} ms, "
+              f"plain {pms:.3f} ms, bound {bms:.4f} ms ({by}), kernel at "
+              f"{bms / ms:.1%} of bound; {S} K slices; no single PyTorch "
+              f"call computes this fused function, so no library time",
+              flush=True)
     # hera-cal: real ps (a power beam on a Stokes-I sky), conj False; the
     # complex-ps variant at the same shape beside it
     dtau_t = {}
@@ -1042,28 +1279,38 @@ def main():
               f"function, so no library time", flush=True)
     dms, dpms, dbms, dby = dtau_t[True]
 
+    phase_fwd_beside_spikes(torch, spike, dev, (R, K, N), timing)
+    spikes = phase_spike(torch, spike, dev, built)
+    phase_entry_points(bt, torch, rime_cuda, dev, rng, f0, df)
+    prod_fwd, prod_dtau = phase_hera_prod(bt, torch, rime_cuda, _pix_chunks,
+                                          hera_prod)
+
     # rime_fwd: the two shapes are launched equally often on hera-stat:
-    # report the mean per launch
+    # report the mean per launch (hera-prod's shapes beside them)
     mean = [float(np.mean([t[i] for t in timing])) for i in range(3)]
     kernels = [{
         "name": "rime_fwd", "route": "cuda",
         "source": "bayeslim_tpu_torch/csrc/rime_fwd.cu",
         "replaces": "bayeslim_tpu/ops/rime_pallas.py:298",
-        "launches": stat_launches + cal_fwd,
-        "launches_by_path": {"hera-stat": stat_launches, "hera-cal": cal_fwd},
+        "launches": stat_launches + cal_fwd + prod_fwd,
+        "launches_by_path": {"hera-stat": stat_launches, "hera-cal": cal_fwd,
+                             "hera-prod": prod_fwd},
         "max_abs_err": max(worst_fwd["hera-fwd"], worst_fwd["hera-bwd"]),
         "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[2],
         "bound_by": timing[0][3] if timing[0][3] == timing[1][3]
-        else "operations", "library_ms": None}, {
+        else "operations", "library_ms": None,
+        "hera_prod_shapes": {
+            label: dict(prod_t[label], max_abs_err=worst_fwd[label])
+            for label, *_ in PROD_SHAPES}}, {
         "name": "rime_dtau", "route": "cuda",
         "source": "bayeslim_tpu_torch/csrc/rime_dtau.cu",
         "replaces": "bayeslim_tpu/ops/rime_pallas.py:693",
-        "launches": cal_dtau,
-        "launches_by_path": {"hera-stat": 0, "hera-cal": cal_dtau},
+        "launches": cal_dtau + prod_dtau,
+        "launches_by_path": {"hera-stat": 0, "hera-cal": cal_dtau,
+                             "hera-prod": prod_dtau},
         "max_abs_err": worst_dtau, "ms": dms, "plain_ms": dpms,
         "bound_ms": dbms, "bound_by": dby, "library_ms": None}]
-    phase_fwd_beside_spikes(torch, spike, dev, (R, K, N), timing)
-    kernels += phase_spike(torch, spike, dev, built)
+    kernels += spikes
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

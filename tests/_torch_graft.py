@@ -3,6 +3,11 @@
 - build_torch: the port's counterpart of __graft_entry__._build() (hex
   array, power-law pixel sky, Airy power beam, RIME, LogProb), on the
   CPU in float64 unless told otherwise;
+- build_production_torch: the port's counterpart of
+  __graft_entry__._build_production() (redundant sim -> data expansion,
+  a 4-pol coherency sky under a 2x2 Jones PixelResponse beam,
+  Sequential(RIME -> 4-pol JonesModel with complex leaves), Nbatch time
+  minibatches), line for line;
 - build_cal_torch / build_cal_jax: a small hera-cal chain,
   Sequential(RIME -> JonesModel) with trainable antenna positions and
   per-antenna complex gains (real pairs, refant the first antenna), the
@@ -171,3 +176,73 @@ def cal_target(prob, truth, noise=0.01, seed=2):
     rms = np.sqrt(np.mean(np.abs(vis) ** 2))
     return vis + noise * rms * (rng.standard_normal(vis.shape)
                                 + 1j * rng.standard_normal(vis.shape))
+
+
+def build_production_torch(Ntimes_per_batch=4, Nbatch=2, hexN=2, nfreq=4,
+                           nside=4, fmax=120e6, device="cpu",
+                           dtype=torch.float64, use_kernel="auto",
+                           targets=None, pix_chunk=512):
+    """__graft_entry__._build_production() through the port (its
+    bl_axis_n baseline-sharding variant is not ported). targets: one
+    data tensor per batch (default: the chain's own forward + 0.01, as
+    the entry makes them)."""
+    rng = np.random.default_rng(0)
+    kw = dict(device=device, dtype=dtype)
+    T = bt.TelescopeModel(LOC)
+    ants, antvecs = make_hex(hexN, D=15.0)
+    freqs = np.linspace(100e6, fmax, nfreq)
+    arr = bt.ArrayModel(AntposDict(ants, antvecs), freqs=freqs, redtol=0.5,
+                        **kw)
+    bls = arr.get_bls(keep_autos=False)
+    red_groups = [r for r in arr.reds if r[0][0] != r[0][1]]
+    sim_bls = [r[0] for r in red_groups]
+    gids = {arr.bl2red[b] for b in sim_bls}
+    data_bls = [b for b in bls if arr.bl2red[b] in gids]
+
+    npix = hp.nside2npix(nside)
+    th, ph = hp.pix2ang(nside, np.arange(npix))
+    angs = np.stack([ph * 180 / np.pi, 90 - th * 180 / np.pi])
+
+    S = np.zeros((4, 1, nfreq, npix))
+    S[0, 0] = rng.uniform(1, 5, npix)
+    S[1, 0] = 0.1 * S[0, 0]
+    sky = bt.CoherencySky(S, angs, freqs, **kw)
+
+    # 2x2 Jones beam (realbeam=False)
+    jb = rng.normal(size=(2, 2, 1, nfreq, npix)) * 0.05 + np.tile(
+        np.eye(2)[:, :, None, None, None], (1, 1, 1, nfreq, npix))
+    R = bt.PixelResponse(freqs, "healpix", nside=nside, powerbeam=False,
+                         realbeam=False)
+    beam = bt.PixelBeam(jb, freqs, R=R, powerbeam=False, parameter=False,
+                        fov=180.0, **kw)
+
+    jd0 = 2458168.3
+    tgroups = [jd0 + b * 0.01 + np.arange(Ntimes_per_batch) * 5e-4
+               for b in range(Nbatch)]
+    rime = bt.RIME(sky, T, beam, arr, sim_bls, tgroups, freqs,
+                   data_bls=data_bls, pix_chunk=pix_chunk, time_mode="vmap",
+                   use_kernel=use_kernel)
+
+    gains = (rng.normal(size=(2, 2, len(ants), 1, nfreq)) * 0.02 +
+             np.tile(np.eye(2)[:, :, None, None, None],
+                     (1, 1, len(ants), 1, nfreq)))
+    J = bt.JonesModel(gains + 0j, ants=list(ants),
+                      R=bt.JonesResponse(param_type="com"), polmode="4pol",
+                      parameter=True, **kw)
+    seq = bt.Sequential({"rime": rime, "cal": J})
+
+    tgts = []
+    for i in range(rime.Nbatch):
+        rime.batch_idx = i
+        if targets is None:
+            with torch.no_grad():
+                data = seq().data + 0.01
+        else:
+            data = torch.as_tensor(targets[i], device=device)
+        tgt = bt.VisData()
+        tgt.setup_meta(T, arr.to_antpos())
+        tgt.setup_data(data_bls, tgroups[i], freqs, pol=None, data=data)
+        tgts.append(tgt)
+    rime.batch_idx = 0
+    return bt.LogProb(seq, tgts)
+

@@ -494,3 +494,151 @@ def test_spike_rot_launches_are_bit_equal(cuda, TC, TB):
     assert torch.equal(one, two)
     ref = spike.run_rot_plain(m.double(), 1024)
     assert _relerr(one.cpu(), ref.cpu()) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# the kernel entry points of the production chain: stacked complex rows,
+# the Nmp > 1 grouped dispatch, RimeFused, rime_pallas_reduce, hera-prod
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("conj", [False, True])
+@pytest.mark.parametrize("K,N", [(300, 70), (70, 300)])
+def test_kernel_four_stacked_complex_rows(cuda, conj, K, N):
+    """rime_fwd as the 4-pol chain launches it (4 stacked blocks of nf
+    rows, complex ps, complex out; forward and role-swapped shapes)
+    against the plain version in float64; two launches bit-equal."""
+    nf = 64
+    ps, tauT = _case(11, 4 * nf, K, N, False)
+    cps = torch.as_tensor(ps, dtype=torch.complex64, device=cuda)
+    ctau = torch.as_tensor(tauT, dtype=torch.float32, device=cuda)
+    a = rime_cuda.rime_fwd(cps, ctau, F0, DF, nf, conj, True)
+    b = rime_cuda.rime_fwd(cps, ctau, F0, DF, nf, conj, True)
+    ref = rime_cuda.rime_fwd_plain(cps.cpu().to(torch.complex128),
+                                   ctau.cpu().double(), F0, DF, nf, conj,
+                                   True)
+    assert torch.equal(a, b)
+    assert _relerr(a.cpu().numpy(), ref.numpy()) <= 1e-4
+
+
+def _dispatch_case(seed, nmp=3):
+    rng = np.random.default_rng(seed)
+    nb, nf, npx = 12, 16, 200
+    psky = rng.standard_normal((2, 2, nmp, nf, npx)) \
+        + 1j * rng.standard_normal((2, 2, nmp, nf, npx))
+    blvecs = rng.uniform(-30, 30, (nb, 3))
+    s = rng.standard_normal((3, npx))
+    s_c = s / np.linalg.norm(s, axis=0) / C_MS
+    mp_idx = rng.integers(0, nmp, nb)
+    d = 5 * (rng.standard_normal((2, 2, nb, nf))
+             + 1j * rng.standard_normal((2, 2, nb, nf)))
+    return psky, blvecs, s_c, mp_idx, d, F0 + np.arange(nf) * DF
+
+
+@pytest.mark.cuda
+def test_grouped_dispatch_on_card(cuda):
+    """rime_reduce with a host mp_idx on CUDA takes the grouped kernel
+    dispatch (one rime_fwd a used model pair forward and one backward,
+    one rime_dtau a pair) and matches the CPU float64 chunked path:
+    values and gradients in psky, blvecs and s_c."""
+    from bayeslim_tpu_torch.ops import rime_kernel
+    psky, blvecs, s_c, mp_idx, d, freqs = _dispatch_case(12)
+    npair = len(np.unique(mp_idx))
+    res, counts = [], []
+    for dev, rdt, cdt in ((cuda, torch.float32, torch.complex64),
+                          ("cpu", torch.float64, torch.complex128)):
+        args = [torch.as_tensor(x, dtype=dt, device=dev).requires_grad_(True)
+                for x, dt in ((psky, cdt), (blvecs, rdt), (s_c, rdt))]
+        n0 = (rime_cuda.launches, rime_cuda.dtau_launches)
+        out = rime_kernel.rime_reduce(args[0], None, freqs, mp_idx=mp_idx,
+                                      chunk=64, blvecs=args[1], s_c=args[2])
+        loss = torch.sum(torch.abs(out - torch.as_tensor(
+            d, dtype=cdt, device=dev)) ** 2)
+        grads = torch.autograd.grad(loss, args)
+        counts.append((rime_cuda.launches - n0[0],
+                       rime_cuda.dtau_launches - n0[1]))
+        res.append([out.detach().cpu().numpy()]
+                   + [g.cpu().numpy() for g in grads])
+    assert counts[0] == (2 * npair, npair) and counts[1] == (0, 0)
+    for a, b in zip(*res):
+        assert _relerr(a, b) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps_real", [True, False])
+@pytest.mark.parametrize("conj", [False, True])
+def test_rime_fused_on_card(cuda, ps_real, conj):
+    """RimeFused (a delay matrix given) through the kernels against the
+    CPU float64 plain path: value, psky and tau gradients; launches."""
+    nf, npx, nb = 16, 300, 20
+    ps, tauT = _case(13, 2 * nf, npx, nb, ps_real)
+    d = np.random.default_rng(14).standard_normal((2 * nf, nb)) * 5
+    res = []
+    for dev, rdt, cdt in ((cuda, torch.float32, torch.complex64),
+                          ("cpu", torch.float64, torch.complex128)):
+        args = [torch.as_tensor(x, dtype=dt, device=dev).requires_grad_(True)
+                for x, dt in ((ps, rdt if ps_real else cdt), (tauT.T, rdt))]
+        n0 = (rime_cuda.launches, rime_cuda.dtau_launches)
+        out = rime_cuda.rime_fused(*args, F0, DF, nf, conj)
+        loss = torch.sum(torch.abs(out - torch.as_tensor(
+            d, dtype=rdt, device=dev)) ** 2)
+        grads = torch.autograd.grad(loss, args)
+        if dev == cuda:
+            assert (rime_cuda.launches - n0[0],
+                    rime_cuda.dtau_launches - n0[1]) == (2, 1)
+        res.append([out.detach().cpu().numpy()]
+                   + [g.cpu().numpy() for g in grads])
+    for a, b in zip(*res):
+        assert _relerr(a, b) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_rime_pallas_reduce_on_card(cuda):
+    nf, npx, nb = 16, 300, 20
+    ps, tauT = _case(15, nf, npx, nb, False)
+    freqs = F0 + np.arange(nf) * DF
+    n0 = rime_cuda.launches
+    a = rime_cuda.rime_pallas_reduce(
+        torch.as_tensor(ps, dtype=torch.complex64, device=cuda),
+        torch.as_tensor(tauT.T, dtype=torch.float32, device=cuda), freqs)
+    assert rime_cuda.launches == n0 + 1
+    b = rime_cuda.rime_pallas_reduce(torch.as_tensor(ps),
+                                     torch.as_tensor(tauT.T), freqs)
+    assert _relerr(a.cpu().numpy(), b.numpy()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_device_mp_idx_raises_on_card(cuda):
+    from bayeslim_tpu_torch.ops import rime_kernel
+    psky, blvecs, s_c, mp_idx, _, freqs = _dispatch_case(16)
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        rime_kernel.rime_reduce(
+            torch.as_tensor(psky, dtype=torch.complex64, device=cuda), None,
+            freqs, mp_idx=torch.as_tensor(mp_idx, device=cuda),
+            blvecs=torch.as_tensor(blvecs, dtype=torch.float32, device=cuda),
+            s_c=torch.as_tensor(s_c, dtype=torch.float32, device=cuda))
+
+
+@pytest.mark.cuda
+def test_hera_prod_small_on_card(cuda):
+    """The hera-prod chain at hex-2 (2 batches of 2 times, 4-pol, complex
+    gains): card float32 against CPU float64, the loss and gradients
+    accumulated over the batches; one rime_fwd a time and pass."""
+    import bayeslim_tpu_torch as bt
+    from bayeslim_tpu_torch.scripts import hera_prod
+    kw = dict(hexN=2, nside=8, nfreq=16, fmax=120e6, ntime=2, nbatch=2,
+              pix_chunk=512)
+    cpu, _ = hera_prod.build(bt, device="cpu", dtype=torch.float64, **kw)
+    gpu, _ = hera_prod.build(bt, device=cuda, dtype=torch.float32, **kw)
+    for g, c in zip(gpu.target, cpu.target):
+        g.data = c.data.to(torch.complex64).to(cuda)
+    bt.load_numpy_pdict(gpu.model, {
+        k: v.detach().numpy() for k, v in cpu.collect_main_params().items()})
+    n0 = (rime_cuda.launches, rime_cuda.dtau_launches)
+    vg, gg = gpu.value_and_grad()
+    assert (rime_cuda.launches - n0[0],
+            rime_cuda.dtau_launches - n0[1]) == (2 * 2 * 2, 0)
+    vc, gc = cpu.value_and_grad()
+    assert abs(float(vg) - float(vc)) / abs(float(vc)) <= 1e-4
+    for k in gc.keys():
+        assert _relerr(gg[k].cpu().numpy(), gc[k].numpy()) <= 1e-4, k

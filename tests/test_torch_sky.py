@@ -1,0 +1,244 @@
+"""The port's sky models (models/sky.py) against the JAX package at
+float64 (1e-9 relative): stokes2coherency, PointSkyResponse in its
+channel, linear and power-law modes with and without log, PointSky,
+CompositeModel with and without an index; and BASELINE config #1, a
+point-source sky under a Gaussian or uniform beam through the RIME
+(tests/test_rime.py's setup_PointSky / setup_GaussBeam /
+setup_UniformBeam, its analytic check and its minibatched forward)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import bayeslim_tpu as bl
+import bayeslim_tpu_torch as bt
+from bayeslim_tpu.models import sky as jsky
+from bayeslim_tpu.utils import AntposDict as JAntposDict
+from bayeslim_tpu.utils import make_hex as jmake_hex
+from bayeslim_tpu_torch.models import sky as tsky
+from bayeslim_tpu_torch.utils import AntposDict, make_hex
+
+LOC = (21.428305555, -30.72152777, 1073.0)
+JD0 = 2458168.3
+T64 = dict(device="cpu", dtype=torch.float64)
+
+
+def _relerr(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.abs(a - b).max() / (np.abs(b).max() + 1e-30))
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 1), (3, 1), (4, 1), (2, 2)])
+def test_stokes2coherency_matches_jax(shape):
+    rng = np.random.default_rng(0)
+    S = rng.uniform(0.1, 1, shape + (3, 20))
+    j = jsky.stokes2coherency(jnp.asarray(S))
+    t = tsky.stokes2coherency(torch.as_tensor(S))
+    assert t.shape == j.shape
+    assert t.is_complex() == np.iscomplexobj(j)
+    assert _relerr(t.numpy(), j) <= 1e-12
+    md = bt.MapData()
+    md.setup_data([1e8, 2e8, 3e8], data=torch.as_tensor(S))
+    out = tsky.Stokes2Coherency()([md, md])
+    assert len(out) == 2 and _relerr(out[1].data.numpy(), j) <= 1e-12
+    assert out[0].data is not md.data or shape[0] == 1
+
+
+def _linear(A, xp):
+    """A frequency design matrix A (Nfreqs, Ncoeff) as a callable."""
+    A = xp.asarray(A)
+    return lambda p: xp.einsum("fc,...cn->...fn", A, p)
+
+
+@pytest.mark.parametrize("mode", ["channel", "linear", "powerlaw"])
+@pytest.mark.parametrize("log", [False, True])
+def test_point_sky_matches_jax(mode, log):
+    rng = np.random.default_rng(1)
+    freqs = np.linspace(100e6, 120e6, 6)
+    ncoeff = {"channel": 6, "linear": 3, "powerlaw": 2}[mode]
+    params = rng.uniform(0.5, 2, (1, 1, ncoeff, 7))
+    if mode == "powerlaw":
+        params[:, :, 1] = -rng.uniform(1.5, 3, 7)
+    A = rng.standard_normal((6, 3))
+    p0 = 0.01 * rng.standard_normal(params.shape)
+    angs = rng.uniform(0, 60, (2, 7))
+    kw = dict(freq_mode=mode, log=log, f0=float(freqs[0]))
+    jR = jsky.PointSkyResponse(freqs, freq_LM=_linear(A, jnp), **kw)
+    tR = tsky.PointSkyResponse(freqs, freq_LM=_linear(torch.as_tensor(A),
+                                                      torch), **kw, **T64)
+    jm = jsky.PointSky(jnp.asarray(params), angs, R=jR, p0=p0)
+    tm = tsky.PointSky(params, angs, R=tR, p0=p0, **T64)
+    jd = jm().data
+    td = tm()
+    assert _relerr(td.data.detach().numpy(), jd) <= 1e-9
+    np.testing.assert_array_equal(td.angs, angs)
+    jg = jax.grad(lambda q: jnp.sum(jm.R(q + jnp.asarray(p0)) ** 2))(
+        jnp.asarray(params))
+    (tg,) = torch.autograd.grad(torch.sum(td.data ** 2), tm.params)
+    assert _relerr(tg.numpy(), jg) <= 1e-9
+
+
+def _pixel_pair(seed, npix, name, freqs):
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(1, 2, (1, 1, len(freqs), npix))
+    angs = rng.uniform(0, 60, (2, npix))
+    return (jsky.PixelSky(jnp.asarray(p), angs, 0.5, name=name,
+                          R=jsky.PixelSkyResponse(freqs)),
+            tsky.PixelSky(p, angs, 0.5, name=name,
+                          R=tsky.PixelSkyResponse(freqs, **T64), **T64))
+
+
+# the coarse component's index onto the fine one's 48 pixels: (pred_index,
+# this_index); "this" repeats each of its 12 pixels 4 times, "pred"
+# places them on every 4th fine pixel, "both" gathers 48 values and adds
+# them onto 48 fine pixels of which one (pixel 3) twice
+_INDEX = {None: None,
+          "this": (None, np.repeat(np.arange(12), 4)),
+          "pred": (np.arange(0, 48, 4), None),
+          "both": (np.r_[np.arange(47), 3], np.repeat(np.arange(12), 4))}
+
+
+@pytest.mark.parametrize("index", list(_INDEX))
+def test_composite_model_matches_jax(index):
+    freqs = np.linspace(100e6, 120e6, 3)
+    ja, ta = _pixel_pair(2, 48, "fine", freqs)
+    jb, tb = _pixel_pair(3, 48 if index is None else 12, "coarse", freqs)
+    idx = None if index is None else {"coarse": _INDEX[index]}
+    jc = jsky.CompositeModel({"fine": ja, "coarse": jb}, sum_output=True,
+                             index=idx)
+    tc = tsky.CompositeModel({"fine": ta, "coarse": tb}, sum_output=True,
+                             index=idx)
+    assert _relerr(tc().data.detach().numpy(), jc().data) <= 1e-12
+    # a list of components without sum_output; evaluate a subset
+    jl = jsky.CompositeModel([ja, jb])
+    tl = tsky.CompositeModel([ta, tb])
+    outs = tl()
+    assert [o.data.shape for o in outs] == [o.data.shape for o in jl()]
+    tl.set_eval_models("coarse")
+    jl.set_eval_models("coarse")
+    (one,) = tl()
+    assert _relerr(one.data.detach().numpy(), jl()[0].data) <= 1e-12
+    assert sorted(dict(tc.named_parameters())) == [
+        "models.coarse.params", "models.fine.params"]
+
+
+# ---------------------------------------------------------------------------
+# BASELINE config #1: point sources under a Gaussian or uniform beam
+# ---------------------------------------------------------------------------
+
+def _point_sky_params(Nsource, Nfreqs, seed=0):
+    """tests/test_rime.py's setup_PointSky draws: sources scattered
+    around zenith at JD0, amplitudes U(1, 10), index -2.2."""
+    rng = np.random.default_rng(seed)
+    freqs = np.linspace(100e6, 120e6, Nfreqs)
+    ra0 = bl.TelescopeModel(LOC).JD2RA(JD0)
+    angs = np.stack([ra0 + rng.uniform(-20, 20, Nsource),
+                     LOC[1] + rng.uniform(-20, 20, Nsource)])
+    params = np.zeros((1, 1, 2, Nsource))
+    params[0, 0, 0] = rng.uniform(1, 10, Nsource)
+    params[0, 0, 1] = -2.2
+    return params, angs, freqs
+
+
+def _rime_pair(beam, Nsource=5, sim_bls=None, times=None, nbls=5,
+               composite=False):
+    """The same point-source RIME through both packages."""
+    params, angs, freqs = _point_sky_params(Nsource, 8)
+    kw = dict(freq_mode="powerlaw", f0=freqs[0])
+    jS = jsky.PointSky(jnp.asarray(params), angs,
+                       R=jsky.PointSkyResponse(freqs, **kw))
+    tS = tsky.PointSky(params, angs, R=tsky.PointSkyResponse(
+        freqs, **kw, **T64), **T64)
+    if composite:
+        p2, a2, _ = _point_sky_params(3, 8, seed=4)
+        jS = jsky.CompositeModel({"a": jS, "b": jsky.PointSky(
+            jnp.asarray(p2), a2, R=jsky.PointSkyResponse(freqs, **kw))})
+        tS = tsky.CompositeModel({"a": tS, "b": tsky.PointSky(
+            p2, a2, R=tsky.PointSkyResponse(freqs, **kw, **T64), **T64)})
+    if beam == "gauss":
+        bp = np.ones((1, 1, 1, len(freqs), 2)) * 0.5
+        jB = bl.PixelBeam(jnp.asarray(bp), freqs, R=bl.beam_model
+                          .GaussResponse(), pol="e", fov=180.0)
+        tB = bt.PixelBeam(bp, freqs, R=bt.GaussResponse(), pol="e",
+                          fov=180.0, **T64)
+    else:
+        bp = np.ones((1, 1, 1, 1, 1))
+        jB = bl.PixelBeam(jnp.asarray(bp), freqs, R=bl.beam_model
+                          .UniformResponse(), pol="e", fov=180.0)
+        tB = bt.PixelBeam(bp, freqs, R=bt.UniformResponse(), pol="e",
+                          fov=180.0, **T64)
+    jants, jav = jmake_hex(2, D=15.0)
+    ants, av = make_hex(2, D=15.0)
+    jarr = bl.ArrayModel(JAntposDict(jants, jav), freqs=freqs)
+    tarr = bt.ArrayModel(AntposDict(ants, av), freqs=freqs, **T64)
+    bls = tarr.get_bls(keep_autos=False)[:nbls]
+    sim_bls = bls if sim_bls is None else sim_bls(bls)
+    times = np.asarray([JD0, JD0 + 0.001]) if times is None else times
+    jr = bl.RIME(jS, bl.TelescopeModel(LOC), jB, jarr, sim_bls, times, freqs)
+    tr = bt.RIME(tS, bt.TelescopeModel(LOC), tB, tarr, sim_bls, times, freqs)
+    return jr, tr, tarr, bls, times, freqs, params, angs
+
+
+def test_point_sky_uniform_beam_analytic():
+    """Uniform beam: V = sum_s S_s(f) exp(2 pi i f b.s / c) exactly
+    (tests/test_rime.py::test_rime_pointsky_analytic), and the JAX
+    package's forward."""
+    jr, tr, arr, bls, times, freqs, params, angs = _rime_pair("uniform", 4)
+    with torch.no_grad():
+        vd = tr()
+    assert vd.data.shape == (1, 1, 5, 2, len(freqs)) and vd.pol == "ee"
+    spec = params[0, 0, 0][None] * (freqs[:, None] / freqs[0]) ** -2.2
+    blvecs = arr.get_blvecs(bls).numpy()
+    truth = np.zeros((5, 2, len(freqs)), dtype=complex)
+    for ti, t in enumerate(times):
+        zen, az = tr.telescope.eq2top(t, angs[0], angs[1])
+        tau = blvecs @ arr.s_vector(zen, az) / 2.99792458e8
+        fr = np.exp(2j * np.pi * freqs[None, :, None] * tau[:, None, :])
+        truth[:, ti] = (fr * spec[None]).sum(-1)
+    assert _relerr(vd.data[0, 0].numpy(), truth) <= 1e-9
+    assert _relerr(vd.data.numpy(), jr.forward().data) <= 1e-9
+
+
+@pytest.mark.parametrize("composite", [False, True])
+def test_point_sky_gauss_beam_matches_jax(composite):
+    jr, tr, *_ = _rime_pair("gauss", composite=composite)
+    assert _relerr(tr().data.detach().numpy(), jr.forward().data) <= 1e-9
+    # sky-parameter gradient of |V|^2
+    pd = bl.utils.model2pdict(jr)
+    jg = jax.grad(lambda p: jnp.sum(jnp.abs(jr.updated(p).forward().data)
+                                    ** 2))(pd)
+    tp = dict(tr.named_parameters())
+    assert sorted(tp) == sorted(jg.keys())
+    tg = torch.autograd.grad(torch.sum(torch.abs(tr().data) ** 2),
+                             list(tp.values()))
+    for k, g in zip(tp, tg):
+        assert _relerr(g.numpy(), jg[k]) <= 1e-9, k
+
+
+def test_point_sky_minibatched_equals_unbatched():
+    """2 baseline groups x 2 time groups through run_batches equal one
+    batch (tests/test_rime.py::test_rime_batched_equals_unbatched), in
+    both packages."""
+    times = np.asarray([JD0, JD0 + 5e-4, JD0 + 1e-3, JD0 + 1.5e-3])
+    jr, tr, _, bls, *_ = _rime_pair("gauss", Nsource=3, nbls=6, times=times)
+    jb, tb, *_ = _rime_pair("gauss", Nsource=3, nbls=6,
+                            sim_bls=lambda b: [b[:3], b[3:]],
+                            times=[times[:2], times[2:]])
+    assert tb.Nbatch == jb.Nbatch == 4
+    with torch.no_grad():
+        full = tr()
+        vd = tb.run_batches(concat=True)
+        parts = tb.run_batches(concat=False)
+    jvd = jb.run_batches(concat=True)
+    assert vd.data.shape == full.data.shape
+    assert _relerr(vd.data.numpy(), full.data.numpy()) <= 1e-10
+    assert _relerr(vd.data.numpy(), jvd.data) <= 1e-9
+    np.testing.assert_array_equal(vd.times, jvd.times)
+    np.testing.assert_array_equal(vd.blnums, full.blnums)
+    assert len(parts) == 4 and tb.batch_idx == 0
+    tb.batch_idx = 3
+    assert (tb.time_group_id, tb.bl_group_id) == (1, 1)
+    assert tb.sim_bls == bls[3:] and list(tb.sim_times) == list(times[2:])
+    with pytest.raises(ValueError):
+        tb.batch_idx = 4
