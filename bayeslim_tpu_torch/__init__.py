@@ -9,10 +9,15 @@ bayeslim_tpu module for module:
 
 - utils/     : dtype/device policy, ParamDict, nn.Module base and
                Sequential, indexing, HEALPix, pixel interpolation
-- ops/       : fringe phase math, the RIME reduction, its CUDA kernels
+- ops/       : fringe phase math, the RIME reduction, its CUDA kernels,
+               linear algebra (least squares, inversion dispatch)
 - data/      : VisData / MapData containers
-- models/    : telescope/array, sky, beam, RIME, Jones gains
-- inference/ : LogProb, the Adam Trainer, BFGS and L-BFGS
+- models/    : telescope/array, sky, beam, RIME, Jones gains, the
+               per-baseline / per-group visibility models and the
+               redcal degeneracies
+- inference/ : priors, LogProb (structured covariances, main-param
+               sub-slices), the Trainer, BFGS, L-BFGS and its
+               approximate covariance
 - scripts/   : the microbenchmark spikes of scripts/mosaic_spike.py
                (not imported here; run python -m
                bayeslim_tpu_torch.scripts.mosaic_spike on the card)
@@ -33,5 +38,9 @@ from .models import (RIME, TelescopeModel, ArrayModel, PixelBeam,
                      AiryResponse, GaussResponse, UniformResponse,
                      PixelResponse, PixelSky, PixelSkyResponse, PointSky,
                      PointSkyResponse, CompositeModel, Stokes2Coherency,
-                     CoherencySky, JonesModel, JonesResponse)
-from .inference import LogProb, Trainer, BFGS, LBFGS, DiagMat
+                     CoherencySky, JonesModel, JonesResponse, VisModel,
+                     VisModelResponse, RedVisModel, vis2JonesModel,
+                     vis2RedVisModel)
+from .inference import (LogProb, Trainer, BFGS, LBFGS, DiagMat,
+                        lbfgs_approx_cov, LogGaussPrior, LogLaplacePrior,
+                        LogTaperedUniformPrior, LogUniformPrior, MainParams)

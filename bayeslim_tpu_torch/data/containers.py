@@ -2,13 +2,15 @@
 Data containers: TensorData, VisData, MapData (the slice's subset).
 
 Counterpart of bayeslim_tpu/data/containers.py (TensorData :138,
-VisData :306, MapData :1048, concat_VisData :1549). Shapes follow the
-JAX package:
+VisData :306, MapData :1048, concat_VisData :1549; set_cov :160,
+compute_icov :192). Shapes follow the JAX package:
 
 - visibilities (Npol, Npol, Nbls, Ntimes, Nfreqs), complex
 - sky maps     (Npol, 1, Nfreqs, Npix) with angs (2, Npix) [RA, Dec deg]
 
-Only diagonal covariances (cov_axis=None) are carried in this slice.
+Covariances are diagonal (cov_axis None: cov / icov in the data's
+shape) or structured along one axis ('full', 'bl', 'time', 'freq',
+'pix'; the layouts of inference.prob.apply_icov).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import copy as _copy
 import numpy as np
 import torch
 
+from ..ops.linalg import invert_matrix
 from ..utils.indexing import AntposDict, ants2blnum, blnum2ants
 
 __all__ = ["TensorData", "VisData", "MapData", "concat_VisData"]
@@ -26,6 +29,11 @@ def _sum_log_real(x):
     if isinstance(x, torch.Tensor):
         return float(torch.sum(torch.log(x.real)))
     return float(np.sum(np.log(np.asarray(x).real)))
+
+
+def _host(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
 
 
 class TensorData:
@@ -41,23 +49,53 @@ class TensorData:
         self.cov_logdet = None
         self.history = ""
 
+    def setup_data(self, data=None, flags=None, cov=None, cov_axis=None,
+                   icov=None, history=""):
+        self.data = data
+        self.flags = flags
+        self.set_cov(cov, cov_axis, icov=icov)
+        self.history = history
+
     def set_cov(self, cov, cov_axis, icov=None):
-        """Set covariance (or its inverse), its ndim and logdet."""
-        if cov_axis is not None:
-            raise NotImplementedError(
-                "structured covariances (cov_axis) are not ported yet")
+        """Set the covariance (or its inverse), the axis it models, its
+        ndim and its log-determinant. A structured icov given without
+        its cov carries logdet 0 and the data's size as ndim, as in the
+        JAX package."""
         self.cov = cov
         self.icov = icov
         self.cov_axis = cov_axis
         if cov is not None:
-            self.cov_ndim = int(np.prod(np.shape(cov)))
-            self.cov_logdet = _sum_log_real(cov)
+            if cov_axis is None:
+                self.cov_ndim = int(np.prod(np.shape(cov)))
+                self.cov_logdet = _sum_log_real(cov)
+            else:
+                n = np.shape(cov)[-1]
+                nblocks = int(np.prod(np.shape(cov)[:-2]))
+                self.cov_ndim = nblocks * n
+                _, logdet = np.linalg.slogdet(_host(cov))
+                self.cov_logdet = float(np.sum(logdet))
         elif icov is not None:
-            self.cov_ndim = int(np.prod(np.shape(icov)))
-            self.cov_logdet = -_sum_log_real(icov)
+            if cov_axis is None:
+                self.cov_ndim = int(np.prod(np.shape(icov)))
+                self.cov_logdet = -_sum_log_real(icov)
+            else:
+                self.cov_ndim = (int(np.prod(np.shape(self.data)))
+                                 if self.data is not None else None)
+                self.cov_logdet = 0.0
         else:
             self.cov_ndim = None
             self.cov_logdet = None
+
+    def compute_icov(self, inv="pinv", **kwargs):
+        """Compute and store icov from cov (ops.linalg.invert_matrix for
+        a structured cov)."""
+        if self.cov is None:
+            raise ValueError("compute_icov needs cov")
+        if self.cov_axis is None:
+            self.icov = 1.0 / self.cov
+        else:
+            self.icov = invert_matrix(self.cov, method=inv, **kwargs)
+        return self.icov
 
     def get_data(self, **kwargs):
         return self.data
@@ -123,6 +161,10 @@ class VisData(TensorData):
     def Nfreqs(self):
         return len(self.freqs)
 
+    @property
+    def Npol(self):
+        return 1 if self.pol is not None else 2
+
     @staticmethod
     def _squeeze(arr):
         """Drop the (1, 1) polarization axes, as the JAX get_data does
@@ -135,6 +177,10 @@ class VisData(TensorData):
         return self._squeeze(self.data) if squeeze else self.data
 
     def get_icov(self, squeeze=True, **kwargs):
+        """icov, squeezed like the data when diagonal; a structured icov
+        is returned as it is (apply_icov reads its layout)."""
+        if self.cov_axis is not None:
+            return self.icov
         return self._squeeze(self.icov) if squeeze else self.icov
 
 
@@ -190,8 +236,8 @@ def concat_VisData(vds, axis, interleave=False, lazy=False):
     layer, which is not ported yet."""
     if lazy:
         raise NotImplementedError(
-            "concat_VisData(lazy=True) needs CatTensor, which is not "
-            "ported yet")
+            "concat_VisData(lazy=True) needs CatTensor (ROADMAP queue A9), "
+            "which is not ported yet")
     if isinstance(vds, VisData):
         return vds
     if len(vds) == 1:

@@ -3,7 +3,8 @@ Quasi-Newton optimizers: dense BFGS and low-memory L-BFGS with a
 strong-Wolfe line search.
 
 Counterpart of bayeslim_tpu/inference/bfgs.py (`_cubic_interpolate`
-:22, strong_wolfe :41, `_QuasiNewtonBase` :144, BFGS :189, LBFGS :257).
+:22, strong_wolfe :41, `_QuasiNewtonBase` :144, BFGS :189, LBFGS :257,
+lbfgs_approx_cov :373).
 The algorithms work on the raveled ParamDict vector, a tensor on the
 parameters' device; the closure is the LogProb's value_and_grad. The
 two-loop recursion and the Wolfe zoom are sequential scalar logic:
@@ -14,9 +15,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.paramdict import ParamDict
 from .hmat import DiagMat
 
-__all__ = ["BFGS", "LBFGS", "strong_wolfe"]
+__all__ = ["BFGS", "LBFGS", "strong_wolfe", "lbfgs_approx_cov"]
 
 
 def _cubic_interpolate(x1, f1, g1, x2, f2, g2, bounds=None):
@@ -149,6 +151,12 @@ class _QuasiNewtonBase:
         self.prob = prob
         self.pdict = pdict if pdict is not None \
             else prob.collect_main_params()
+        if any(v.is_complex() for v in self.pdict.values()):
+            # the JAX package's line search fails on them too (a float of
+            # the complex g.d): they are never stepped, uphill or not
+            raise ValueError("BFGS / LBFGS step real parameters: give "
+                             "complex leaves as real pairs (a trailing "
+                             "dim of 2)")
         self._template = self.pdict.copy()
         self.lr = lr
         self.max_iter = max_iter
@@ -318,3 +326,37 @@ class LBFGS(_QuasiNewtonBase):
                 hist.pop(0)
         if self.update_Hdiag:
             self._Hdiag = self._Hdiag * (ys / float(y @ (self._Hdiag * y)))
+
+
+def lbfgs_approx_cov(obj, Nsteps=5, H0=None, **kwargs):
+    """Approximate covariance (inverse Hessian) from L-BFGS curvature.
+
+    - obj a LogProb: a short L-BFGS run of Nsteps on each trainable leaf
+      alone (the others held), whose running starting diagonal (LBFGS.H,
+      Nocedal Eqn 7.20 scaling) gives that leaf's block; returns a
+      DiagMat over the raveled main params, leaves in key order. The
+      probe steps update the model's parameters, as in the JAX package:
+      save them first to restore them. H0 may map leaf keys to each
+      leaf's starting inverse Hessian; kwargs go to each LBFGS.
+    - obj a finished LBFGS: the dense inverse Hessian of Nocedal Eqn
+      6.20 from its (s, y) pairs, for small problems.
+    """
+    if hasattr(obj, "collect_main_params"):
+        prob = obj
+        pd = prob.collect_main_params()
+        diags = []
+        for key in pd:
+            h0 = H0[key] if isinstance(H0, (dict, ParamDict)) else H0
+            opt = LBFGS(prob, ParamDict({key: pd[key]}), H0=h0, **kwargs)
+            opt.minimize(Nsteps)
+            diags.append(opt._Hdiag)
+        return DiagMat(torch.cat(diags))
+
+    lbfgs = obj
+    Hd = lbfgs._Hdiag
+    H = torch.diag(Hd)
+    eye = torch.eye(Hd.numel(), dtype=Hd.dtype, device=Hd.device)
+    for s, y, rho in zip(lbfgs.s_hist, lbfgs.y_hist, lbfgs.rho_hist):
+        V = eye - rho * torch.outer(s, y)
+        H = V @ H @ V.T + rho * torch.outer(s, s)
+    return H

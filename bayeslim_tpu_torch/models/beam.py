@@ -190,7 +190,8 @@ class PixelResponse(Module):
         if freq_mode != "channel":
             raise NotImplementedError(
                 f"PixelResponse freq_mode {freq_mode!r} needs LinearModel "
-                f"(models/linear_model.py), which is not ported yet")
+                f"(models/linear_model.py, ROADMAP queue A8), which is not "
+                f"ported yet")
         self.freqs = np.asarray(freqs, dtype=np.float64)
         self.pixtype = pixtype
         self.interp = PixInterp(pixtype, nside=nside, interp_mode=interp_mode,
@@ -339,16 +340,20 @@ class PixelBeam(Module):
                             dtype=np.int64)
         return mp1, mp2, mp_idx
 
-    def gen_beam(self, zen, az, ctx=None, params=None, angles_offset=False):
+    def gen_beam(self, zen, az, prior_cache=None, ctx=None, params=None,
+                 angles_offset=False):
         """Beam response at zen / az [deg] tensors: (Npol, Nvec, Nmodel,
         Nfreqs, Npix). angles_offset: the caller already folded the
-        pointing offset into zen / az (and ctx), as RIME does."""
+        pointing offset into zen / az (and ctx), as RIME does. The
+        beam's priors go into prior_cache."""
         p = self.params if params is None else params
         if self.p0 is not None:
             p = p + self.p0
         if not angles_offset:
             zen, az = self.apply_pointing(zen, az)
-        return self.R(p, zen, az, self._freqs_t, ctx=ctx)
+        beam = self.R(p, zen, az, self._freqs_t, ctx=ctx)
+        self.eval_prior(prior_cache, inp_params=self.params, out_params=None)
+        return beam
 
     def apply_beam_mp(self, beam, mp1, mp2, sky):
         """psky in model-pair space (Npol, Npol, Nmp, Nfreqs, Npix):

@@ -1,29 +1,146 @@
 """
-Direction-independent antenna gains and their application to
-visibilities.
+Direction-independent calibration: antenna gains, per-baseline and
+per-redundant-group visibility models, and the redcal degeneracies.
 
-Counterpart of bayeslim_tpu/models/calibration.py (params2complex
-:120, BaseResponse :166, JonesResponse :234, JonesModel :270,
-_apply_cal :527, apply_cal :571, rephase_to_refant :584). This slice
-carries the channel freq/time modes only; the per-baseline visibility
-models (VisModel, RedVisModel), the redcal degeneracy projections,
-priors and CalData export are not ported yet (ROADMAP queue A).
+Counterpart of bayeslim_tpu/models/calibration.py (IndexCache :37,
+params2complex :120, BaseResponse :166 with its projection :192-217,
+JonesResponse :234, JonesModel :270, VisModelResponse :422, VisModel
+:426, RedVisModel :462, _apply_cal :527, apply_cal :571,
+rephase_to_refant :584, compute_redcal_degen :617, redcal_degen_gains
+:651, remove_redcal_degen :664, compute_redcal_degen_vis :685,
+redcal_degen_vis :719, vis2JonesModel :744, vis2RedVisModel :775,
+chisq :799). The 'channel' freq/time modes are carried; 'linear' needs
+LinearModel (ROADMAP queue A8) and the CalData export the data layer
+(A9).
 
-Baseline -> antenna gather indices are built on the host once per
-distinct baseline set and kept as device tensors.
+Index maps (data times / baselines onto the params' axes, baselines
+onto antennas or redundant groups) are host numpy, built once per
+distinct batch, and kept as device tensors beside it, so a forward
+copies nothing from the host. The degeneracy projection's constants
+(antenna positions, the phase-slope fit) are computed once on the host
+in float64 and kept on each device they are used on: the projection
+never synchronises the host.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..data.containers import VisData
+from ..ops.linalg import pinv_rtol
 from ..utils.dtypes import _float, resolve_device, viewcomp, viewreal
-from ..utils.indexing import blnum2ants
+from ..utils.indexing import AntposDict, ants2blnum, blnum2ants, flatten
 from ..utils.module import Module
 
 __all__ = ["params2complex", "complex2params", "BaseResponse",
-           "JonesResponse", "JonesModel", "apply_cal", "_apply_cal",
-           "rephase_to_refant"]
+           "JonesResponse", "JonesModel", "VisModelResponse", "VisModel",
+           "RedVisModel", "IndexCache", "apply_cal", "_apply_cal",
+           "rephase_to_refant", "compute_redcal_degen", "redcal_degen_gains",
+           "remove_redcal_degen", "compute_redcal_degen_vis",
+           "redcal_degen_vis", "vis2JonesModel", "vis2RedVisModel", "chisq"]
+
+_LINEAR = ("{!r} freq/time mode needs LinearModel "
+           "(models/linear_model.py, ROADMAP queue A8), which is not ported "
+           "yet")
+
+
+def _key(arr):
+    """Exact cache key of an index array (the JAX package's arr_hash
+    keys by its ends and length only, which two batches can share)."""
+    a = np.ascontiguousarray(np.atleast_1d(np.asarray(arr)))
+    return a.dtype.str, a.shape, a.tobytes()
+
+
+class IndexCache:
+    """Time / baseline minibatch index cache, a mixin of JonesModel,
+    VisModel and RedVisModel: maps a data batch's times and blnums onto
+    the params' time and baseline axes. Indices are host numpy, cached
+    by the batch's content, with their device tensors beside them."""
+
+    def _init_index_cache(self, times=None, bls=None, atol=1e-5):
+        self._times = None if times is None else np.asarray(times)
+        if bls is not None and not isinstance(bls, list):
+            bls = np.asarray(bls)
+        self._bls = bls
+        self._atol = atol
+        self.clear_cache()
+
+    def clear_time_cache(self):
+        self.cache_tidx = {}
+        self._dev_tidx = {}
+
+    def clear_bl_cache(self):
+        self.cache_bidx = {}
+        self._dev_bidx = {}
+
+    def clear_cache(self):
+        """Clear every index cache."""
+        self.clear_time_cache()
+        self.clear_bl_cache()
+
+    def _on_device(self, dev_cache, key, idx, device):
+        """The device copy of a cached host index (a tuple of arrays
+        gives a tuple of tensors)."""
+        dkey = (key, str(device))
+        if dkey not in dev_cache:
+            dev_cache[dkey] = tuple(torch.as_tensor(i, device=device)
+                                    for i in idx) \
+                if isinstance(idx, tuple) else torch.as_tensor(idx,
+                                                               device=device)
+        return dev_cache[dkey]
+
+    def get_time_idx(self, times):
+        """Indices of times in the params' time axis (isclose within
+        atol, else the nearest); None without times."""
+        if times is None or self._times is None:
+            return None
+        t = np.atleast_1d(np.asarray(times))
+        k = _key(t)
+        if k not in self.cache_tidx:
+            idx = []
+            for tt in t:
+                w = np.where(np.isclose(self._times, tt, atol=self._atol,
+                                        rtol=1e-15))[0]
+                idx.append(int(w[0]) if len(w)
+                           else int(np.argmin(np.abs(self._times - tt))))
+            self.cache_tidx[k] = np.asarray(idx, dtype=np.int64)
+        return self.cache_tidx[k]
+
+    def get_bl_idx(self, bls):
+        """Indices of bls (blnums or antenna-pair tuples) in the params'
+        baseline axis; None without bls."""
+        if bls is None or self._bls is None:
+            return None
+        own = self._bls
+        if isinstance(own, list):
+            own = np.asarray([int(ants2blnum(b)) for b in own])
+        if isinstance(bls, list):
+            q = np.asarray([int(ants2blnum(b)) for b in bls])
+        else:
+            q = np.asarray(bls)
+        k = _key(q)
+        if k not in self.cache_bidx:
+            lut = {int(b): i for i, b in enumerate(own)}
+            self.cache_bidx[k] = np.asarray([lut[int(b)] for b in q],
+                                            dtype=np.int64)
+        return self.cache_bidx[k]
+
+    def index_params(self, params, times=None, bls=None):
+        """Select params onto the batch's times / bls; a no-op where
+        the index covers the whole axis in order."""
+        tidx = self.get_time_idx(times)
+        if tidx is not None and not (
+                len(tidx) == params.shape[-2]
+                and np.array_equal(tidx, np.arange(len(tidx)))):
+            params = params.index_select(-2, self._on_device(
+                self._dev_tidx, _key(tidx), tidx, params.device))
+        bidx = self.get_bl_idx(bls)
+        if bidx is not None and not (
+                len(bidx) == params.shape[-3]
+                and np.array_equal(bidx, np.arange(len(bidx)))):
+            params = params.index_select(-3, self._on_device(
+                self._dev_bidx, _key(bidx), bidx, params.device))
+        return params
 
 
 def _complex_of(dtype):
@@ -80,46 +197,71 @@ def complex2params(gains, param_type):
 
 
 class BaseResponse(Module):
-    """Maps a params tensor to complex (..., Ntimes, Nfreqs) values:
-    param_type conversion, an optional fixed offset base0, then the
-    reference-antenna projection. Only the 'channel' freq/time modes are
-    carried; 'linear' needs LinearModel, which is not ported yet."""
+    """Maps a params tensor to complex (..., Ntimes, Nfreqs) values: an
+    optional LM, param_type conversion, an optional fixed offset base0,
+    then the projection (redcal degeneracies and / or the reference
+    antenna's phase, setup_projection). Only the 'channel' freq/time
+    modes are carried."""
 
     def __init__(self, freq_mode="channel", time_mode="channel",
-                 param_type="com", freqs=None, times=None, base0=None,
-                 antpos=None, name=None, **proj_kwargs):
+                 param_type="com", freq_LM=None, time_LM=None, freqs=None,
+                 times=None, LM=None, base0=None, antpos=None, name=None,
+                 **proj_kwargs):
         super().__init__(name=name)
         for mode in (freq_mode, time_mode):
             if mode != "channel":
-                raise NotImplementedError(
-                    f"{mode!r} freq/time mode needs LinearModel, which is "
-                    f"not ported yet")
+                raise NotImplementedError(_LINEAR.format(mode))
         self.freq_mode = freq_mode
         self.time_mode = time_mode
         self.param_type = param_type
+        self.freq_LM = freq_LM
+        self.time_LM = time_LM
         self.freqs = None if freqs is None else np.asarray(freqs)
         self.times = None if times is None else np.asarray(times)
+        self.LM = LM
         self.base0 = base0
         self.antpos = antpos
         self.setup_projection(**proj_kwargs)
 
     def setup_projection(self, abs_amp_gain=False, phs_slope_gain=False,
                          wgts_gain=None, refant_idx=None):
-        """Post-response projection: the reference antenna's phase (the
-        redcal-degeneracy projections are not ported yet)."""
-        if abs_amp_gain or phs_slope_gain:
-            raise NotImplementedError(
-                "redcal degeneracy projections are not ported yet")
+        """Post-response projection: divide out the redcal degeneracies
+        (abs_amp_gain: the overall amplitude; phs_slope_gain: the E/N
+        phase gradient over antpos; wgts_gain: per-antenna weights of
+        their fit, computed on the detached response), then the
+        reference antenna's phase (refant_idx)."""
+        if phs_slope_gain and self.antpos is None:
+            raise ValueError("phs_slope_gain needs antpos")
+        self._proj_abs_amp = abs_amp_gain
+        self._proj_phs_slope = phs_slope_gain
+        self._proj_wgts = wgts_gain
         self._proj_refant_idx = refant_idx
+        self._projection = bool(abs_amp_gain or phs_slope_gain
+                                or refant_idx is not None)
+        self._proj_consts = {}
 
     def projection(self, params):
-        i = self._proj_refant_idx
-        if i is None:
+        if not self._projection:
             return params
-        phs = torch.angle(params[:, :, i:i + 1].detach())
-        return params * torch.exp(-1j * phs)
+        if self._proj_abs_amp or self._proj_phs_slope:
+            key = (str(params.device), params.dtype)
+            if key not in self._proj_consts:
+                ants = None if self.antpos is None else self.antpos.ants
+                self._proj_consts[key] = _degen_consts(
+                    params, params.shape[2], ants, self.antpos,
+                    self._proj_wgts, self._proj_phs_slope)
+            params = _remove_degen(params, self._proj_consts[key],
+                                   self._proj_abs_amp,
+                                   self._proj_phs_slope)[0]
+        i = self._proj_refant_idx
+        if i is not None:
+            phs = torch.angle(params[:, :, i:i + 1].detach())
+            params = params * torch.exp(-1j * phs)
+        return params
 
     def forward(self, params, **kwargs):
+        if self.LM is not None:
+            params = self.LM(params)
         if self.param_type == "com":
             params = viewcomp(params)
         if self.base0 is not None:
@@ -148,6 +290,8 @@ class JonesResponse(BaseResponse):
     def forward(self, params, **kwargs):
         if self.slope_type is None:
             return super().forward(params, **kwargs)
+        if self.LM is not None:
+            params = self.LM(params)
         A = _like(self.antpos.antvecs[:, :2], params)
         slope = torch.einsum("ab,ijblm->ijalm", A, params)
         if self.slope_type == "dly_slope":
@@ -156,12 +300,23 @@ class JonesResponse(BaseResponse):
         return torch.exp(1j * slope)
 
 
-class JonesModel(Module):
+def _param_tensor(params, device, dtype):
+    """params as a tensor on the device: complex params in the complex
+    dtype of the real dtype (default: the package default)."""
+    rdt = dtype or _float()
+    cplx = params.is_complex() if isinstance(params, torch.Tensor) \
+        else np.iscomplexobj(params)
+    return torch.as_tensor(params, dtype=_complex_of(rdt) if cplx else rdt,
+                           device=device)
+
+
+class JonesModel(Module, IndexCache):
     """Antenna-based direction-independent gains, V_d = J_p V_m J_q^H.
 
     params (Npol, Npol, Nants, Ntimes, Nfreqs) complex, or real pairs
     with a trailing dim of 2 for param_type 'com'; trainable unless
-    parameter=False. refant's phase is projected out of the gains.
+    parameter=False. refant's phase is projected out of the gains. The
+    gains' priors (set_priors) see the params and the response's gains.
     """
 
     def __init__(self, params, ants, p0=None, refant=None, R=None,
@@ -170,14 +325,9 @@ class JonesModel(Module):
                  dtype=None):
         super().__init__(name=name)
         dev = resolve_device(device)
-        rdt = dtype or _float()
-        cplx = params.is_complex() if isinstance(params, torch.Tensor) \
-            else np.iscomplexobj(params)
-        pdt = _complex_of(rdt) if cplx else rdt
-        self.register_buffer("params", torch.as_tensor(params, dtype=pdt,
-                                                       device=dev))
-        self.p0 = None if p0 is None else torch.as_tensor(p0, dtype=pdt,
-                                                          device=dev)
+        self.register_buffer("params", _param_tensor(params, dev, dtype))
+        self.p0 = None if p0 is None else torch.as_tensor(
+            p0, dtype=self.params.dtype, device=dev)
         self.ants = [int(a) for a in ants]
         self.Nants = len(self.ants)
         if parameter:
@@ -186,11 +336,10 @@ class JonesModel(Module):
         self.polmode = polmode
         self.single_ant = single_ant
         self.vis_type = vis_type
-        self.atol = atol
         self._g1_idx = None
         self._g2_idx = None
-        self._bl_cache = {}
-        self._time_cache = {}
+        self._init_index_cache(times=getattr(self.R, "times", None),
+                               atol=atol)
         self.set_refant(refant)
 
     def set_refant(self, refant):
@@ -248,16 +397,13 @@ class JonesModel(Module):
         self._g2_idx = torch.as_tensor(g2, device=dev)
         return self
 
-    def _bl_idx(self, blnums):
-        """Device gather indices for a VisData's blnums, built once per
-        distinct baseline set."""
-        blnums = np.asarray(blnums)
-        key = blnums.tobytes()
-        if key not in self._bl_cache:
-            dev = self.params.device
-            self._bl_cache[key] = tuple(torch.as_tensor(g, device=dev)
-                                        for g in self.ant_index(blnums))
-        return self._bl_cache[key]
+    def _ant_idx(self, blnums, device):
+        """Device (g1, g2) gather indices for a VisData's blnums, built
+        once per distinct baseline set (in the baseline cache)."""
+        k = _key(blnums)
+        if k not in self.cache_bidx:
+            self.cache_bidx[k] = self.ant_index(np.asarray(blnums))
+        return self._on_device(self._dev_bidx, k, self.cache_bidx[k], device)
 
     def get_jones(self, params=None):
         """Response-evaluated complex gains (Npol, Npol, Nants, Nt, Nf);
@@ -271,22 +417,6 @@ class JonesModel(Module):
             jones = jones * torch.exp(-1j * torch.angle(jones[:, :, i:i + 1]))
         return jones
 
-    def get_time_idx(self, times):
-        """Indices of times in R.times (isclose within atol, else the
-        nearest)."""
-        t = np.atleast_1d(np.asarray(times))
-        key = t.tobytes()
-        if key not in self._time_cache:
-            rt = np.asarray(self.R.times)
-            idx = []
-            for tt in t:
-                w = np.where(np.isclose(rt, tt, atol=self.atol,
-                                        rtol=1e-15))[0]
-                idx.append(int(w[0]) if len(w)
-                           else int(np.argmin(np.abs(rt - tt))))
-            self._time_cache[key] = np.asarray(idx)
-        return self._time_cache[key]
-
     def index_params(self, jones, times=None, bls=None):
         """Select the gain time axis onto the data's times (gains are
         antenna-indexed: baselines are selected in apply_cal)."""
@@ -295,22 +425,139 @@ class JonesModel(Module):
             return jones
         if jones.shape[-2] == 1:
             return jones
-        idx = torch.as_tensor(self.get_time_idx(times), device=jones.device)
-        return jones.index_select(-2, idx)
+        rt = np.asarray(self.R.times)
+        if self._times is None or not np.array_equal(self._times, rt):
+            self._times = rt
+            self.clear_time_cache()
+        return IndexCache.index_params(self, jones, times=times)
 
-    def forward(self, vd, undo=False, jones=None, **kwargs):
+    def forward(self, vd, undo=False, prior_cache=None, jones=None,
+                **kwargs):
         """Apply the gains to a VisData; returns a new VisData."""
         if jones is None:
             jones = self.get_jones()
+        self.eval_prior(prior_cache, inp_params=self.params,
+                        out_params=jones)
         jones = self.index_params(jones, times=getattr(vd, "times", None))
         if self._g1_idx is not None:
             g1_idx, g2_idx = self._g1_idx, self._g2_idx
         else:
-            g1_idx, g2_idx = self._bl_idx(vd.blnums)
+            g1_idx, g2_idx = self._ant_idx(vd.blnums, jones.device)
         vout = vd.copy()
         vout.data, _ = _apply_cal(vd.data, jones, g1_idx, g2_idx,
                                   cal_2pol=self.polmode == "2pol",
                                   vis_type=self.vis_type, undo=undo)
+        return vout
+
+    def to_CalData(self, *args, **kwargs):
+        raise NotImplementedError(
+            "JonesModel.to_CalData needs CalData (data/containers.py, "
+            "ROADMAP queue A9), which is not ported yet")
+
+
+class VisModelResponse(BaseResponse):
+    """Response of VisModel and RedVisModel."""
+
+
+class VisModel(Module, IndexCache):
+    """Per-baseline visibility model, vout = vd + R(params) (undo:
+    minus). params (Npol, Npol, Nbls, Ntimes, Nfreqs), complex or real
+    pairs; blnums (the params' baseline order) and R.times allow
+    baseline and time minibatches: a VisData with a subset of either
+    axis gets the matching params rows."""
+
+    def __init__(self, params, R=None, p0=None, parameter=True,
+                 blnums=None, name=None, atol=1e-5, device=None,
+                 dtype=None):
+        super().__init__(name=name)
+        dev = resolve_device(device)
+        self.register_buffer("params", _param_tensor(params, dev, dtype))
+        self.p0 = None if p0 is None else torch.as_tensor(
+            p0, dtype=self.params.dtype, device=dev)
+        if parameter:
+            self.set_param("params")
+        self.R = R if R is not None else VisModelResponse()
+        self._init_index_cache(times=getattr(self.R, "times", None),
+                               bls=blnums, atol=atol)
+
+    def forward(self, vd, undo=False, prior_cache=None, **kwargs):
+        p = self.params if self.p0 is None else self.params + self.p0
+        vis = self.R(p)
+        self.eval_prior(prior_cache, inp_params=self.params, out_params=vis)
+        times = bls = None
+        if getattr(vd, "blnums", None) is not None \
+                and vd.Nbls != vis.shape[-3]:
+            bls = vd.blnums
+        if getattr(vd, "times", None) is not None \
+                and vd.Ntimes != vis.shape[-2]:
+            times = vd.times
+        vis = self.index_params(vis, times=times, bls=bls)
+        vout = vd.copy()
+        vout.data = vd.data - vis if undo else vd.data + vis
+        return vout
+
+
+class RedVisModel(Module, IndexCache):
+    """Per-redundant-group visibility model expanded onto the data's
+    baselines, vout = vd + R(params)[group of each baseline] (undo:
+    minus). params (Npol, Npol, Nredvis, Ntimes, Nfreqs), complex or
+    real pairs; bl2red maps each baseline (tuple) to its group. R.times
+    allows time minibatches; the expansion index is built once per
+    distinct baseline set (set_bls pins one)."""
+
+    def __init__(self, params, bl2red, R=None, p0=None, parameter=True,
+                 name=None, atol=1e-5, device=None, dtype=None):
+        super().__init__(name=name)
+        dev = resolve_device(device)
+        self.register_buffer("params", _param_tensor(params, dev, dtype))
+        self.p0 = None if p0 is None else torch.as_tensor(
+            p0, dtype=self.params.dtype, device=dev)
+        self.bl2red = dict(bl2red)
+        self._red_idx = None
+        if parameter:
+            self.set_param("params")
+        self.R = R if R is not None else VisModelResponse()
+        self._init_index_cache(times=getattr(self.R, "times", None),
+                               atol=atol)
+
+    def red_index(self, bls):
+        """Host group index of each baseline (blnums or tuples)."""
+        k = _key(np.asarray(bls))
+        if k not in self.cache_bidx:
+            pairs = blnum2ants(bls)
+            if isinstance(pairs, tuple):
+                pairs = [pairs]
+            self.cache_bidx[k] = np.asarray(
+                [self.bl2red[tuple(int(a) for a in bl)] for bl in pairs],
+                dtype=np.int64)
+        return self.cache_bidx[k]
+
+    def set_bls(self, bls):
+        """Pin the baseline -> group expansion index as a device tensor;
+        forward then uses it verbatim. Accepts tuples, an (N, 2) array
+        or blnums."""
+        if np.ndim(bls) == 2:
+            bls = [tuple(int(a) for a in b) for b in bls]
+        self._red_idx = torch.as_tensor(self.red_index(bls),
+                                        device=self.params.device)
+        return self
+
+    def forward(self, vd, undo=False, prior_cache=None, **kwargs):
+        p = self.params if self.p0 is None else self.params + self.p0
+        redvis = self.R(p)
+        self.eval_prior(prior_cache, inp_params=self.params,
+                        out_params=redvis)
+        if getattr(vd, "times", None) is not None \
+                and vd.Ntimes != redvis.shape[-2]:
+            redvis = self.index_params(redvis, times=vd.times)
+        if self._red_idx is not None:
+            idx = self._red_idx
+        else:
+            idx = self._on_device(self._dev_bidx, _key(vd.blnums),
+                                  self.red_index(vd.blnums), redvis.device)
+        expanded = redvis.index_select(2, idx)
+        vout = vd.copy()
+        vout.data = vd.data - expanded if undo else vd.data + expanded
         return vout
 
 
@@ -407,3 +654,240 @@ def rephase_to_refant(params, param_type, refant_idx, p0=None,
         out[:, :, i:i + 1] = 0.0
         return out
     return params
+
+
+# ---------------------------------------------------------------------------
+# redcal degeneracies
+# ---------------------------------------------------------------------------
+
+def _antvecs(antpos, ants):
+    """Host float64 (len(ants), 3) positions of ants."""
+    if isinstance(antpos, AntposDict):
+        return antpos.asnumpy()[antpos.index(ants)]
+    return np.stack([np.asarray(antpos[a], dtype=np.float64) for a in ants])
+
+
+def _slope_proj(A, wgts):
+    """(2, N) least-squares map from N phases to the E/N gradient over
+    the rows of A (N, 2), float64 on the host; wgts (N,) weights it. The
+    pinv cut-off is the JAX package's default."""
+    A = torch.as_tensor(A, dtype=torch.float64)
+    if wgts is None:
+        AtA, rhs = A.T @ A, A.T
+    else:
+        W = torch.diag(torch.as_tensor(wgts, dtype=torch.float64)
+                       / float(np.sum(wgts)))
+        AtA, rhs = A.T @ W @ A, A.T @ W
+    return torch.linalg.pinv(AtA, rtol=pinv_rtol(AtA)) @ rhs
+
+
+def _degen_consts(ref, n, ants, antpos, wgts, phs_slope):
+    """Constants of the degeneracy fit on ref's device and precision:
+    (amplitude weights w, their sum, antenna E/N positions A, the slope
+    projection)."""
+    rdt, dev = ref.real.dtype, ref.device
+    if wgts is None:
+        w, wsum = 1.0, float(n)
+    else:
+        wgts = wgts.detach().cpu().numpy() if isinstance(wgts, torch.Tensor) \
+            else np.asarray(wgts, dtype=np.float64)
+        w = torch.as_tensor(wgts, dtype=rdt, device=dev)[:, None, None]
+        wsum = float(np.sum(wgts))
+    A = proj = None
+    if antpos is not None and ants is not None:
+        A_np = _antvecs(antpos, ants)[:, :2]
+        A = torch.as_tensor(A_np, dtype=rdt, device=dev)
+        if phs_slope:
+            proj = _slope_proj(A_np, wgts).to(dtype=rdt, device=dev)
+    return w, wsum, A, proj
+
+
+def _compute_degen(gains, consts, abs_amp, phs_slope):
+    w, wsum, _, proj = consts
+    abs_amp_param = phs_slope_param = None
+    if abs_amp:
+        aa = torch.sum(torch.abs(gains) ** 2 * w, dim=2, keepdim=True) / wsum
+        abs_amp_param = torch.log(torch.sqrt(aa))
+    if phs_slope:
+        phs_slope_param = torch.einsum("ab,ijblm->ijalm", proj,
+                                       torch.angle(gains))
+    return abs_amp_param, phs_slope_param
+
+
+def _degen_gains(abs_amp, phs_slope, A):
+    out = None
+    if abs_amp is not None:
+        out = torch.exp(abs_amp).to(_complex_of(abs_amp.dtype))
+    if phs_slope is not None:
+        g = torch.exp(1j * torch.einsum("ab,ijblm->ijalm", A, phs_slope))
+        out = g if out is None else out * g
+    return out
+
+
+def _remove_degen(gains, consts, abs_amp, phs_slope, degen=None):
+    rd = _compute_degen(gains.detach(), consts, abs_amp, phs_slope)
+    degen_gains = _degen_gains(rd[0], rd[1], consts[2])
+    if degen is not None:
+        degen_gains = degen_gains / degen
+    return gains / degen_gains, degen_gains
+
+
+def compute_redcal_degen(gains, ants, antpos, wgts=None, abs_amp=True,
+                         phs_slope=True):
+    """Redcal degeneracies of gains (Npol, Npol, Nants, Nt, Nf): the
+    overall amplitude log sqrt(mean |g|^2) (Npol, Npol, 1, Nt, Nf) and
+    the E/N phase gradient [rad/m] (Npol, Npol, 2, Nt, Nf) over the
+    antennas' positions, each weighted by wgts (Nants,) if given.
+
+    As in the JAX package, with wgts None the amplitude is the mean of
+    |g|^2 over antennas (the reference sums without normalising), which
+    keeps remove_redcal_degen idempotent."""
+    consts = _degen_consts(gains, gains.shape[2], ants, antpos, wgts,
+                           phs_slope)
+    return _compute_degen(gains, consts, abs_amp, phs_slope)
+
+
+def redcal_degen_gains(abs_amp=None, phs_slope=None, ants=None,
+                       antpos=None):
+    """Complex gains of the degeneracy parameters: exp(abs_amp) times
+    exp(i A phs_slope), A the antennas' E/N positions."""
+    A = None
+    if phs_slope is not None:
+        A = torch.as_tensor(_antvecs(antpos, ants)[:, :2],
+                            dtype=phs_slope.dtype, device=phs_slope.device)
+    return _degen_gains(abs_amp, phs_slope, A)
+
+
+def remove_redcal_degen(gains, ants, antpos, degen=None, wgts=None,
+                        redvis=None, bls=None, abs_amp=True,
+                        phs_slope=True):
+    """Divide the redcal degeneracies out of gains, or replace them by
+    the gains ``degen``. They are computed from the detached gains, so
+    gradients pass through the division only. redvis (with its bls), if
+    given, takes the degeneracies on.
+
+    Returns (new_gains, new_vis, degen_gains)."""
+    consts = _degen_consts(gains, gains.shape[2], ants, antpos, wgts,
+                           phs_slope)
+    new_gains, degen_gains = _remove_degen(gains, consts, abs_amp,
+                                           phs_slope, degen=degen)
+    new_vis = None
+    if redvis is not None:
+        new_vis = apply_cal(redvis, bls, degen_gains, ants, undo=False)[0]
+    return new_gains, new_vis, degen_gains
+
+
+def _bl_vecs(bls, antpos):
+    a1, a2 = zip(*bls)
+    return _antvecs(antpos, list(a1)) - _antvecs(antpos, list(a2))
+
+
+def compute_redcal_degen_vis(vd, wgts=None, abs_amp=True, phs_slope=True,
+                             bls=None, antpos=None):
+    """Redcal degeneracies of visibilities (a VisData, or a tensor with
+    its bls and antpos): the baseline-averaged log amplitude (Npol,
+    Npol, 1, Nt, Nf) and the E/N phase gradient [rad/m] (Npol, Npol, 2,
+    Nt, Nf), each weighted by wgts (Nbls,) if given."""
+    data = vd.data if isinstance(vd, VisData) else vd
+    if isinstance(vd, VisData):
+        bls, antpos = vd.bls, vd.antpos
+    rdt, dev = data.real.dtype, data.device
+    if wgts is None:
+        w, wsum = 1.0, data.shape[2]
+    else:
+        wgts = torch.as_tensor(wgts, dtype=rdt, device=dev)
+        w, wsum = wgts[:, None, None], torch.sum(wgts)
+    abs_amp_param = phs_slope_param = None
+    if abs_amp:
+        aa = torch.sum(torch.abs(data) * w, dim=2, keepdim=True) / wsum
+        abs_amp_param = torch.log(aa)
+    if phs_slope:
+        proj = _slope_proj(_bl_vecs(bls, antpos)[:, :2],
+                           None if wgts is None
+                           else wgts.detach().cpu().numpy().astype(
+                               np.float64))
+        phs_slope_param = torch.einsum("ab,ijblm->ijalm",
+                                       proj.to(dtype=rdt, device=dev),
+                                       torch.angle(data))
+    return abs_amp_param, phs_slope_param
+
+
+def redcal_degen_vis(abs_amp=None, phs_slope=None, vd=None, bls=None,
+                     antpos=None):
+    """Visibilities that carry only the redcal degenerate modes,
+    exp(abs_amp) exp(i b . phs_slope) per baseline vector b; a VisData
+    shaped like vd when vd is given, else a tensor."""
+    if vd is not None:
+        bls, antpos = vd.bls, vd.antpos
+    ref = abs_amp if abs_amp is not None else phs_slope
+    amp = 1.0 if abs_amp is None else torch.exp(abs_amp)
+    phs = torch.zeros((), dtype=ref.real.dtype, device=ref.device)
+    if phs_slope is not None:
+        A = torch.as_tensor(_bl_vecs(bls, antpos)[:, :2],
+                            dtype=phs_slope.dtype, device=phs_slope.device)
+        phs = torch.einsum("ba,ijalm->ijblm", A, phs_slope)
+    data = amp * torch.exp(1j * phs)
+    if vd is None:
+        return data
+    out = VisData()
+    out.setup_meta(telescope=vd.telescope, antpos=vd.antpos)
+    out.setup_data(vd.bls, vd.times, vd.freqs, pol=vd.pol,
+                   data=torch.broadcast_to(data, vd.data.shape),
+                   history="redcal degenerate visibilities")
+    return out
+
+
+def vis2JonesModel(vis, param_type="com", freq_mode="channel",
+                   time_mode="channel", freqs=None, freq_LM=None,
+                   time_LM=None, refant=None, single_ant=False, device=None,
+                   dtype=None):
+    """JonesModel sized from a VisData: one gain per antenna of its
+    baselines (or one for all with single_ant), time and channel; unity
+    ('com', as real pairs) or zero starting params."""
+    R = JonesResponse(param_type=param_type, antpos=vis.antpos,
+                      freq_mode=freq_mode, freq_LM=freq_LM, freqs=freqs,
+                      time_mode=time_mode, time_LM=time_LM)
+    ants = sorted(set(flatten([list(b) for b in vis.bls])))
+    polmode = "1pol" if vis.Npol == 1 else "4pol"
+    nants = len(ants)
+    if "slope" in param_type:
+        nants = 2
+    elif single_ant:
+        nants = 1
+    shape = (vis.Npol, vis.Npol, nants, len(vis.times), len(vis.freqs))
+    params = np.zeros(shape + ((2,) if param_type == "com" else ()))
+    if param_type == "com":
+        params[..., 0] = 1.0
+    return JonesModel(params, ants=ants, R=R, refant=refant, polmode=polmode,
+                      single_ant=single_ant, device=device, dtype=dtype)
+
+
+def vis2RedVisModel(vis, param_type="com", freq_mode="channel",
+                    time_mode="channel", freqs=None, freq_LM=None,
+                    time_LM=None, redtol=1.0, device=None, dtype=None):
+    """RedVisModel sized from a VisData: one value per redundant group
+    of its baselines (groups within redtol [m]), time and channel,
+    starting at zero."""
+    from .telescope import build_reds
+    reds, _, bl2red = build_reds(vis.antpos, bls=vis.bls, redtol=redtol)[:3]
+    R = VisModelResponse(param_type=param_type, freq_mode=freq_mode,
+                         freqs=freqs, freq_LM=freq_LM, time_mode=time_mode,
+                         time_LM=time_LM)
+    shape = (vis.Npol, vis.Npol, len(reds), len(vis.times), len(vis.freqs))
+    params = np.zeros(shape + ((2,) if param_type == "com" else ()))
+    return RedVisModel(params, bl2red, R=R, device=device, dtype=dtype)
+
+
+def chisq(raw_data, forward_model, wgts, axis=None, dof=None,
+          cov_axis=None, mode="vis"):
+    """Chi-square of raw_data against forward_model under the inverse
+    covariance wgts (any structure of inference.prob.apply_icov):
+    elementwise unless summed over axis, divided by dof if given."""
+    from ..inference.prob import apply_icov
+    out = apply_icov(raw_data - forward_model, wgts, cov_axis,
+                     mode=mode).real
+    if dof is not None:
+        out = out / dof
+    if axis is not None:
+        out = torch.sum(out, dim=axis)
+    return out

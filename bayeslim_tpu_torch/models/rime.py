@@ -4,7 +4,8 @@ exp(2 pi i f b_pq.s/c).
 
 Counterpart of bayeslim_tpu/models/rime.py (setup_sim_bls :86,
 setup_sim_times :140, the batching API :161-210, precompute :203-260,
-`_sim_component` :313, forward :369, run_batches :405).
+`_sim_component` :313, forward :369 with the beam's prior :394,
+run_batches :405).
 
 - Minibatches: baseline groups (a dict or a list of lists of sim_bls)
   times time groups, selected by ``batch_idx`` (Nbatch of them); each
@@ -267,10 +268,11 @@ class RIME(Module):
                 vis_t.append(one_time(sky, blvecs, pre, grad))
         return torch.stack(vis_t, dim=3)           # (Np, Np, Nb, Nt, Nf)
 
-    def forward(self, *args, **kwargs):
+    def forward(self, *args, prior_cache=None, **kwargs):
         """Forward model -> VisData (Npol, Npol, Ndata_bls, Ntimes,
-        Nfreqs) of the active batch."""
-        comps = self.sky()
+        Nfreqs) of the active batch; the sky's and the beam's priors go
+        into prior_cache."""
+        comps = self.sky(prior_cache=prior_cache)
         if not isinstance(comps, list):
             comps = [comps]
         bg = self.bl_group_id
@@ -285,6 +287,7 @@ class RIME(Module):
             vis = v if vis is None else vis + v
         if self._sim2data[bg] is not None:
             vis = vis.index_select(2, self._sim2data[bg])
+        self.beam.eval_prior(prior_cache, inp_params=self.beam.params)
         pol = None
         if self.beam.Npol == 1 and self.beam.pol is not None:
             pol = f"{self.beam.pol}{self.beam.pol}"

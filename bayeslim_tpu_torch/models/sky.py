@@ -92,10 +92,12 @@ class PixelSkyResponse(Module):
         super().__init__()
         if spatial_mode != "pixel":
             raise NotImplementedError(
-                f"spatial_mode {spatial_mode!r} is not ported yet")
+                f"spatial_mode {spatial_mode!r} is not ported yet (alm: "
+                f"ROADMAP queue A7; linear: A8)")
         if freq_mode not in ("channel", "powerlaw"):
             raise NotImplementedError(
-                f"freq_mode {freq_mode!r} is not ported yet")
+                f"freq_mode {freq_mode!r} is not ported yet (linear: "
+                f"ROADMAP queue A8; bessel: A7)")
         self.freqs = np.asarray(freqs, dtype=np.float64)
         self.Nfreqs = len(self.freqs)
         self.spatial_mode = spatial_mode
@@ -134,11 +136,12 @@ class SkyBase(Module):
         p = self.params if self.p0 is None else self.params + self.p0
         return self.R(p)
 
-    def forward(self, **kwargs):
+    def forward(self, prior_cache=None, **kwargs):
+        sky = self._response()
+        self.eval_prior(prior_cache, inp_params=self.params, out_params=sky)
         md = MapData()
         md.setup_meta(name=self.name)
-        md.setup_data(freqs=self.R.freqs, data=self._response(),
-                      angs=self.angs_np)
+        md.setup_data(freqs=self.R.freqs, data=sky, angs=self.angs_np)
         return md
 
 
@@ -156,11 +159,12 @@ class PixelSky(SkyBase):
                          p0=p0, device=device, dtype=dtype)
         self.px_area = float(px_area)
 
-    def forward(self, **kwargs):
+    def forward(self, prior_cache=None, **kwargs):
+        sky = self._response()
+        self.eval_prior(prior_cache, inp_params=self.params, out_params=sky)
         md = MapData()
         md.setup_meta(name=self.name)
-        md.setup_data(freqs=self.R.freqs,
-                      data=self._response() * self.px_area,
+        md.setup_data(freqs=self.R.freqs, data=sky * self.px_area,
                       angs=self.angs_np, px_area=self.px_area)
         return md
 

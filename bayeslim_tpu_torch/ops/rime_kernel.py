@@ -60,8 +60,8 @@ def _rime_fused_dispatch(psky, freqs, conj, mp_idx, blvecs, s_c, tau):
         raise NotImplementedError(
             "a device mp_idx (baseline sharding: every pair over all "
             "baselines, mask-selected) waits for the multi-device port "
-            "(parallel/sharding.py); pass the baseline -> pair map as a "
-            "host array")
+            "(parallel/sharding.py, ROADMAP queue A10); pass the baseline "
+            "-> pair map as a host array")
     lead = psky.shape[:-3]
     nmp, nf, npx = psky.shape[-3:]
     nb = blvecs.shape[0] if blvecs is not None else tau.shape[0]

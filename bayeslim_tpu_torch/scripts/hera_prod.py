@@ -167,7 +167,8 @@ def breakdown(prob):
         out["rime forward"], vd = _cuda_ms(rime)
         out["4-pol Jones apply"], vout = _cuda_ms(lambda: cal(vd))
         g = cal.get_jones()
-        g1, g2 = (g.index_select(2, i) for i in cal._bl_idx(vd.blnums))
+        g1, g2 = (g.index_select(2, i)
+                  for i in cal._ant_idx(vd.blnums, g.device))
         out["4-pol Jones apply as 2x2 sums of slices"], alt = _cuda_ms(
             lambda: _sandwich(g1, vd.data, g2))
         out["2x2 sums vs einsum, relative"] = float(

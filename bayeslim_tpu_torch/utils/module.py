@@ -1,9 +1,10 @@
 """
 Module base class on torch.nn.Module.
 
-Counterpart of bayeslim_tpu/utils/module.py (Module :136, model2pdict
-:354). The JAX Module is a pytree whose trainable leaves are marked by
-name; here trainable leaves are ``nn.Parameter``s, so
+Counterpart of bayeslim_tpu/utils/module.py (Module :136, the prior
+hooks set_priors / eval_prior :246-279, model2pdict :354). The JAX
+Module is a pytree whose trainable leaves are marked by name; here
+trainable leaves are ``nn.Parameter``s, so
 ``model.named_parameters()`` gives the same dotted keys as the JAX
 package's ``model2pdict`` ("sky.params", "beam.params", ...).
 
@@ -14,7 +15,15 @@ named ``models``, so its parameter keys read "models.rime.array.antvecs",
 ``updated(pdict)`` is the functional update of the JAX package: it
 returns a copy of the module tree whose leaves at pdict's paths are the
 given tensors (gradients then flow into those tensors), sharing every
-other submodule and tensor with the original.
+other submodule and tensor with the original. ``model[path]`` reads the
+leaf at a dotted path.
+
+Priors: ``set_priors`` attaches log-prior callables evaluated on a
+module's input params and / or its response output; ``eval_prior``
+(called by each model's forward) memoises their sum in a prior_cache
+dict under the module's name, so module names must be unique within a
+model that carries priors (a second module of the same name would find
+its slot taken and its prior dropped).
 """
 from __future__ import annotations
 
@@ -42,6 +51,15 @@ class Module(nn.Module):
     def __init__(self, name=None):
         super().__init__()
         self.name = name if name is not None else self.__class__.__name__
+        self.priors_inp_params = None
+        self.priors_out_params = None
+
+    def __getitem__(self, path):
+        """The attribute at a dotted path ("models.cal.params")."""
+        obj = self
+        for p in path.split("."):
+            obj = getattr(obj, p)
+        return obj
 
     def set_param(self, name):
         """Make the tensor attribute ``name`` a trainable nn.Parameter."""
@@ -51,6 +69,36 @@ class Module(nn.Module):
         self._buffers.pop(name, None)
         self.__dict__.pop(name, None)
         self.register_parameter(name, nn.Parameter(t.detach()))
+
+    def set_priors(self, priors_inp_params=None, priors_out_params=None):
+        """Attach priors on the input params and / or the response
+        output: each a callable p(x) -> scalar log prior (the priors of
+        inference.prob) or a list of them."""
+        def _aslist(p):
+            if p is None:
+                return None
+            return list(p) if isinstance(p, (list, tuple)) else [p]
+        self.priors_inp_params = _aslist(priors_inp_params)
+        self.priors_out_params = _aslist(priors_out_params)
+
+    def eval_prior(self, prior_cache, inp_params=None, out_params=None):
+        """Evaluate the attached priors and memoise their sum in
+        prior_cache under this module's name (nothing without a cache,
+        or when the name is already there)."""
+        if prior_cache is None or self.name in prior_cache:
+            return
+        total = None
+        for priors, x in ((self.priors_inp_params, inp_params),
+                          (self.priors_out_params, out_params)):
+            if priors is None or x is None:
+                continue
+            for pr in priors:
+                if pr is None:
+                    continue
+                val = pr(x)
+                total = val if total is None else total + val
+        if total is not None:
+            prior_cache[self.name] = total
 
     def updated(self, pdict):
         """Copy of this module tree with the leaves at pdict's dotted
@@ -83,10 +131,10 @@ class Sequential(Module):
         super().__init__(name=name)
         self.models = nn.ModuleDict(models)
 
-    def forward(self, inp=None, **kwargs):
+    def forward(self, inp=None, prior_cache=None, **kwargs):
         out = inp
         for model in self.models.values():
-            out = model(out, **kwargs)
+            out = model(out, prior_cache=prior_cache, **kwargs)
         return out
 
     def __getattr__(self, key):

@@ -49,8 +49,9 @@ Phases, one line each; any failure exits non-zero:
    function evaluation under torch.profiler;
 7. small posteriors on the card (float32, kernels) against the port on
    the CPU (float64, plain versions): a small sky/beam posterior, the
-   hera-cal chain and the hera-prod chain (its loss and gradients
-   accumulated over 2 time batches), loss and gradients;
+   hera-cal chain, the hera-prod chain (its loss and gradients
+   accumulated over 2 time batches) and the hera-redcal chain (priors
+   included), loss and gradients;
 8. kernel and plain-version times at the main paths' shapes (rime_fwd
    also at hera-prod's two), each kernel's bound, rime_fwd with its K split against one slice,
    rime_dtau beside the previous design's time, with real and complex
@@ -91,8 +92,19 @@ Phases, one line each; any failure exits non-zero:
    complex gains; 3 Adam steps on sky and gains, each accumulating over
    both batches; rime_fwd launches must be exactly 2 x times x batches
    per step and rime_dtau none; the build seconds, step walls, losses
-   and peak memory; then one step under torch.profiler. Then the JSON
-   line of all nine kernels.
+   and peak memory; then one step under torch.profiler;
+12. main path 5, hera-redcal at full width (build_redcal): the same
+   array, sky (1e4 x hera-stat's) and beam, all fixed, the 630 groups
+   expanded to all 54,615 cross baselines; Sequential(RIME ->
+   RedVisModel -> JonesModel): a per-group correction (1, 1, 630, 2,
+   1024) and 1-pol gains (1, 1, 331, 1, 1024), both real pairs, the
+   gains' abs-amp and phase-slope degeneracies projected out, a
+   LogGaussPrior on each; 3 L-BFGS steps, then lbfgs_approx_cov (2
+   probe steps a leaf), the chi^2 per degree of freedom and the solved
+   gains' residual degeneracies; rime_fwd launches must be exactly
+   times x pixel chunks x function evaluations and rime_dtau none; then
+   one evaluation under torch.profiler. Then the JSON line of all nine
+   kernels.
 
 The last line is {"ok": true, "device": {...}}. Exits non-zero without
 printing a result when no CUDA device or no package is present.
@@ -110,6 +122,7 @@ TOL = 1e-4
 LOC = (21.428305555, -30.72152777, 1073.0)
 ANTVECS = "models.rime.array.antvecs"
 GAINS = "models.cal.params"
+REDVIS = "models.redvis.params"
 # the full-width configuration of both main paths
 HERA = dict(hexN=11, nside=32, nfreq=1024, fmax=200e6, ntime=2,
             pix_chunk=2048)
@@ -170,10 +183,12 @@ def smi():
 
 
 def build_sky_beam(bt, hexN, nside, nfreq, fmax, redtol, antpos_param,
-                   device, dtype, rng, amp=1.0):
+                   device, dtype, rng, amp=1.0, sky_beam_param=None):
     """Telescope, array, power-law pixel sky (amplitudes amp x U(1, 10)
     from the numpy Generator rng) and Airy power beam through the port's
-    public API. Returns (T, arr, sky, beam, freqs)."""
+    public API; the sky and the beam are trainable unless the antenna
+    positions are, or as sky_beam_param says. Returns (T, arr, sky,
+    beam, freqs)."""
     from bayeslim_tpu_torch.utils import AntposDict, healpix as hp, make_hex
     T = bt.TelescopeModel(LOC)
     ants, antvecs = make_hex(hexN, D=15.0)
@@ -190,12 +205,13 @@ def build_sky_beam(bt, hexN, nside, nfreq, fmax, redtol, antpos_param,
     R = bt.PixelSkyResponse(freqs, spatial_mode="pixel",
                             freq_mode="powerlaw", f0=float(freqs[0]),
                             device=device, dtype=dtype)
-    # the sky and the beam are trainable unless the antennas are
+    if sky_beam_param is None:
+        sky_beam_param = not antpos_param
     sky = bt.PixelSky(params, angs, hp.nside2pixarea(nside), R=R,
-                      parameter=not antpos_param, device=device, dtype=dtype)
+                      parameter=sky_beam_param, device=device, dtype=dtype)
     beam = bt.PixelBeam(np.ones((1, 1, 1, 1, 2)) * 14.0, freqs,
                         R=bt.AiryResponse(), pol="e", powerbeam=True,
-                        fov=180.0, parameter=not antpos_param, device=device,
+                        fov=180.0, parameter=sky_beam_param, device=device,
                         dtype=dtype)
     return T, arr, sky, beam, freqs
 
@@ -294,6 +310,82 @@ def build_cal(bt, hexN, nside, nfreq, fmax, ntime, pix_chunk, device,
     tgt.setup_data(rime.data_bls, times, freqs, pol="ee", data=data,
                    icov=torch.ones(data.shape, dtype=dtype, device=device))
     return bt.LogProb(seq, tgt), truth
+
+
+def build_redcal(bt, hexN, nside, nfreq, fmax, ntime, pix_chunk, device,
+                 dtype, err=0.05, gain_sigma=0.05, amp=1e4, seed=0):
+    """The hera-redcal chain through the port's public API: a redundant
+    array's calibration against an imperfect sky model,
+    Sequential(RIME -> RedVisModel -> JonesModel). The array, the sky
+    (amp times hera-stat's) and the Airy beam are fixed; the RIME
+    simulates the redundant groups and expands them to every cross
+    baseline. vis2RedVisModel (redtol 0.5) adds a per-group correction,
+    starting at zero; vis2JonesModel of the first time gives 1-pol gains
+    per antenna and channel (one time bin), real pairs starting at
+    unity, refant the first antenna, the abs-amp and phase-slope
+    degeneracies projected out. Priors: LogGaussPrior on the correction
+    (mean 0, sigma 4 x the truth's error scale on each real part) and
+    on the gain pairs (mean (1, 0), sigma 0.2).
+
+    Truth: the sky model's error, err x the group's rms x complex
+    N(0, 1) of unit variance per (group, time, channel) from numpy seed
+    seed, and gains 1 + gain_sigma (N + iN) (cal_truth, no antenna
+    moved). Target: the chain at the truth plus complex noise of unit
+    variance from a seeded torch.Generator; icov ones.
+
+    Returns (prob, truth, rms): numpy truth keyed like the parameters,
+    and each group's rms."""
+    import torch
+    device = bt.resolve_device(device)
+    T, arr, sky, beam, freqs = build_sky_beam(
+        bt, hexN, nside, nfreq, fmax, 0.5, False, device, dtype,
+        np.random.default_rng(seed), amp=amp, sky_beam_param=False)
+    sim_bls = [r[0] for r in arr.reds if r[0][0] != r[0][1]]
+    times = 2458168.3 + np.arange(ntime) * 5e-4
+    rime = bt.RIME(sky, T, beam, arr, sim_bls, times, freqs,
+                   data_bls=arr.get_bls(keep_autos=False),
+                   pix_chunk=pix_chunk)
+    with torch.no_grad():
+        vd = rime()
+    redvis = bt.vis2RedVisModel(vd, redtol=0.5, device=device, dtype=dtype)
+    first = vd.copy()
+    first.times, first.data = vd.times[:1], vd.data[:, :, :, :1]
+    cal = bt.vis2JonesModel(first, refant=arr.ants[0], device=device,
+                            dtype=dtype)
+    cal.R.setup_projection(abs_amp_gain=True, phs_slope_gain=True)
+    # each group's rms, from its first baseline
+    red_idx = redvis.red_index(vd.blnums)
+    rep = np.zeros(red_idx.max() + 1, dtype=np.int64)
+    rep[red_idx[::-1]] = np.arange(len(red_idx))[::-1]
+    rows = vd.data[0, 0].index_select(0, torch.as_tensor(rep, device=device))
+    rms = torch.sqrt(torch.mean(torch.abs(rows.to(torch.complex128)) ** 2,
+                                dim=(-2, -1))).cpu().numpy()
+    rng = np.random.default_rng(seed)
+    shp = (len(rms), ntime, nfreq)
+    z = (rng.standard_normal(shp) + 1j * rng.standard_normal(shp)) \
+        / np.sqrt(2)
+    dv = err * rms[:, None, None] * z
+    truth = {REDVIS: np.stack([dv.real, dv.imag], axis=-1)[None, None],
+             GAINS: cal_truth(arr.ants, arr.to_antpos().asnumpy(), nfreq,
+                              0.0, gain_sigma)[GAINS]}
+    sig = 4 * err * rms[None, None, :, None, None, None]
+    redvis.set_priors(priors_inp_params=bt.LogGaussPrior(0.0, sig ** 2))
+    cal.set_priors(priors_inp_params=bt.LogGaussPrior(np.array([1.0, 0.0]),
+                                                      0.2 ** 2))
+    seq = bt.Sequential({"rime": rime, "redvis": redvis, "cal": cal})
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    with torch.no_grad():
+        data = seq.updated(bt.ParamDict({
+            k: torch.as_tensor(v, dtype=dtype, device=device)
+            for k, v in truth.items()}))().data
+        for part in (data.real, data.imag):
+            part += np.sqrt(0.5) * torch.randn(
+                data.shape, generator=gen, dtype=dtype, device=device)
+    tgt = bt.VisData()
+    tgt.setup_meta(T, arr.to_antpos())
+    tgt.setup_data(rime.data_bls, times, freqs, pol="ee", data=data,
+                   icov=torch.ones(data.shape, dtype=dtype, device=device))
+    return bt.LogProb(seq, tgt), truth, rms
 
 
 def first_step_H0(bt, torch, grads, steps):
@@ -785,6 +877,18 @@ def phase_small(bt, torch, rime_cuda, dev, hera_prod):
     start = {k: v.detach().numpy() for k, v in
              cpu_prod.collect_main_params().items()}
     pairs.append(("hera-prod chain", cpu_prod, gpu_prod, start, False))
+
+    # the hera-redcal chain at hex-2, priors included, at its start (the
+    # residual is then the sky model's error and the gains', well above
+    # float32's rounding of the visibilities)
+    kw = dict(hexN=2, nside=8, nfreq=8, fmax=120e6, ntime=2, pix_chunk=512)
+    cpu_red, _, _ = build_redcal(bt, device="cpu", dtype=torch.float64, **kw)
+    gpu_red, _, _ = build_redcal(bt, device=dev, dtype=torch.float32, **kw)
+    gpu_red.target[0].data = cpu_red.target[0].data.to(torch.complex64).to(
+        dev)
+    start = {k: v.detach().numpy() for k, v in
+             cpu_red.collect_main_params().items()}
+    pairs.append(("hera-redcal chain", cpu_red, gpu_red, start, False))
     for label, cpu, gpu, params, antpos in pairs:
         bt.load_numpy_pdict(cpu.model, params)
         bt.load_numpy_pdict(gpu.model, params)
@@ -967,6 +1071,112 @@ def phase_hera_prod(bt, torch, rime_cuda, pix_chunks, hera_prod):
           f"{res['dtau']} != {expect}, 0")
     profile(torch, res["trainer"].step, "phase 11 profile of one step")
     return res["fwd"], res["dtau"]
+
+
+def phase_hera_redcal(bt, torch, rime_cuda, pix_chunks, size=HERA,
+                      steps=3):
+    """Phase 12: main path 5, hera-redcal, at full width unless given
+    another size. Returns the launches of rime_fwd."""
+    import gc
+    from bayeslim_tpu_torch.models.calibration import (chisq,
+                                                       compute_redcal_degen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    prob, truth, rms = build_redcal(bt, device=None, dtype=torch.float32,
+                                    **size)
+    seq = prob.model
+    rime, tgt = seq.rime, prob.target[0]
+    torch.cuda.synchronize()
+    sizes = {k: v.numel() for k, v in seq.named_parameters()}
+    nparams = sum(sizes.values())
+    print(f"phase 12 hera-redcal build: {len(rime.array.ants)} antennas, "
+          f"{len(rime.sim_bls)} redundant groups simulated, expanded to "
+          f"{len(rime.data_bls)} data baselines, {rime.Nfreqs} freqs, "
+          f"{len(rime.sim_times)} times, {rime.Npix_cut} FOV pixels; "
+          f"trainable {nparams} parameters: RedVisModel "
+          f"{tuple(seq.redvis.params.shape)} ({sizes[REDVIS]}), gains "
+          f"{tuple(seq.cal.params.shape)} ({sizes[GAINS]}); group rms "
+          f"{rms.min():.4g} ... {rms.max():.4g}; target "
+          f"{tuple(tgt.data.shape)} {tgt.data.dtype}; "
+          f"{time.time() - t0:.1f} s", flush=True)
+    nchunks = len(pix_chunks(len(rime.sim_bls), rime.Npix_cut))
+    torch.cuda.reset_peak_memory_stats()
+    rime_cuda.launches = rime_cuda.dtau_launches = 0
+    evals0 = prob.closure_eval
+    # starting inverse Hessian from the gradient at the start: the first
+    # trial step moves the correction by at most 1 (its truth's scale is
+    # 0.05 x a group rms of ~1e2) and the gains by at most 1e-3
+    loss0, g0 = prob.value_and_grad()
+    first = {REDVIS: 1.0, GAINS: 1e-3}
+    opt = bt.LBFGS(prob, H0=first_step_H0(bt, torch, g0, first))
+    losses, step_s, evals = [], [], []
+    for _ in range(steps):
+        t1 = time.time()
+        losses.append(float(opt.step()))
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t1)
+        evals.append(opt.func_evals)
+    # per-leaf probe L-BFGS runs from the solve's running diagonal
+    t1 = time.time()
+    h0 = {k: v.reshape(-1) for k, v in
+          opt._template.unravel(opt._Hdiag).items()}
+    cov = bt.lbfgs_approx_cov(prob, Nsteps=2, H0=h0)
+    torch.cuda.synchronize()
+    cov_s = time.time() - t1
+    fwd, dtau = rime_cuda.launches, rime_cuda.dtau_launches
+    nevals = prob.closure_eval - evals0
+    expect = len(rime.sim_times) * nchunks * nevals
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    d = cov.diag
+    sig = {}
+    off = 0
+    for k in sorted(sizes):
+        sig[k] = float(torch.sqrt(torch.median(d[off:off + sizes[k]])))
+        off += sizes[k]
+    with torch.no_grad():
+        out = seq().data
+        chi2 = float(torch.sum(chisq(tgt.data, out, tgt.icov)
+                               .to(torch.float64)))
+        g = seq.cal.get_jones()
+    nvis = tgt.data.numel()
+    dof = nvis - nparams / 2
+    aa, ps = compute_redcal_degen(g, seq.cal.ants, seq.cal.R.antpos)
+    aa, ps = float(aa.abs().max()), float(ps.abs().max())
+    edge = float(np.abs(seq.cal.R.antpos.asnumpy()[:, :2]).max())
+    print(f"phase 12 hera-redcal main path: L-BFGS (strong Wolfe, lr 1, "
+          f"H0 a DiagMat giving a first trial step of at most "
+          f"{first[REDVIS]:g} for the correction and {first[GAINS]:g} for "
+          f"gains), loss with both priors: start {float(loss0)}, losses "
+          f"{losses}; step walls {step_s} s; function evaluations after "
+          f"each step {evals}; lbfgs_approx_cov (2 probe steps a leaf) "
+          f"{cov_s:.2f} s; rime_fwd launches {fwd} (expected "
+          f"{len(rime.sim_times)} times x {nchunks} chunks x {nevals} "
+          f"evaluations = {expect}), rime_dtau launches {dtau} (expected "
+          f"0: antenna positions fixed); peak device memory {peak:.2f} GiB",
+          flush=True)
+    print(f"phase 12 hera-redcal result: chi^2 {chi2:.6e} over {nvis} "
+          f"complex visibilities, chi^2/dof {chi2 / dof:.4f} (dof = "
+          f"{nvis} - {nparams} / 2 = {dof:.0f}; the target's noise alone "
+          f"gives ~1); the solved gains' degeneracies: max |abs amp| "
+          f"{aa:.3e}, max |phase slope| {ps:.3e} rad/m ({ps * edge:.3e} rad "
+          f"at the array's edge, {edge:.1f} m); DiagMat of "
+          f"{d.numel()} entries, median sigma "
+          + ", ".join(f"{k} {v:.4e}" for k, v in sig.items()), flush=True)
+    check(np.isfinite(float(loss0)) and all(np.isfinite(losses)),
+          "non-finite hera-redcal loss")
+    check(losses[-1] < float(loss0), "hera-redcal loss did not decrease")
+    check(np.isfinite(chi2) and chi2 > 0, "hera-redcal chi^2")
+    check(fwd == expect and dtau == 0,
+          f"hera-redcal launches rime_fwd {fwd}, rime_dtau {dtau} != "
+          f"{expect}, 0")
+    check(d.numel() == nparams and bool(torch.all(d > 0))
+          and bool(torch.all(torch.isfinite(d))), "hera-redcal DiagMat")
+    check(aa <= 1e-5 and ps * edge <= 1e-4,
+          f"hera-redcal degeneracies not projected out: {aa}, {ps}")
+    profile(torch, prob.value_and_grad,
+            "phase 12 profile of one function evaluation")
+    return fwd
 
 
 def kernel_instances(src, names):
@@ -1284,6 +1494,7 @@ def main():
     phase_entry_points(bt, torch, rime_cuda, dev, rng, f0, df)
     prod_fwd, prod_dtau = phase_hera_prod(bt, torch, rime_cuda, _pix_chunks,
                                           hera_prod)
+    redcal_fwd = phase_hera_redcal(bt, torch, rime_cuda, _pix_chunks)
 
     # rime_fwd: the two shapes are launched equally often on hera-stat:
     # report the mean per launch (hera-prod's shapes beside them)
@@ -1292,9 +1503,10 @@ def main():
         "name": "rime_fwd", "route": "cuda",
         "source": "bayeslim_tpu_torch/csrc/rime_fwd.cu",
         "replaces": "bayeslim_tpu/ops/rime_pallas.py:298",
-        "launches": stat_launches + cal_fwd + prod_fwd,
+        "launches": stat_launches + cal_fwd + prod_fwd + redcal_fwd,
         "launches_by_path": {"hera-stat": stat_launches, "hera-cal": cal_fwd,
-                             "hera-prod": prod_fwd},
+                             "hera-prod": prod_fwd,
+                             "hera-redcal": redcal_fwd},
         "max_abs_err": max(worst_fwd["hera-fwd"], worst_fwd["hera-bwd"]),
         "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[2],
         "bound_by": timing[0][3] if timing[0][3] == timing[1][3]
@@ -1307,7 +1519,7 @@ def main():
         "replaces": "bayeslim_tpu/ops/rime_pallas.py:693",
         "launches": cal_dtau + prod_dtau,
         "launches_by_path": {"hera-stat": 0, "hera-cal": cal_dtau,
-                             "hera-prod": prod_dtau},
+                             "hera-prod": prod_dtau, "hera-redcal": 0},
         "max_abs_err": worst_dtau, "ms": dms, "plain_ms": dpms,
         "bound_ms": dbms, "bound_by": dby, "library_ms": None}]
     kernels += spikes

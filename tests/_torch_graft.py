@@ -12,7 +12,14 @@
   Sequential(RIME -> JonesModel) with trainable antenna positions and
   per-antenna complex gains (real pairs, refant the first antenna), the
   redundant groups simulated and expanded to every cross baseline, icov
-  ones; cal_truth and cal_target make its truth and noisy target.
+  ones; cal_truth and cal_target make its truth and noisy target;
+- build_redcal_torch / build_redcal_jax: a small hera-redcal chain,
+  Sequential(RIME -> RedVisModel -> JonesModel) with the array, sky and
+  beam fixed, a per-redundant-group visibility correction from
+  vis2RedVisModel and per-antenna gains from vis2JonesModel (one time
+  bin, real pairs, refant the first antenna, the redcal degeneracies
+  projected out), each with a LogGaussPrior; redcal_truth and
+  redcal_target make its truth and noisy target.
 """
 import numpy as np
 import torch
@@ -246,3 +253,146 @@ def build_production_torch(Ntimes_per_batch=4, Nbatch=2, hexN=2, nfreq=4,
     rime.batch_idx = 0
     return bt.LogProb(seq, tgts)
 
+
+
+# the small hera-redcal chain's keys, sky-model error and priors
+REDVIS, RGAINS = "models.redvis.params", "models.cal.params"
+REDCAL_ERR, REDCAL_GAIN_SIGMA = 0.05, 0.05
+
+
+def one_time(vd):
+    """The VisData's first time alone: the gains of the redcal chain are
+    one bin in time, shared by every time of the data."""
+    v = vd.copy()
+    v.times = vd.times[:1]
+    v.data = vd.data[:, :, :, :1]
+    return v
+
+
+def group_rms(vis, red_idx):
+    """Per redundant group, the rms over times and channels of the
+    first baseline of the group (numpy vis (1, 1, Nbls, Nt, Nf))."""
+    red_idx = np.asarray(red_idx)
+    first = np.zeros(red_idx.max() + 1, dtype=np.int64)
+    first[red_idx[::-1]] = np.arange(len(red_idx))[::-1]
+    return np.sqrt(np.mean(np.abs(np.asarray(vis)[0, 0, first]) ** 2,
+                           axis=(-2, -1)))
+
+
+def redcal_priors(pkg, rms):
+    """(RedVisModel prior, gains prior): mean 0 and sigma 4 x the sky
+    model's error scale (REDCAL_ERR x the group's rms) on each real part
+    of the correction; mean (1, 0) and sigma 0.2 on the gain pairs."""
+    sig = 4 * REDCAL_ERR * np.asarray(rms)[None, None, :, None, None, None]
+    return (pkg.LogGaussPrior(0.0, sig ** 2),
+            pkg.LogGaussPrior(np.array([1.0, 0.0]), 0.04))
+
+
+def build_redcal_torch(target=None, device="cpu", dtype=torch.float64):
+    """target: data of the VisData target (default: the chain's own
+    forward at its starting parameters)."""
+    ants, antvecs = make_hex(HEXN, D=15.0)
+    freqs = np.linspace(100e6, FMAX, NFREQ)
+    kw = dict(device=device, dtype=dtype)
+    T = bt.TelescopeModel(LOC)
+    arr = bt.ArrayModel(AntposDict(ants, antvecs), freqs=freqs, redtol=0.5,
+                        parameter=False, **kw)
+    params, angs, px_area = _sky_params(NSIDE)
+    R = bt.PixelSkyResponse(freqs, spatial_mode="pixel",
+                            freq_mode="powerlaw", f0=float(freqs[0]), **kw)
+    sky = bt.PixelSky(params, angs, px_area, R=R, parameter=False, **kw)
+    beam = bt.PixelBeam(np.ones((1, 1, 1, 1, 2)) * 14.0, freqs,
+                        R=bt.AiryResponse(), pol="e", powerbeam=True,
+                        fov=180.0, parameter=False, **kw)
+    sim_bls, data_bls = _cal_layout(arr)
+    times = 2458168.3 + np.arange(NTIMES) * 5e-4
+    rime = bt.RIME(sky, T, beam, arr, sim_bls, times, freqs,
+                   data_bls=data_bls, pix_chunk=PIX_CHUNK)
+    with torch.no_grad():
+        vd = rime()
+    redvis = bt.vis2RedVisModel(vd, redtol=0.5, **kw)
+    cal = bt.vis2JonesModel(one_time(vd), refant=ants[0], **kw)
+    cal.R.setup_projection(abs_amp_gain=True, phs_slope_gain=True)
+    rms = group_rms(vd.data.numpy(), redvis.red_index(vd.blnums))
+    pr, pg = redcal_priors(bt, rms)
+    redvis.set_priors(priors_inp_params=pr)
+    cal.set_priors(priors_inp_params=pg)
+    seq = bt.Sequential({"rime": rime, "redvis": redvis, "cal": cal})
+    cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
+    if target is None:
+        with torch.no_grad():
+            target = seq().data
+    target = torch.as_tensor(target, dtype=cdt, device=device)
+    tgt = bt.VisData()
+    tgt.setup_meta(T, arr.to_antpos())
+    tgt.setup_data(rime.data_bls, times, freqs, pol="ee", data=target,
+                   icov=torch.ones(target.shape, dtype=dtype, device=device))
+    return bt.LogProb(seq, tgt)
+
+
+def build_redcal_jax(target):
+    """The same chain through the JAX package (float64 under the test
+    configuration), against a numpy target."""
+    import jax.numpy as jnp
+    import bayeslim_tpu as bl
+    from bayeslim_tpu.inference import prob as jprob
+    from bayeslim_tpu.models.calibration import (vis2JonesModel,
+                                                 vis2RedVisModel)
+    from bayeslim_tpu.models.sky import PixelSky, PixelSkyResponse
+    from bayeslim_tpu.utils import AntposDict as JAntposDict
+    from bayeslim_tpu.utils import Sequential, make_hex as jmake_hex
+
+    ants, antvecs = jmake_hex(HEXN, D=15.0)
+    freqs = np.linspace(100e6, FMAX, NFREQ)
+    T = bl.TelescopeModel(LOC)
+    arr = bl.ArrayModel(JAntposDict(ants, antvecs), freqs=freqs, redtol=0.5,
+                        parameter=False)
+    params, angs, px_area = _sky_params(NSIDE)
+    R = PixelSkyResponse(freqs, spatial_mode="pixel", freq_mode="powerlaw",
+                         f0=float(freqs[0]))
+    sky = PixelSky(jnp.asarray(params), angs, px_area, R=R, parameter=False)
+    beam = bl.PixelBeam(jnp.ones((1, 1, 1, 1, 2)) * 14.0, freqs,
+                        R=bl.beam_model.AiryResponse(), pol="e",
+                        powerbeam=True, fov=180.0, parameter=False)
+    sim_bls, data_bls = _cal_layout(arr)
+    times = 2458168.3 + np.arange(NTIMES) * 5e-4
+    rime = bl.RIME(sky, T, beam, arr, sim_bls, times, freqs,
+                   data_bls=data_bls, pix_chunk=PIX_CHUNK)
+    vd = rime()
+    redvis = vis2RedVisModel(vd, redtol=0.5)
+    cal = vis2JonesModel(one_time(vd), refant=ants[0])
+    cal.R.setup_projection(abs_amp_gain=True, phs_slope_gain=True)
+    rms = group_rms(np.asarray(vd.data), redvis.red_index(vd.blnums))
+    pr, pg = redcal_priors(jprob, rms)
+    redvis.set_priors(priors_inp_params=pr)
+    cal.set_priors(priors_inp_params=pg)
+    seq = Sequential({"rime": rime, "redvis": redvis, "cal": cal})
+    tgt = bl.VisData()
+    tgt.setup_meta(T, arr.to_antpos())
+    tgt.setup_data(rime.data_bls, times, freqs, pol="ee",
+                   data=jnp.asarray(target),
+                   icov=jnp.ones(np.shape(target)))
+    return bl.inference.LogProb(seq, tgt)
+
+
+def redcal_truth(prob, seed=0):
+    """Truth of the small hera-redcal chain (numpy, real pairs): the
+    sky-model error REDCAL_ERR x the group's rms x complex N(0, 1) of
+    unit variance per (group, time, channel), and gains 1 +
+    REDCAL_GAIN_SIGMA (N + iN) with the refant's phase zeroed."""
+    seq = prob.model
+    with torch.no_grad():
+        vis = seq.rime().data.numpy()
+    red_idx = seq.redvis.red_index(seq.rime.data_bls)
+    rms = group_rms(vis, red_idx)
+    rng = np.random.default_rng(seed)
+    G, (Nt, Nf) = len(rms), vis.shape[-2:]
+    z = (rng.standard_normal((G, Nt, Nf))
+         + 1j * rng.standard_normal((G, Nt, Nf))) / np.sqrt(2)
+    dv = REDCAL_ERR * rms[:, None, None] * z
+    nants = seq.cal.Nants
+    g = 1 + REDCAL_GAIN_SIGMA * (rng.standard_normal((nants, Nf))
+                                 + 1j * rng.standard_normal((nants, Nf)))
+    g = g * np.exp(-1j * np.angle(g[:1]))
+    return {REDVIS: np.stack([dv.real, dv.imag], -1)[None, None],
+            RGAINS: np.stack([g.real, g.imag], -1)[None, None, :, None]}

@@ -151,10 +151,15 @@ def test_jones_model_forward_and_grad_vs_jax(polmode, slope):
 
 
 def test_jones_model_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="LinearModel"):
+    """What waits on later queue items raises and names the item; the
+    redcal degeneracy projections are ported."""
+    with pytest.raises(NotImplementedError, match="LinearModel.*A8"):
         tcal.JonesResponse(freq_mode="linear")
-    with pytest.raises(NotImplementedError, match="degeneracy"):
-        tcal.JonesResponse(abs_amp_gain=True)
+    R = tcal.JonesResponse(abs_amp_gain=True)
+    assert R._proj_abs_amp and R._projection
+    J = tcal.JonesModel(np.ones((1, 1, 2, 1, 2, 2)), [0, 1], device="cpu")
+    with pytest.raises(NotImplementedError, match="CalData.*A9"):
+        J.to_CalData(np.ones(2), np.ones(1))
 
 
 # ------------------------------------------------------- small hera-cal chain

@@ -642,3 +642,33 @@ def test_hera_prod_small_on_card(cuda):
     assert abs(float(vg) - float(vc)) / abs(float(vc)) <= 1e-4
     for k in gc.keys():
         assert _relerr(gg[k].cpu().numpy(), gc[k].numpy()) <= 1e-4, k
+
+
+@pytest.mark.cuda
+def test_hera_redcal_small_on_card(cuda):
+    """The hera-redcal chain at hex-2 (chip_smoke.build_redcal: RIME ->
+    RedVisModel -> JonesModel with the degeneracy projection and both
+    priors) at its start: card float32 against CPU float64, the loss
+    (priors included) and both gradients; one rime_fwd a time, no
+    rime_dtau; the degeneracy projection's constants stay on the card."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import bayeslim_tpu_torch as bt
+    from chip_smoke import build_redcal
+    kw = dict(hexN=2, nside=8, nfreq=8, fmax=120e6, ntime=2, pix_chunk=512)
+    cpu, _, _ = build_redcal(bt, device="cpu", dtype=torch.float64, **kw)
+    gpu, _, _ = build_redcal(bt, device=cuda, dtype=torch.float32, **kw)
+    gpu.target[0].data = cpu.target[0].data.to(torch.complex64).to(cuda)
+    n0 = (rime_cuda.launches, rime_cuda.dtau_launches)
+    vg, gg = gpu.value_and_grad()
+    assert (rime_cuda.launches - n0[0],
+            rime_cuda.dtau_launches - n0[1]) == (2, 0)
+    vc, gc = cpu.value_and_grad()
+    assert abs(float(vg) - float(vc)) / abs(float(vc)) <= 1e-4
+    for k in gc.keys():
+        assert _relerr(gg[k].cpu().numpy(), gc[k].numpy()) <= 1e-4, k
+    consts = gpu.model.cal.R._proj_consts
+    assert consts and all(c[2].is_cuda and c[3].is_cuda
+                          for c in consts.values())
