@@ -17,7 +17,8 @@ bayeslim_tpu module for module:
                redcal degeneracies
 - inference/ : priors, LogProb (structured covariances, main-param
                sub-slices), the Trainer, BFGS, L-BFGS and its
-               approximate covariance
+               approximate covariance, the hmat operators and the
+               samplers (HMC, RecycledHMC, NUTS)
 - scripts/   : the microbenchmark spikes of scripts/mosaic_spike.py
                (not imported here; run python -m
                bayeslim_tpu_torch.scripts.mosaic_spike on the card)
@@ -43,4 +44,5 @@ from .models import (RIME, TelescopeModel, ArrayModel, PixelBeam,
                      vis2RedVisModel)
 from .inference import (LogProb, Trainer, BFGS, LBFGS, DiagMat,
                         lbfgs_approx_cov, LogGaussPrior, LogLaplacePrior,
-                        LogTaperedUniformPrior, LogUniformPrior, MainParams)
+                        LogTaperedUniformPrior, LogUniformPrior, MainParams,
+                        HMC, NUTS, RecycledHMC, Potential)

@@ -11,7 +11,9 @@ ParamDict; here the same function runs eagerly and
 ``torch.autograd.grad`` differentiates it. The target is a list, one
 entry per minibatch of the model (Nbatch, batch_idx), and
 grad_type='accumulate' sums the gradients over every batch; the prior
-is counted once, with batch 0.
+is counted once, with batch 0. A float32 model's chi^2 is summed in
+float64 (the JAX package sums in the working dtype), so its likelihood
+is normalised in float64 and its loss is a float64 scalar.
 """
 from __future__ import annotations
 
@@ -351,6 +353,41 @@ def apply_icov(data, icov, cov_axis=None, mode="vis"):
     raise ValueError(f"unknown cov_axis {cov_axis}")
 
 
+# elements of a float32 chi^2 cast to float64 at a time (128 MB)
+_SUM_CHUNK = 1 << 24
+
+
+class _Sum64(torch.autograd.Function):
+    """Sum of a float32 array (or of a complex64 array's real part),
+    accumulated in float64 a chunk at a time (a whole-array cast would
+    hold a float64 copy of the ~0.9 GB cube). Its backward is a plain
+    sum's: the upstream gradient expanded, never materialised at full
+    size."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.shape, ctx.dtype = x.shape, x.dtype
+        xr = (x.real if x.is_complex() else x).reshape(-1)
+        return torch.sum(torch.stack([
+            torch.sum(xr[i:i + _SUM_CHUNK], dtype=torch.float64)
+            for i in range(0, xr.numel(), _SUM_CHUNK)]))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype).expand(ctx.shape)
+
+
+def _sum_chisq(chisq):
+    """The sum of a chi^2 array. A float32 / complex64 array is summed
+    (its real part: the caller takes the real part of the sum) in
+    float64: a sum of ~1e8 float32 terms of order 1 rounds at its ulp,
+    ~8, which would decide a sampler's dH (~0.1). Gradients are the
+    float32 sum's."""
+    if chisq.dtype not in (torch.float32, torch.complex64):
+        return torch.sum(chisq)
+    return _Sum64.apply(chisq)
+
+
 # ---------------------------------------------------------------------------
 # LogProb
 # ---------------------------------------------------------------------------
@@ -501,7 +538,7 @@ class LogProb(Module):
         res = out - data
         chisq = apply_icov(res, icov, tgt.cov_axis)
         if sum_chisq:
-            chisq = torch.sum(chisq)
+            chisq = _sum_chisq(chisq)
         if chisq.is_complex():
             chisq = chisq.real
         return chisq, res, prior_cache

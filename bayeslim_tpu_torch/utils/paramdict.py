@@ -1,9 +1,10 @@
 """
 ParamDict: a dict of named parameter tensors with elementwise algebra.
 
-Counterpart of bayeslim_tpu/utils/paramdict.py (ParamDict :34). Keys
-are the dotted parameter paths of a model ("sky.params",
-"beam.params", ...) and iterate in sorted order, as in the JAX package.
+Counterpart of bayeslim_tpu/utils/paramdict.py (ParamDict :34, its
+convenience surface :84-165). Keys are the dotted parameter paths of a
+model ("sky.params", "beam.params", ...) and iterate in sorted order,
+as in the JAX package.
 """
 from __future__ import annotations
 
@@ -39,6 +40,9 @@ class ParamDict:
     def __setitem__(self, key, val):
         self.params[key] = val
 
+    def __delitem__(self, key):
+        del self.params[key]
+
     def __contains__(self, key):
         return key in self.params
 
@@ -57,6 +61,11 @@ class ParamDict:
     def items(self):
         return [(k, self.params[k]) for k in self.keys()]
 
+    def update(self, other):
+        """In-place update of entries from another dict or ParamDict."""
+        for k in other:
+            self.params[k] = other[k]
+
     __add__ = _binary(lambda a, b: a + b)
     __radd__ = _rbinary(lambda b, a: b + a)
     __sub__ = _binary(lambda a, b: a - b)
@@ -66,17 +75,47 @@ class ParamDict:
     __truediv__ = _binary(lambda a, b: a / b)
     __rtruediv__ = _rbinary(lambda b, a: b / a)
     __pow__ = _binary(lambda a, b: a ** b)
+    __matmul__ = _binary(lambda a, b: a @ b)
 
     def __neg__(self):
         return ParamDict({k: -v for k, v in self.items()})
 
-    def operator(self, func):
-        """Apply func to every value, returning a new ParamDict."""
-        return ParamDict({k: func(v) for k, v in self.items()})
+    def operator(self, func, args=(), inplace=False):
+        """Apply func to every value, returning a new ParamDict. Extra
+        args are passed through; dict / ParamDict args are indexed by
+        the same key. inplace assigns back into self and returns None."""
+        def call(k):
+            extra = (a[k] if isinstance(a, (dict, ParamDict)) else a
+                     for a in args)
+            return func(self[k], *extra)
+        if inplace:
+            for k in self.keys():
+                self[k] = call(k)
+            return None
+        return ParamDict({k: call(k) for k in self.keys()})
 
     def copy(self):
         """New ParamDict holding the same tensors."""
         return ParamDict(self.params)
+
+    def clone(self):
+        """New ParamDict of copies of the tensors (autograd history
+        kept, as torch.clone does)."""
+        return self.operator(torch.clone)
+
+    def detach(self):
+        """The tensors detached from autograd."""
+        return self.operator(torch.Tensor.detach)
+
+    def ones(self):
+        return self.operator(torch.ones_like)
+
+    def zeros(self):
+        return self.operator(torch.zeros_like)
+
+    def push(self, device):
+        """The tensors moved to a device."""
+        return self.operator(lambda v: v.to(device))
 
     def ravel(self):
         """Concatenate all values, in key order, into one flat vector."""

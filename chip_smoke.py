@@ -51,7 +51,8 @@ Phases, one line each; any failure exits non-zero:
    the CPU (float64, plain versions): a small sky/beam posterior, the
    hera-cal chain, the hera-prod chain (its loss and gradients
    accumulated over 2 time batches) and the hera-redcal chain (priors
-   included), loss and gradients;
+   included), loss and gradients; and one HMC trajectory of the hera-hmc
+   chain (end position, end momentum and dU);
 8. kernel and plain-version times at the main paths' shapes (rime_fwd
    also at hera-prod's two), each kernel's bound, rime_fwd with its K split against one slice,
    rime_dtau beside the previous design's time, with real and complex
@@ -103,8 +104,23 @@ Phases, one line each; any failure exits non-zero:
    probe steps a leaf), the chi^2 per degree of freedom and the solved
    gains' residual degeneracies; rime_fwd launches must be exactly
    times x pixel chunks x function evaluations and rime_dtau none; then
-   one evaluation under torch.profiler. Then the JSON line of all nine
-   kernels.
+   one evaluation under torch.profiler;
+13. main path 6, hera-hmc at full width (build_hmc), config #4's joint
+   posterior: the same array (fixed), sky (1e4 x hera-stat's, 12,288
+   pixels of amplitude and index) and Airy beam, both trainable, the 630
+   groups expanded to all 54,615 cross baselines, 1-pol gains (real
+   pairs), 702,466 parameters, Sequential(RIME -> JonesModel), started
+   at its truth; a diagonal mass from lbfgs_approx_cov (2 probe steps a
+   leaf), dual averaging (20 HMC steps of 10 at target 0.8 from eps
+   1e-3), 10 HMC samples (mean acceptance >= 0.3, no divergence), 3
+   NUTS steps (max depth 5), 2 RecycledHMC steps, HMC.sample_chains
+   (2 chains of 3), a write_chain / load_chain round trip; every dH,
+   acceptance, tree depth, evaluation count and step wall; rime_fwd
+   launches must be exactly 2 x times x pixel chunks x evaluations and
+   rime_dtau none; U must be a float64 scalar; then the dH check (the
+   first three trajectories' ends evaluated by the chain in float64, the
+   float32 |r|^2 summed in float32 and in float64) and one HMC step
+   under torch.profiler. Then the JSON line of all nine kernels.
 
 The last line is {"ok": true, "device": {...}}. Exits non-zero without
 printing a result when no CUDA device or no package is present.
@@ -123,6 +139,14 @@ LOC = (21.428305555, -30.72152777, 1073.0)
 ANTVECS = "models.rime.array.antvecs"
 GAINS = "models.cal.params"
 REDVIS = "models.redvis.params"
+SKY = "models.rime.sky.params"
+BEAM = "models.rime.beam.params"
+# phase 7's hex-2 HMC trajectory: leapfrog steps and step size
+HMC_STEPS, HMC_EPS = 5, 1e-5
+# phase 13: the largest first trial step of lbfgs_approx_cov's probe in
+# each leaf (sky amplitudes ~1e4-1e5 and indices -2.5 share a leaf; beam
+# widths 14 deg; gains ~1)
+HMC_PROBE = {SKY: 1e-3, BEAM: 1e-4, GAINS: 1e-4}
 # the full-width configuration of both main paths
 HERA = dict(hexN=11, nside=32, nfreq=1024, fmax=200e6, ntime=2,
             pix_chunk=2048)
@@ -386,6 +410,68 @@ def build_redcal(bt, hexN, nside, nfreq, fmax, ntime, pix_chunk, device,
     tgt.setup_data(rime.data_bls, times, freqs, pol="ee", data=data,
                    icov=torch.ones(data.shape, dtype=dtype, device=device))
     return bt.LogProb(seq, tgt), truth, rms
+
+
+def build_hmc(bt, hexN, nside, nfreq, fmax, ntime, pix_chunk, device,
+              dtype, gain_sigma=0.05, amp=1e4, seed=0):
+    """The hera-hmc chain through the port's public API: config #4's
+    joint posterior over sky, beam and gains, Sequential(RIME ->
+    JonesModel). The array is fixed; the sky (amp times hera-stat's
+    power-law pixel sky: amplitude and index per pixel) and the Airy
+    beam are trainable; the RIME simulates the redundant groups and
+    expands them to every cross baseline; 1-pol gains per antenna and
+    channel (real pairs, refant the first antenna). Truth: the sky and
+    beam as built and gains 1 + gain_sigma (N + iN) (cal_truth, no
+    antenna moved); the chain starts there. Target: the chain at the
+    truth plus complex noise of unit variance from a seeded
+    torch.Generator; icov ones. Returns (prob, numpy truth of the
+    gains)."""
+    import torch
+    device = bt.resolve_device(device)
+    T, arr, sky, beam, freqs = build_sky_beam(
+        bt, hexN, nside, nfreq, fmax, 0.5, False, device, dtype,
+        np.random.default_rng(seed), amp=amp, sky_beam_param=True)
+    sim_bls = [r[0] for r in arr.reds if r[0][0] != r[0][1]]
+    times = 2458168.3 + np.arange(ntime) * 5e-4
+    rime = bt.RIME(sky, T, beam, arr, sim_bls, times, freqs,
+                   data_bls=arr.get_bls(keep_autos=False),
+                   pix_chunk=pix_chunk)
+    gains = cal_truth(arr.ants, arr.to_antpos().asnumpy(), nfreq, 0.0,
+                      gain_sigma)[GAINS]
+    cal = bt.JonesModel(gains, arr.ants, refant=arr.ants[0],
+                        R=bt.JonesResponse(param_type="com"), device=device,
+                        dtype=dtype)
+    seq = bt.Sequential({"rime": rime, "cal": cal})
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    with torch.no_grad():
+        data = seq().data
+        for part in (data.real, data.imag):
+            part += np.sqrt(0.5) * torch.randn(
+                data.shape, generator=gen, dtype=dtype, device=device)
+    tgt = bt.VisData()
+    tgt.setup_meta(T, arr.to_antpos())
+    tgt.setup_data(rime.data_bls, times, freqs, pol="ee", data=data,
+                   icov=torch.ones(data.shape, dtype=dtype, device=device))
+    return bt.LogProb(seq, tgt), gains
+
+
+def hmc_trajectory(bt, torch, prob, start, momenta, eps, nstep):
+    """One HMC step of the port's sampler from the numpy start with the
+    given numpy momenta (no draw; the Metropolis uniform comes from the
+    sampler's CPU generator, the same on every device). Returns the end
+    position and momentum (numpy dicts), dU and dH."""
+    dev = prob.target[0].data.device
+    rdt = prob.target[0].data.real.dtype
+    bt.load_numpy_pdict(prob.model, start)
+    x0 = prob.collect_main_params().detach()
+    hmc = bt.HMC(bt.Potential(prob), x0, eps=eps, Nstep=nstep, seed=0)
+    hmc.p = bt.ParamDict({k: torch.as_tensor(v, dtype=rdt, device=dev)
+                          for k, v in momenta.items()})
+    hmc.step(sample_p=False)
+    q1, p1, U0, U1 = hmc.last_proposal
+    return ({k: v.double().cpu().numpy() for k, v in q1.items()},
+            {k: v.double().cpu().numpy() for k, v in p1.items()},
+            U1 - U0, hmc.dHs[-1])
 
 
 def first_step_H0(bt, torch, grads, steps):
@@ -906,6 +992,43 @@ def phase_small(bt, torch, rime_cuda, dev, hera_prod):
                   f"{k} rel {v:.2e}" for k, v in errs.items())
               + f" (tol {TOL:g})", flush=True)
         check(all(v <= TOL for v in errs.values()), f"card vs CPU {label}")
+    phase_small_hmc(bt, torch, rime_cuda, dev)
+
+
+def phase_small_hmc(bt, torch, rime_cuda, dev):
+    """Phase 7, end: the hera-hmc chain at hex-2, one HMC trajectory
+    (HMC_STEPS leapfrog steps of HMC_EPS, identity mass) from the same
+    start and momenta, card (float32) against CPU (float64): the end
+    position and momentum of every leaf and dU. The start is 5 % off the
+    truth in the sky amplitudes and at unit gains, so the residual
+    stands well above float32's rounding of the visibilities."""
+    kw = dict(hexN=2, nside=8, nfreq=8, fmax=120e6, ntime=2, pix_chunk=512)
+    cpu, _ = build_hmc(bt, device="cpu", dtype=torch.float64, **kw)
+    gpu, _ = build_hmc(bt, device=dev, dtype=torch.float32, **kw)
+    gpu.target[0].data = cpu.target[0].data.to(torch.complex64).to(dev)
+    start = {k: v.detach().numpy().copy() for k, v in
+             cpu.collect_main_params().items()}
+    start[SKY][..., 0, :] *= 1.05
+    start[GAINS][..., 0], start[GAINS][..., 1] = 1.0, 0.0
+    rng = np.random.default_rng(4)
+    momenta = {k: rng.standard_normal(v.shape) for k, v in start.items()}
+    rime_cuda.launches = rime_cuda.dtau_launches = 0
+    card = hmc_trajectory(bt, torch, gpu, start, momenta, HMC_EPS, HMC_STEPS)
+    n = (rime_cuda.launches, rime_cuda.dtau_launches)
+    ref = hmc_trajectory(bt, torch, cpu, start, momenta, HMC_EPS, HMC_STEPS)
+    errs = {f"q {k}": relerr(card[0][k], ref[0][k]) for k in ref[0]}
+    errs.update({f"p {k}": relerr(card[1][k], ref[1][k]) for k in ref[1]})
+    errs["dU"] = abs(card[2] - ref[2]) / abs(ref[2])
+    evals = HMC_STEPS + 2
+    print(f"phase 7 card vs CPU, hera-hmc chain: one HMC trajectory of "
+          f"{HMC_STEPS} leapfrog steps of {HMC_EPS:g} (launches rime_fwd "
+          f"{n[0]}, expected {evals} evaluations x 2 times x 2 passes = "
+          f"{4 * evals}; rime_dtau {n[1]}): dU card {card[2]:.6e}, CPU "
+          f"{ref[2]:.6e}; dH card {card[3]:.6e}, CPU {ref[3]:.6e}; "
+          + ", ".join(f"{k} rel {v:.2e}" for k, v in errs.items())
+          + f" (tol {TOL:g})", flush=True)
+    check(n == (4 * evals, 0), f"small hera-hmc launches {n}")
+    check(all(v <= TOL for v in errs.values()), "card vs CPU hera-hmc")
 
 
 def build_nmp(bt, device, dtype, hexN=3, nside=16, nfreq=64, ntime=2):
@@ -1177,6 +1300,239 @@ def phase_hera_redcal(bt, torch, rime_cuda, pix_chunks, size=HERA,
     profile(torch, prob.value_and_grad,
             "phase 12 profile of one function evaluation")
     return fwd
+
+
+def phase_hera_hmc(bt, torch, rime_cuda, pix_chunks, size=HERA,
+                   f64_chunk=512):
+    """Phase 13: main path 6, hera-hmc, config #4's joint posterior over
+    sky, beam and gains, sampled at full width unless given another
+    size. Returns the launches of rime_fwd on the sampling path."""
+    import gc
+    import statistics
+    import tempfile
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    prob, _ = build_hmc(bt, device=None, dtype=torch.float32, **size)
+    seq = prob.model
+    rime, tgt = seq.rime, prob.target[0]
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    sizes = {k: v.numel() for k, v in seq.named_parameters()}
+    nparams = sum(sizes.values())
+    nt = len(rime.sim_times)
+    nchunks = len(pix_chunks(len(rime.sim_bls), rime.Npix_cut))
+    print(f"phase 13 hera-hmc build: {len(rime.array.ants)} antennas "
+          f"(fixed), {len(rime.sim_bls)} redundant groups simulated, "
+          f"expanded to {len(rime.data_bls)} data baselines, {rime.Nfreqs} "
+          f"freqs, {nt} times, {rime.Npix_cut} FOV pixels of "
+          f"{rime.sky.params.shape[-1]}; trainable {nparams} parameters: "
+          + ", ".join(f"{k} {tuple(v.shape)}" for k, v in
+                      seq.named_parameters())
+          + f"; target {tuple(tgt.data.shape)} {tgt.data.dtype}; "
+          f"{build_s:.1f} s", flush=True)
+    U, _ = prob.value_and_grad()
+    print(f"phase 13 U at the truth {float(U)!r}: dtype {U.dtype}, shape "
+          f"{tuple(U.shape)}", flush=True)
+    check(U.dtype == torch.float64 and U.ndim == 0,
+          f"hera-hmc U is {U.dtype} of shape {tuple(U.shape)}, not a "
+          f"float64 scalar")
+    pot = bt.Potential(prob)
+    torch.cuda.reset_peak_memory_stats()
+
+    def walls(ts):
+        return (f"first {ts[0] * 1e3:.1f} ms, median of the rest "
+                f"{statistics.median(ts[1:]) * 1e3:.1f} ms" if len(ts) > 1
+                else f"{ts[0] * 1e3:.1f} ms")
+
+    def timed(fn, n):
+        out = []
+        for _ in range(n):
+            t1 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.time() - t1)
+        return out
+
+    # 1. the diagonal mass: lbfgs_approx_cov's probe steps (a first
+    # trial step of at most HMC_PROBE[k] in leaf k) move the params,
+    # which are restored after. Its probe of the gains alone needs no
+    # sky cotangent (one rime_fwd pass an evaluation), so the launch
+    # count below starts after it.
+    t1 = time.time()
+    evals0 = prob.closure_eval
+    x0 = prob.collect_main_params().detach().clone()
+    _, g0 = prob.value_and_grad()
+    h0 = {k: torch.full((v.numel(),), HMC_PROBE[k] / float(v.abs().max()),
+                        dtype=v.dtype, device=v.device)
+          for k, v in g0.items()}
+    cov = bt.lbfgs_approx_cov(prob, Nsteps=2, H0=h0)
+    prob.send_main_params(x0)
+    cov_L = x0.unravel(torch.sqrt(cov.diag))
+    torch.cuda.synchronize()
+    print(f"phase 13 mass: lbfgs_approx_cov (2 probe steps a leaf) "
+          f"{time.time() - t1:.2f} s, {prob.closure_eval - evals0} "
+          f"evaluations; cov_L (sqrt of its diagonal) per leaf "
+          + ", ".join(f"{k} {float(v.min()):.4e} ... {float(v.max()):.4e}"
+                      for k, v in cov_L.items()), flush=True)
+    check(all(bool(torch.all(torch.isfinite(v) & (v > 0)))
+              for v in cov_L.values()), "hera-hmc mass not finite positive")
+
+    # 2-3. dual averaging, then 10 samples at the averaged step
+    rime_cuda.launches = rime_cuda.dtau_launches = 0
+    evals0 = prob.closure_eval
+    hmc = bt.HMC(pot, x0, eps=1e-3, Nstep=10, seed=0)
+    hmc.set_chol(cov_L=cov_L)
+    hmc.dual_averaging(Nadapt=20, target=0.8)
+    n0 = hmc.fn_evals
+    ts = timed(hmc.step, 20)
+    eps = float(np.exp(hmc.stepsize.log_eps_bar))
+    adapt_dH = list(hmc.dHs)
+    print(f"phase 13 dual averaging (20 steps of 10, target 0.8, from eps "
+          f"1e-3): adapted eps {eps!r}; acceptance "
+          f"{np.mean(hmc._acceptances):.3f}; dH {adapt_dH}; divergences "
+          f"{hmc._divergences}; fn_evals {hmc.fn_evals - n0}; step walls "
+          f"{walls(ts)}", flush=True)
+    hmc.eps, hmc.stepsize = eps, None
+    n0, a0, d0 = hmc.fn_evals, len(hmc._acceptances), len(hmc.dHs)
+    trajs, ts = [], []
+    for i in range(10):
+        x_start = hmc.x
+        t1 = time.time()
+        hmc.step()
+        torch.cuda.synchronize()
+        ts.append(time.time() - t1)
+        if i < 3:
+            trajs.append((x_start, hmc.p) + hmc.last_proposal
+                         + (hmc.dHs[-1],))
+    acc = hmc._acceptances[a0:]
+    dHs = hmc.dHs[d0:]
+    divs = [d for d in hmc._divergences if d >= a0]
+    ch = hmc.get_chain(burn=a0)
+    stds = {k: float(np.median(v.std(axis=0))) for k, v in ch.items()}
+    # the share of each leaf's elements that the 10 samples moved: a
+    # float32 position keeps no leapfrog increment below half its ulp
+    moved = {k: float((v != v[:1]).any(axis=0).mean()) for k, v in ch.items()}
+    print(f"phase 13 HMC (10 samples, 10 steps of {eps:.4e}): acceptance "
+          f"{np.mean(acc):.3f} ({', '.join(f'{a:.3f}' for a in acc)}); "
+          f"dH {dHs}; divergences {divs}; fn_evals {hmc.fn_evals - n0}; "
+          f"step walls {walls(ts)}; the chain's median per-element std "
+          + ", ".join(f"{k} {v:.4e}" for k, v in stds.items())
+          + "; share of elements moved "
+          + ", ".join(f"{k} {v:.4f}" for k, v in moved.items()), flush=True)
+    check(np.mean(acc) >= 0.3, f"hera-hmc acceptance {np.mean(acc):.3f}")
+    check(not divs, f"hera-hmc divergences at {divs}")
+
+    # 4. NUTS at the adapted step
+    nuts = bt.NUTS(pot, hmc.x, eps=eps, mass=hmc.mass.mass, max_treedepth=5,
+                   seed=1)
+    ts = timed(nuts.step, 3)
+    print(f"phase 13 NUTS (3 steps, max depth 5): tree depths "
+          f"{nuts.tree_depths}; acceptance statistics "
+          f"{[round(a, 4) for a in nuts._acceptances]}; fn_evals "
+          f"{nuts.fn_evals}; step walls {walls(ts)}", flush=True)
+
+    # 5. RecycledHMC
+    rec = bt.RecycledHMC(pot, nuts.x, eps=eps, Nstep=10,
+                         mass=hmc.mass.mass, seed=2)
+    ts = timed(rec.step, 2)
+    print(f"phase 13 RecycledHMC (2 steps of 10): {rec.Nsamples} samples, "
+          f"acceptance {rec.acceptance_rate:.3f}; dH {rec.dHs}; fn_evals "
+          f"{rec.fn_evals}; step walls {walls(ts)}", flush=True)
+
+    # 6. chains one after another
+    n0 = hmc.fn_evals
+    t1 = time.time()
+    out = hmc.sample_chains(Nsample=3, Nchain=2)
+    torch.cuda.synchronize()
+    print(f"phase 13 HMC.sample_chains (2 chains of 3): acceptance "
+          f"{out['acceptance_rate'].tolist()}; divergent "
+          f"{out['divergent'].tolist()}; fn_evals {hmc.fn_evals - n0}; "
+          f"{time.time() - t1:.2f} s", flush=True)
+    finite = all(np.isfinite(v).all() for v in out["chain"].values())
+
+    # 7. the chain through an npz and back
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        f = os.path.join(d, "chain.npz")
+        hmc.write_chain(f)
+        back = bt.HMC(pot, x0, eps=eps, Nstep=10)
+        back.load_chain(f)
+    same = back.Nsamples == hmc.Nsamples and all(
+        torch.equal(back.x[k], hmc.x[k]) for k in hmc.x.keys())
+    print(f"phase 13 write_chain / load_chain: {back.Nsamples} samples, "
+          f"position restored {same}, divergences {back._divergences}",
+          flush=True)
+    check(same and all(type(v) is int for v in back._divergences),
+          "hera-hmc chain round trip")
+    for s in (hmc, nuts, rec):
+        finite = finite and all(np.isfinite(v).all()
+                                for v in s.get_chain().values())
+    check(finite, "hera-hmc chain has non-finite positions")
+
+    fwd, dtau = rime_cuda.launches, rime_cuda.dtau_launches
+    nevals = prob.closure_eval - evals0
+    expect = 2 * nt * nchunks * nevals
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase 13 hera-hmc main path (from dual averaging to the chain's "
+          f"round trip): {nevals} evaluations; rime_fwd "
+          f"launches {fwd} (expected 2 passes x {nt} times x {nchunks} "
+          f"chunks x {nevals} evaluations = {expect}), rime_dtau launches "
+          f"{dtau} (expected 0: antenna positions fixed); peak device "
+          f"memory {peak:.2f} GiB", flush=True)
+    check(fwd == expect and dtau == 0,
+          f"hera-hmc launches rime_fwd {fwd}, rime_dtau {dtau} != "
+          f"{expect}, 0")
+    phase_hera_hmc_dH(bt, torch, prob, hmc, trajs, size, f64_chunk)
+    profile(torch, hmc.step, "phase 13 profile of one HMC step")
+    return fwd
+
+
+def phase_hera_hmc_dH(bt, torch, prob, hmc, trajs, size, f64_chunk):
+    """Phase 13, the dH check: the first three trajectories' start and
+    end points evaluated by the same chain in float64 (the plain path),
+    against the sampler's float32 dH; beside them what the energy repair
+    removed: the float32 |r|^2 at those points summed in float32 and in
+    float64, and the dH each sum gives."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.time()
+    p64, _ = build_hmc(bt, device=None, dtype=torch.float64,
+                       **dict(size, pix_chunk=f64_chunk))
+    p64.target[0].data = prob.target[0].data.to(torch.complex128)
+
+    def sums32(q):
+        with torch.no_grad():
+            _, res, _ = prob.forward_chisq(q)
+            terms = (res.conj() * res).real * prob.target[0].icov
+            return torch.stack([torch.sum(terms).double(),
+                                torch.sum(terms, dtype=torch.float64)]
+                               ).tolist()
+
+    def u64(q):
+        with torch.no_grad():
+            return float(p64.forward_chisq(q.operator(torch.Tensor.double))[0])
+    lines, worst = [], 0.0
+    for i, (q0, pm0, q1, pm1, U0, U1, dH) in enumerate(trajs):
+        dK = hmc.K(pm1) - hmc.K(pm0)
+        a32, a64 = sums32(q0)
+        b32, b64 = sums32(q1)
+        dH64 = u64(q1) - u64(q0) + dK
+        worst = max(worst, abs(dH - dH64))
+        lines.append(f"trajectory {i}: sampler dH {dH!r} (U {U0!r} -> "
+                     f"{U1!r}); float32 |r|^2 summed in float32 gives dH "
+                     f"{b32 - a32 + dK!r}, summed in float64 "
+                     f"{b64 - a64 + dK!r}"
+                     f"; float64 chain dH {dH64!r}; |dH32 - dH64| "
+                     f"{abs(dH - dH64):.4e}")
+    print(f"phase 13 dH check ({time.time() - t1:.1f} s, the float64 chain "
+          f"in pixel chunks of {f64_chunk}): " + "; ".join(lines)
+          + f"; worst |dH32 - dH64| {worst:.4e}", flush=True)
+    check(np.isfinite(worst), "hera-hmc dH check not finite")
+    del p64
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def kernel_instances(src, names):
@@ -1495,6 +1851,7 @@ def main():
     prod_fwd, prod_dtau = phase_hera_prod(bt, torch, rime_cuda, _pix_chunks,
                                           hera_prod)
     redcal_fwd = phase_hera_redcal(bt, torch, rime_cuda, _pix_chunks)
+    hmc_fwd = phase_hera_hmc(bt, torch, rime_cuda, _pix_chunks)
 
     # rime_fwd: the two shapes are launched equally often on hera-stat:
     # report the mean per launch (hera-prod's shapes beside them)
@@ -1503,10 +1860,12 @@ def main():
         "name": "rime_fwd", "route": "cuda",
         "source": "bayeslim_tpu_torch/csrc/rime_fwd.cu",
         "replaces": "bayeslim_tpu/ops/rime_pallas.py:298",
-        "launches": stat_launches + cal_fwd + prod_fwd + redcal_fwd,
+        "launches": stat_launches + cal_fwd + prod_fwd + redcal_fwd
+        + hmc_fwd,
         "launches_by_path": {"hera-stat": stat_launches, "hera-cal": cal_fwd,
                              "hera-prod": prod_fwd,
-                             "hera-redcal": redcal_fwd},
+                             "hera-redcal": redcal_fwd,
+                             "hera-hmc": hmc_fwd},
         "max_abs_err": max(worst_fwd["hera-fwd"], worst_fwd["hera-bwd"]),
         "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[2],
         "bound_by": timing[0][3] if timing[0][3] == timing[1][3]
@@ -1519,7 +1878,8 @@ def main():
         "replaces": "bayeslim_tpu/ops/rime_pallas.py:693",
         "launches": cal_dtau + prod_dtau,
         "launches_by_path": {"hera-stat": 0, "hera-cal": cal_dtau,
-                             "hera-prod": prod_dtau, "hera-redcal": 0},
+                             "hera-prod": prod_dtau, "hera-redcal": 0,
+                             "hera-hmc": 0},
         "max_abs_err": worst_dtau, "ms": dms, "plain_ms": dpms,
         "bound_ms": dbms, "bound_by": dby, "library_ms": None}]
     kernels += spikes

@@ -12,7 +12,9 @@
   Sequential(RIME -> JonesModel) with trainable antenna positions and
   per-antenna complex gains (real pairs, refant the first antenna), the
   redundant groups simulated and expanded to every cross baseline, icov
-  ones; cal_truth and cal_target make its truth and noisy target;
+  ones; cal_truth and cal_target make its truth and noisy target; with
+  sky_beam=True the sky and beam train and the antennas are fixed (the
+  hera-hmc chain);
 - build_redcal_torch / build_redcal_jax: a small hera-redcal chain,
   Sequential(RIME -> RedVisModel -> JonesModel) with the array, sky and
   beam fixed, a per-redundant-group visibility correction from
@@ -83,22 +85,25 @@ def _cal_layout(arr):
     return sim_bls, arr.get_bls(keep_autos=False)
 
 
-def build_cal_torch(target=None, device="cpu", dtype=torch.float64):
+def build_cal_torch(target=None, device="cpu", dtype=torch.float64,
+                    sky_beam=False):
     """target: data of the VisData target (default: the chain's own
-    forward at its starting parameters)."""
+    forward at its starting parameters). sky_beam: the sky and the beam
+    are trainable and the antennas fixed (the hera-hmc chain) instead of
+    the reverse."""
     ants, antvecs = make_hex(HEXN, D=15.0)
     freqs = np.linspace(100e6, FMAX, NFREQ)
     kw = dict(device=device, dtype=dtype)
     T = bt.TelescopeModel(LOC)
     arr = bt.ArrayModel(AntposDict(ants, antvecs), freqs=freqs, redtol=0.5,
-                        parameter=True, **kw)
+                        parameter=not sky_beam, **kw)
     params, angs, px_area = _sky_params(NSIDE)
     R = bt.PixelSkyResponse(freqs, spatial_mode="pixel",
                             freq_mode="powerlaw", f0=float(freqs[0]), **kw)
-    sky = bt.PixelSky(params, angs, px_area, R=R, parameter=False, **kw)
+    sky = bt.PixelSky(params, angs, px_area, R=R, parameter=sky_beam, **kw)
     beam = bt.PixelBeam(np.ones((1, 1, 1, 1, 2)) * 14.0, freqs,
                         R=bt.AiryResponse(), pol="e", powerbeam=True,
-                        fov=180.0, parameter=False, **kw)
+                        fov=180.0, parameter=sky_beam, **kw)
     sim_bls, data_bls = _cal_layout(arr)
     times = 2458168.3 + np.arange(NTIMES) * 5e-4
     rime = bt.RIME(sky, T, beam, arr, sim_bls, times, freqs,
@@ -120,7 +125,7 @@ def build_cal_torch(target=None, device="cpu", dtype=torch.float64):
     return bt.LogProb(seq, tgt)
 
 
-def build_cal_jax(target):
+def build_cal_jax(target, sky_beam=False):
     """The same chain through the JAX package (float64 under the test
     configuration), against a numpy target."""
     import jax.numpy as jnp
@@ -134,14 +139,15 @@ def build_cal_jax(target):
     freqs = np.linspace(100e6, FMAX, NFREQ)
     T = bl.TelescopeModel(LOC)
     arr = bl.ArrayModel(JAntposDict(ants, antvecs), freqs=freqs, redtol=0.5,
-                        parameter=True)
+                        parameter=not sky_beam)
     params, angs, px_area = _sky_params(NSIDE)
     R = PixelSkyResponse(freqs, spatial_mode="pixel", freq_mode="powerlaw",
                          f0=float(freqs[0]))
-    sky = PixelSky(jnp.asarray(params), angs, px_area, R=R, parameter=False)
+    sky = PixelSky(jnp.asarray(params), angs, px_area, R=R,
+                   parameter=sky_beam)
     beam = bl.PixelBeam(jnp.ones((1, 1, 1, 1, 2)) * 14.0, freqs,
                         R=bl.beam_model.AiryResponse(), pol="e",
-                        powerbeam=True, fov=180.0, parameter=False)
+                        powerbeam=True, fov=180.0, parameter=sky_beam)
     sim_bls, data_bls = _cal_layout(arr)
     times = 2458168.3 + np.arange(NTIMES) * 5e-4
     rime = bl.RIME(sky, T, beam, arr, sim_bls, times, freqs,

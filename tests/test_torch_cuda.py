@@ -672,3 +672,38 @@ def test_hera_redcal_small_on_card(cuda):
     consts = gpu.model.cal.R._proj_consts
     assert consts and all(c[2].is_cuda and c[3].is_cuda
                           for c in consts.values())
+
+
+@pytest.mark.cuda
+def test_hera_hmc_small_trajectory_on_card(cuda):
+    """One HMC trajectory of the hera-hmc chain at hex-2
+    (chip_smoke.build_hmc: RIME -> JonesModel with sky, beam and gains
+    trainable) from the same start and momenta: card float32 against CPU
+    float64, the end position and momentum of every leaf and dU; two
+    rime_fwd launches a time and evaluation, no rime_dtau."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import bayeslim_tpu_torch as bt
+    from chip_smoke import (GAINS, HMC_EPS, HMC_STEPS, SKY, build_hmc,
+                            hmc_trajectory)
+    kw = dict(hexN=2, nside=8, nfreq=8, fmax=120e6, ntime=2, pix_chunk=512)
+    cpu, _ = build_hmc(bt, device="cpu", dtype=torch.float64, **kw)
+    gpu, _ = build_hmc(bt, device=cuda, dtype=torch.float32, **kw)
+    gpu.target[0].data = cpu.target[0].data.to(torch.complex64).to(cuda)
+    start = {k: v.detach().numpy().copy() for k, v in
+             cpu.collect_main_params().items()}
+    start[SKY][..., 0, :] *= 1.05
+    start[GAINS][..., 0], start[GAINS][..., 1] = 1.0, 0.0
+    rng = np.random.default_rng(4)
+    momenta = {k: rng.standard_normal(v.shape) for k, v in start.items()}
+    n0 = (rime_cuda.launches, rime_cuda.dtau_launches)
+    card = hmc_trajectory(bt, torch, gpu, start, momenta, HMC_EPS, HMC_STEPS)
+    assert (rime_cuda.launches - n0[0], rime_cuda.dtau_launches - n0[1]) \
+        == (2 * 2 * (HMC_STEPS + 2), 0)
+    ref = hmc_trajectory(bt, torch, cpu, start, momenta, HMC_EPS, HMC_STEPS)
+    for k in ref[0]:
+        assert _relerr(card[0][k], ref[0][k]) <= 1e-4, k
+        assert _relerr(card[1][k], ref[1][k]) <= 1e-4, k
+    assert abs(card[2] - ref[2]) <= 1e-4 * abs(ref[2])
