@@ -10,11 +10,12 @@ bayeslim_tpu module for module:
 - utils/     : dtype/device policy, ParamDict, nn.Module base and
                Sequential, indexing, HEALPix, pixel interpolation
 - ops/       : fringe phase math, the RIME reduction, its CUDA kernels,
-               linear algebra (least squares, inversion dispatch)
+               linear algebra (least squares, inversion dispatch),
+               special functions, spherical harmonics (Ylm, AlmModel)
 - data/      : VisData / MapData containers
-- models/    : telescope/array, sky, beam, RIME, Jones gains, the
-               per-baseline / per-group visibility models and the
-               redcal degeneracies
+- models/    : telescope/array, sky (pixel and a_lm), beam, RIME,
+               Jones gains, the per-baseline / per-group visibility
+               models and the redcal degeneracies
 - inference/ : priors, LogProb (structured covariances, main-param
                sub-slices), the Trainer, BFGS, L-BFGS and its
                approximate covariance, the hmat operators and the
@@ -39,9 +40,10 @@ from .models import (RIME, TelescopeModel, ArrayModel, PixelBeam,
                      AiryResponse, GaussResponse, UniformResponse,
                      PixelResponse, PixelSky, PixelSkyResponse, PointSky,
                      PointSkyResponse, CompositeModel, Stokes2Coherency,
-                     CoherencySky, JonesModel, JonesResponse, VisModel,
-                     VisModelResponse, RedVisModel, vis2JonesModel,
-                     vis2RedVisModel)
+                     CoherencySky, SphHarmSky, pixelsky_Ylm_cut, JonesModel,
+                     JonesResponse, VisModel, VisModelResponse, RedVisModel,
+                     vis2JonesModel, vis2RedVisModel)
+from .ops import AlmModel, gen_lm, gen_sph2pix
 from .inference import (LogProb, Trainer, BFGS, LBFGS, DiagMat,
                         lbfgs_approx_cov, LogGaussPrior, LogLaplacePrior,
                         LogTaperedUniformPrior, LogUniformPrior, MainParams,

@@ -7,5 +7,5 @@ from .calibration import (JonesModel, JonesResponse, RedVisModel, VisModel,
 from .rime import RIME
 from .sky import (PixelSky, PixelSkyResponse, PointSky, PointSkyResponse,
                   CompositeModel, Stokes2Coherency, CoherencySky,
-                  stokes2coherency)
+                  stokes2coherency, SphHarmSky, pixelsky_Ylm_cut)
 from .telescope import TelescopeModel, ArrayModel, build_reds

@@ -5,11 +5,12 @@ several components, and the Stokes -> coherency conversion.
 Counterpart of bayeslim_tpu/models/sky.py (DefaultResponse :33, SkyBase
 :49, PointSky :108, PointSkyResponse :115, PixelSky :158,
 PixelSkyResponse :178, CompositeModel :275, stokes2coherency :328,
-Stokes2Coherency :363). Conventions kept: sky data (Nstokes, 1, Nfreqs,
-Npix) or a (2, 2, Nfreqs, Npix) coherency; angs (2, Npix) equatorial
-[RA, Dec] in degrees; PixelSky multiplies by the pixel solid angle so
-the output is flux density. PixelSkyResponse carries the 'pixel'
-spatial mode and the 'channel' and 'powerlaw' frequency modes.
+Stokes2Coherency :363, SphHarmSky :499, pixelsky_Ylm_cut :559).
+Conventions kept: sky data (Nstokes, 1, Nfreqs, Npix) or a (2, 2,
+Nfreqs, Npix) coherency; angs (2, Npix) equatorial [RA, Dec] in
+degrees; PixelSky multiplies by the pixel solid angle so the output is
+flux density. PixelSkyResponse carries the 'pixel' and 'alm' spatial
+modes and the 'channel' and 'powerlaw' frequency modes.
 """
 from __future__ import annotations
 
@@ -18,12 +19,13 @@ import torch
 from torch import nn
 
 from ..data.containers import MapData
-from ..utils.dtypes import _float, resolve_device
+from ..utils.dtypes import _float, resolve_device, viewcomp
 from ..utils.module import Module
 
 __all__ = ["SkyBase", "DefaultResponse", "PointSky", "PointSkyResponse",
            "PixelSky", "PixelSkyResponse", "CompositeModel",
-           "Stokes2Coherency", "CoherencySky", "stokes2coherency"]
+           "Stokes2Coherency", "CoherencySky", "stokes2coherency",
+           "SphHarmSky", "pixelsky_Ylm_cut"]
 
 
 class DefaultResponse(Module):
@@ -80,38 +82,109 @@ class PointSkyResponse(Module):
 
 
 class PixelSkyResponse(Module):
-    """Frequency response of a PixelSky.
+    """Spatial and frequency response of a PixelSky.
 
-    freq_mode 'channel': params (Nstokes, 1, Nfreqs, Npix) pass through;
-    'powerlaw': params (Nstokes, 1, 2, Npix) hold amplitude and spectral
-    index, out = amp (f / f0) ** spix.
+    spatial_mode 'pixel': params are per pixel; 'alm': spat_LM (an
+    AlmModel, or any callable) maps the last axis to pixels. freq_mode
+    'channel': params per channel pass through; 'powerlaw': params
+    (..., 2, N) hold amplitude and spectral index, out = amp (f / f0) **
+    spix. transform_order 0: spatial then frequency; 1: frequency then
+    spatial. comp_params: real-pair params (trailing axis 2) are read as
+    complex. Then: real_output keeps the real part of a complex result,
+    log exponentiates, sky0 is added, abs_output takes the modulus, and
+    set_freq_index selects channels. LM: an optional callable applied to
+    the params first. freq_LM, cosmo, gln and kbins are the JAX
+    constructor's arguments of the 'linear' and 'bessel' frequency
+    modes, which raise here.
     """
 
-    def __init__(self, freqs, spatial_mode="pixel", freq_mode="channel",
-                 f0=None, device=None, dtype=None):
+    def __init__(self, freqs, comp_params=False, spatial_mode="pixel",
+                 freq_mode="channel", transform_order=0, cosmo=None,
+                 spat_LM=None, freq_LM=None, f0=None, gln=None, kbins=None,
+                 log=False, real_output=True, abs_output=False, LM=None,
+                 sky0=None, device=None, dtype=None):
         super().__init__()
-        if spatial_mode != "pixel":
+        if spatial_mode not in ("pixel", "alm"):
             raise NotImplementedError(
-                f"spatial_mode {spatial_mode!r} is not ported yet (alm: "
-                f"ROADMAP queue A7; linear: A8)")
+                f"spatial_mode {spatial_mode!r} is not ported yet (linear: "
+                f"ROADMAP queue A8)")
         if freq_mode not in ("channel", "powerlaw"):
             raise NotImplementedError(
                 f"freq_mode {freq_mode!r} is not ported yet (linear: "
-                f"ROADMAP queue A8; bessel: A7)")
+                f"ROADMAP queue A8; bessel: A7b)")
+        dev = resolve_device(device)
+        dt = dtype or _float()
         self.freqs = np.asarray(freqs, dtype=np.float64)
         self.Nfreqs = len(self.freqs)
+        self.comp_params = comp_params
         self.spatial_mode = spatial_mode
         self.freq_mode = freq_mode
+        self.transform_order = transform_order
+        self.log = log
+        self.real_output = real_output
+        self.abs_output = abs_output
+        self.LM = LM
+        self.spat_LM = spat_LM
+        self.freq_LM = freq_LM
         self.f0 = f0
         self.register_buffer("_freqs_arr", torch.as_tensor(
-            self.freqs, dtype=dtype or _float(),
-            device=resolve_device(device)))
+            self.freqs, dtype=dt, device=dev))
+        self.register_buffer("sky0", None if sky0 is None else _as_tensor(
+            sky0, dt, dev))
+        self.set_freq_index(None)
 
-    def forward(self, params):
+    def spatial_transform(self, params):
+        if self.comp_params and not params.is_complex():
+            params = viewcomp(params)
+        if self.spatial_mode == "pixel":
+            return params
+        return self.spat_LM(params)
+
+    def freq_transform(self, params):
+        if self.comp_params and not params.is_complex():
+            params = viewcomp(params)
         if self.freq_mode == "powerlaw":
             return params[..., 0:1, :] * \
                 (self._freqs_arr[:, None] / self.f0) ** params[..., 1:2, :]
         return params
+
+    def forward(self, params):
+        if self.LM is not None:
+            params = self.LM(params)
+        if self.transform_order == 0:
+            params = self.freq_transform(self.spatial_transform(params))
+        else:
+            params = self.spatial_transform(self.freq_transform(params))
+        if self.real_output and params.is_complex():
+            params = params.real
+        if self.log:
+            params = torch.exp(params)
+        if self.sky0 is not None:
+            params = params + self.sky0
+        if self.abs_output:
+            params = torch.abs(params)
+        if self._freq_idx is not None:
+            if self._freq_idx_dev is None \
+                    or self._freq_idx_dev.device != params.device:
+                self._freq_idx_dev = torch.as_tensor(self._freq_idx,
+                                                     device=params.device)
+            params = params.index_select(params.ndim - 2, self._freq_idx_dev)
+        return params
+
+    def set_freq_index(self, idx=None):
+        """Select these channels of the output (None: all)."""
+        self._freq_idx = None if idx is None else np.asarray(idx)
+        self._freq_idx_dev = None
+
+
+def _as_tensor(x, dtype, device):
+    """x as a tensor of the real dtype, or its complex counterpart if x
+    is complex."""
+    t = torch.as_tensor(x, device=device)
+    if t.is_complex():
+        return t.to(torch.complex64 if dtype == torch.float32
+                    else torch.complex128)
+    return t.to(dtype)
 
 
 class SkyBase(Module):
@@ -123,10 +196,8 @@ class SkyBase(Module):
         super().__init__(name=name)
         dev = resolve_device(device)
         dt = dtype or _float()
-        self.register_buffer("params", torch.as_tensor(params, dtype=dt,
-                                                       device=dev))
-        self.p0 = None if p0 is None else torch.as_tensor(p0, dtype=dt,
-                                                          device=dev)
+        self.register_buffer("params", _as_tensor(params, dt, dev))
+        self.p0 = None if p0 is None else _as_tensor(p0, dt, dev)
         self.R = R if R is not None else DefaultResponse()
         self.angs_np = np.asarray(angs, dtype=np.float64)
         if parameter:
@@ -284,3 +355,44 @@ class CoherencySky(Module):
         md.setup_data(self.freqs, data=stokes2coherency(self.params),
                       angs=self.angs_np)
         return md
+
+
+class SphHarmSky(PixelSky):
+    """A PixelSky whose params are a_lm: its response is a
+    PixelSkyResponse in the 'alm' spatial mode through alm_model (an
+    AlmModel) and freq_mode, with resp_kwargs passed on."""
+
+    def __init__(self, params, angs, px_area, alm_model, freqs,
+                 freq_mode="channel", name=None, parameter=True, p0=None,
+                 device=None, dtype=None, **resp_kwargs):
+        R = PixelSkyResponse(freqs, spatial_mode="alm", freq_mode=freq_mode,
+                             spat_LM=alm_model, device=device, dtype=dtype,
+                             **resp_kwargs)
+        super().__init__(params, angs, px_area, R, name=name,
+                         parameter=parameter, p0=p0, device=device,
+                         dtype=dtype)
+
+
+def pixelsky_Ylm_cut(obj, lmin=None, lmax=None, mmin=None, mmax=None,
+                     other=None):
+    """Cut the a_lm modes of a sky with an 'alm' response, in place: the
+    AlmModel's modes (AlmModel.select), and the params and p0 along the
+    mode axis (-2 for real pairs, comp_params, else -1). Returns the
+    kept indices."""
+    s = obj.R.spat_LM.select(lmin=lmin, lmax=lmax, mmin=mmin, mmax=mmax,
+                             other=other)
+    idx = np.where(s)[0]
+    pair = bool(getattr(obj.R, "comp_params", False))
+
+    def _cut(p):
+        if p is None:
+            return None
+        axis = p.ndim - 2 if pair and not p.is_complex() else p.ndim - 1
+        return p.index_select(axis, torch.as_tensor(idx, device=p.device))
+    obj.p0 = _cut(obj.p0)
+    new = _cut(obj.params.detach())
+    if "params" in obj._parameters:
+        obj.params = nn.Parameter(new)
+    else:
+        obj.params = new
+    return idx

@@ -19,10 +19,12 @@ Phases, one line each; any failure exits non-zero:
    K = 1, N = 1, K below one slice, delays of at most 1e-9 s, zero
    delays (the output is then the sum over c), hera-stat's longest
    delays, delays past hex-11 (every |tau| within 1 % of 3e-6 s), the
-   hera-stat forward and backward shapes, and hera-prod's (4 stacked
+   hera-stat forward and backward shapes, hera-prod's (4 stacked
    rows a channel, R = 4096, complex ps, complex out: the forward
-   K = 6144, N = 630 and the role-swapped backward); each case launched
-   twice, the two outputs bit-equal;
+   K = 6144, N = 630 and the role-swapped backward) and hera-alm's
+   (R = 128 channels over 100-200 MHz: the forward K = 26,624,
+   N = 630 and the role-swapped backward, every case); each case
+   launched twice, the two outputs bit-equal;
 3. the delay-cotangent kernel (rime_dtau) against its plain version the
    same way, on phase 2's cases: small shapes, ragged passes (nstack = 3
    at nf = 5 and 1000), K = 1, N = 1, N below one block, delays of at
@@ -50,11 +52,12 @@ Phases, one line each; any failure exits non-zero:
 7. small posteriors on the card (float32, kernels) against the port on
    the CPU (float64, plain versions): a small sky/beam posterior, the
    hera-cal chain, the hera-prod chain (its loss and gradients
-   accumulated over 2 time batches) and the hera-redcal chain (priors
-   included), loss and gradients; and one HMC trajectory of the hera-hmc
-   chain (end position, end momentum and dU);
+   accumulated over 2 time batches), the hera-redcal chain (priors
+   included) and the hera-alm chain (nside 8, lmax 23), loss and
+   gradients; and one HMC trajectory of the hera-hmc chain (end
+   position, end momentum and dU);
 8. kernel and plain-version times at the main paths' shapes (rime_fwd
-   also at hera-prod's two), each kernel's bound, rime_fwd with its K split against one slice,
+   also at hera-prod's two and hera-alm's two), each kernel's bound, rime_fwd with its K split against one slice,
    rime_dtau beside the previous design's time, with real and complex
    ps, and
    k_fwd timed at hera-stat's forward shape beside rime_fwd's times at
@@ -120,7 +123,29 @@ Phases, one line each; any failure exits non-zero:
    rime_dtau none; U must be a float64 scalar; then the dH check (the
    first three trajectories' ends evaluated by the chain in float64, the
    float32 |r|^2 summed in float32 and in float64) and one HMC step
-   under torch.profiler. Then the JSON line of all nine kernels.
+   under torch.profiler;
+14. main path 7, hera-alm at full width (build_alm), config #2's diffuse
+   sky: hera-stat's array and its 630 redundant groups (icov = group
+   counts), 128 frequencies over 100-200 MHz, 2 times, an nside-64
+   HEALPix sky (49,152 pixels) of AlmModel(gen_lm(191)) modes (18,528,
+   m >= 0) whose complex Ylm (7.29 GB complex64) is built on the card,
+   the a_lm trainable real pairs through PixelSkyResponse(spatial_mode=
+   'alm'), the chromatic Airy power beam trainable; the build seconds
+   (host Legendre table, device Ylm assembly); the Ylm finite
+   everywhere, 64 of its rows within 1e-6 of float64 values of the row
+   maximum; the map of the truth's a_lm at 2,048 pixels and 4 channels
+   within 1e-4 of a CPU float64 evaluation of the map's rms; 3 Adam
+   steps whose losses fall, rime_fwd launches exactly 2 x times x pixel
+   chunks a step and rime_dtau none, its shapes those of phases 2 and
+   8; peak memory below the Ylm + 2 GiB; the two Ylm products by CUDA
+   events against the bound of the complex GEMM and that of the work
+   real_output needs (half the operations); then one step under
+   torch.profiler with the Ylm products' share.
+   Then the JSON line of all nine kernels.
+
+Each torch.profiler run launches PROFILE_MARKS spin kernels before the
+profiled function and prints how many the profiler kept: it often drops
+the first kernels of a session (see profile).
 
 The last line is {"ok": true, "device": {...}}. Exits non-zero without
 printing a result when no CUDA device or no package is present.
@@ -150,6 +175,10 @@ HMC_PROBE = {SKY: 1e-3, BEAM: 1e-4, GAINS: 1e-4}
 # the full-width configuration of both main paths
 HERA = dict(hexN=11, nside=32, nfreq=1024, fmax=200e6, ntime=2,
             pix_chunk=2048)
+# config #2 at full width (hera-alm, phase 14): hera-stat's array, an
+# nside-64 a_lm sky of lmax 191, 128 channels over 100-200 MHz
+ALM = dict(hexN=11, nside=64, lmax=191, nfreq=128, fmax=200e6, ntime=2,
+           pix_chunk=2048)
 # rime_dtau's previous design at the hera-cal shape (real ps), and a
 # hera-cal function evaluation's device time with it (chip_smoke.py on
 # an NVIDIA H100 80GB HBM3 at 700 W)
@@ -183,6 +212,16 @@ PR9_STAT_STEPS_MS, PR9_CAL_EVAL_MS = (20.8, 18.9), 24.55
 # pixels, N the redundant groups) and the role-swapped backward
 PROD_SHAPES = (("hera-prod fwd", 6144, 630, False),
                ("hera-prod bwd", 630, 6144, True))
+# hera-alm's rime_fwd launches (one row a channel, 128 channels over
+# 100-200 MHz; the whole nside-64 FOV of 26,624 pixels in one launch a
+# pass and time, phase 14 checks that): (label, K, N, ps_real, conj,
+# out_imag) of the forward (K the FOV pixels, N the redundant groups)
+# and the role-swapped backward
+ALM_SHAPES = (("hera-alm fwd", 26624, 630, True, False, True),
+              ("hera-alm bwd", 630, 26624, False, True, False))
+# spin kernels launched as torch.profiler starts, before the profiled
+# function (see profile; 64 once kept only one)
+PROFILE_MARKS = 1024
 # the TPU kernel each spike replaces (scripts/mosaic_spike.py)
 SPIKE_LINES = {"k_nn": 46, "k_nt": 65, "k_vt": 84, "k_lr": 100, "k_bd": 119,
                "k_rot": 147, "k_fwd": 180}
@@ -455,6 +494,106 @@ def build_hmc(bt, hexN, nside, nfreq, fmax, ntime, pix_chunk, device,
     return bt.LogProb(seq, tgt), gains
 
 
+def alm_truth(l, m, freqs, seed=0):
+    """Truth a_lm of the hera-alm sky as real pairs (1, 1, Nfreqs,
+    Ncoeff, 2), numpy seed seed: a_00 = 50 sqrt(4 pi) (f / 150 MHz)^-2.5
+    (a map monopole of 50), the other modes one complex Gaussian draw
+    each of E|a|^2 = sigma_l^2, sigma_l = 5 / (l + 1), times
+    (f / 150 MHz)^-2.5, the m = 0 imaginary parts zero."""
+    rng = np.random.default_rng(seed)
+    spec = (np.asarray(freqs) / 150e6) ** -2.5
+    z = (rng.standard_normal(len(l)) + 1j * rng.standard_normal(len(l))) \
+        / np.sqrt(2)
+    a = 5.0 / (l + 1.0) * z
+    a[m == 0] = a[m == 0].real
+    a[(l == 0) & (m == 0)] = 50 * np.sqrt(4 * np.pi)
+    a = spec[:, None] * a[None, :]
+    return np.stack([a.real, a.imag], axis=-1)[None, None]
+
+
+def build_alm(bt, hexN, nside, lmax, nfreq, fmax, ntime, pix_chunk, device,
+              dtype, perturb=0.1, seed=0):
+    """The hera-alm posterior through the port's public API, config #2's
+    diffuse sky: hera-stat's array (its redundant groups, icov = group
+    counts), nfreq channels over 100 MHz-fmax, an nside HEALPix sky of
+    AlmModel(gen_lm(lmax)) modes (m >= 0, complex Ylm generated on the
+    device, alm_mult doubling m > 0) through PixelSkyResponse(
+    spatial_mode='alm', comp_params=True, real_output=True), the a_lm
+    trainable real pairs, and the chromatic Airy power beam, trainable.
+    Target: the RIME at alm_truth plus complex noise of unit variance
+    (numpy seed seed + 1). Start: every truth value times 1 + perturb N(0,
+    1) (numpy seed seed + 2).
+
+    Returns (prob, truth, info): truth the numpy real pairs; info the
+    AlmModel, the pixels' (theta, phi) [rad], generate_Ylm's seconds and
+    the seconds of its host Legendre table (its call of
+    sph_harm._sphere_legendre, timed in place)."""
+    import torch
+    from bayeslim_tpu_torch.ops import sph_harm
+    from bayeslim_tpu_torch.utils import AntposDict, healpix as hp, make_hex
+    device = bt.resolve_device(device)
+    T = bt.TelescopeModel(LOC)
+    ants, antvecs = make_hex(hexN, D=15.0)
+    freqs = np.linspace(100e6, fmax, nfreq)
+    arr = bt.ArrayModel(AntposDict(ants, antvecs), freqs=freqs, redtol=0.5,
+                        parameter=False, device=device, dtype=dtype)
+    npix = hp.nside2npix(nside)
+    theta, phi = hp.pix2ang(nside, np.arange(npix))
+    angs = np.stack([phi * 180 / np.pi, 90 - theta * 180 / np.pi])
+    l, m = bt.gen_lm(lmax)
+    alm = bt.AlmModel(l, m, device=device, dtype=dtype)
+    legendre, host = sph_harm._sphere_legendre, []
+
+    def timed(*args):
+        t1 = time.time()
+        out = legendre(*args)
+        host.append(time.time() - t1)
+        return out
+    sph_harm._sphere_legendre = timed
+    try:
+        t0 = time.time()
+        alm.generate_Ylm(theta, phi, method="sphere", high_prec=False)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        gen_s = time.time() - t0
+    finally:
+        sph_harm._sphere_legendre = legendre
+    host_s = sum(host)
+    R = bt.PixelSkyResponse(freqs, comp_params=True, spatial_mode="alm",
+                            freq_mode="channel", real_output=True,
+                            spat_LM=alm, device=device, dtype=dtype)
+    truth = alm_truth(l, m, freqs, seed)
+    start = truth * (1 + perturb * np.random.default_rng(seed + 2)
+                     .standard_normal(truth.shape))
+    sky = bt.PixelSky(start, angs, hp.nside2pixarea(nside), R=R,
+                      device=device, dtype=dtype)
+    beam = bt.PixelBeam(np.ones((1, 1, 1, 1, 2)) * 14.0, freqs,
+                        R=bt.AiryResponse(), pol="e", powerbeam=True,
+                        fov=180.0, device=device, dtype=dtype)
+    reds = [r for r in arr.reds if r[0][0] != r[0][1]]
+    bls = [r[0] for r in reds]
+    times = 2458168.3 + np.arange(ntime) * 5e-4
+    rime = bt.RIME(sky, T, beam, arr, bls, times, freqs,
+                   pix_chunk=pix_chunk)
+    with torch.no_grad():
+        data = rime.updated(bt.ParamDict({"sky.params": torch.as_tensor(
+            truth, dtype=dtype, device=device)}))().data
+    rng = np.random.default_rng(seed + 1)
+    shp = tuple(data.shape)
+    noise = np.sqrt(0.5) * (rng.standard_normal(shp)
+                            + 1j * rng.standard_normal(shp))
+    data = data + torch.as_tensor(noise, dtype=data.dtype, device=device)
+    counts = np.asarray([len(r) for r in reds], dtype=np.float64)
+    icov = torch.as_tensor(np.broadcast_to(
+        counts[None, None, :, None, None], shp).copy(), dtype=dtype,
+        device=device)
+    tgt = bt.VisData()
+    tgt.setup_meta(T, arr.to_antpos())
+    tgt.setup_data(bls, times, freqs, pol="ee", data=data, icov=icov)
+    info = dict(alm=alm, theta=theta, phi=phi, gen_s=gen_s, host_s=host_s)
+    return bt.LogProb(rime, tgt), truth, info
+
+
 def hmc_trajectory(bt, torch, prob, start, momenta, eps, nstep):
     """One HMC step of the port's sampler from the numpy start with the
     given numpy momenta (no draw; the Metropolis uniform comes from the
@@ -537,14 +676,28 @@ def dtau_bound_ms(rime_cuda, R, K, N, ps_real):
                                         + 2 * K * N))
 
 
-def profile(torch, fn, label):
+def profile(torch, fn, label, match=None):
     """Run fn once under torch.profiler: device time by kernel and the
     device's busy share of the wall time. Returns the device time in ms,
-    or None when the profiler saw none."""
+    or None when the profiler saw none; with match, (that, the device
+    time of the kernels whose name holds match, case ignored).
+
+    Past the first seconds of a process, the profiler often drops the
+    first kernels of a session: up to 63 in
+    bayeslim_tpu_torch/scripts/profiler_probe.py, where every trial's
+    counts fit the loss of a prefix of the session; late in this run,
+    the first GEMM of a hera-alm step. So PROFILE_MARKS spin kernels are
+    launched first, and the line says how many the profiler kept: one or
+    more means that the drop ended on them and no kernel of fn was lost.
+    They are not counted in the device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_MARKS):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
@@ -554,18 +707,25 @@ def profile(torch, fn, label):
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
+    marks = sum(r[1] for r in rows if "spin_kernel" in r[2])
+    rows = [r for r in rows if "spin_kernel" not in r[2]]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     if not rows:
         print(f"{label}: the profiler saw no device time (not measured)",
               flush=True)
-        return None
+        return None if match is None else (None, None)
     print(f"{label}: wall {wall * 1e3:.1f} ms under the profiler, device "
           f"busy {busy:.2f} ms ({busy / (wall * 1e3):.1%} of wall), "
-          f"{len(rows)} kernel names", flush=True)
+          f"{len(rows)} kernel names; spin markers kept {marks} of "
+          f"{PROFILE_MARKS} launched before the function"
+          + ("" if marks else ": the profile may lack the function's "
+             "first kernels"), flush=True)
     for ms, n, key in rows[:10]:
         print(f"{label}:   {ms:9.3f} ms {n:5d}x {key[:90]}", flush=True)
-    return busy
+    if match is None:
+        return busy
+    return busy, sum(r[0] for r in rows if match.lower() in r[2].lower())
 
 
 def ptxas_by_function(report):
@@ -660,8 +820,14 @@ def phase_fwd_vs_plain(torch, rime_cuda, dev, rng, f0, df):
               ("hera-bwd", 1024, 1024, 630, 6144, 1e-6, every)]
     shapes += [(label, 1024, 4096, K, N, 1e-6, [(False, conj, True)])
                for label, K, N, conj in PROD_SHAPES]
+    # hera-alm's: R = nf = 128 channels over 100-200 MHz, its own spacing
+    nfa = ALM["nfreq"]
+    dfa = (ALM["fmax"] - f0) / (nfa - 1)
+    shapes += [(label, nfa, nfa, K, N, 1e-6, every, dfa)
+               for label, K, N, *_ in ALM_SHAPES]
     worst, worst_rel = {}, {}
-    for label, nf, R, K, N, tau_max, cases in shapes:
+    for label, nf, R, K, N, tau_max, cases, *spacing in shapes:
+        dfs = spacing[0] if spacing else df
         for ps_real in (True, False):
             if not any(c[0] == ps_real for c in cases):
                 continue
@@ -677,19 +843,19 @@ def phase_fwd_vs_plain(torch, rime_cuda, dev, rng, f0, df):
                 _, _, per_sm, sms = rime_cuda.fwd_info(dev, ps_real,
                                                        out_imag)
                 S = rime_cuda.fwd_plan(R, K, N, nf, sms, per_sm)[0]
-                a = rime_cuda.rime_fwd(ps32, tau32, f0, df, nf, conj,
+                a = rime_cuda.rime_fwd(ps32, tau32, f0, dfs, nf, conj,
                                        out_imag)
                 b = rime_cuda.rime_fwd_plain(
                     ps32.to(torch.complex128 if not ps_real
                             else torch.float64),
-                    tau32.double(), f0, df, nf, conj, out_imag)
+                    tau32.double(), f0, dfs, nf, conj, out_imag)
                 if tau_max == 0.0:
                     # exp(0) = 1: the output is the sum over c
                     s = ps32.to(torch.complex128 if not ps_real
                                 else torch.float64).sum(1, keepdim=True)
                     b = (s.real if s.is_complex() and not out_imag
                          else s).expand(R, N)
-                again = rime_cuda.rime_fwd(ps32, tau32, f0, df, nf, conj,
+                again = rime_cuda.rime_fwd(ps32, tau32, f0, dfs, nf, conj,
                                            out_imag)
                 torch.cuda.synchronize()
                 same = bool(torch.equal(a, again))
@@ -975,6 +1141,17 @@ def phase_small(bt, torch, rime_cuda, dev, hera_prod):
     start = {k: v.detach().numpy() for k, v in
              cpu_red.collect_main_params().items()}
     pairs.append(("hera-redcal chain", cpu_red, gpu_red, start, False))
+
+    # config #2's a_lm chain at hex-2 (nside 8, lmax 23) at its start
+    kw = dict(hexN=2, nside=8, lmax=23, nfreq=8, fmax=120e6, ntime=2,
+              pix_chunk=512)
+    cpu_alm, _, _ = build_alm(bt, device="cpu", dtype=torch.float64, **kw)
+    gpu_alm, _, _ = build_alm(bt, device=dev, dtype=torch.float32, **kw)
+    gpu_alm.target[0].data = cpu_alm.target[0].data.to(torch.complex64).to(
+        dev)
+    start = {k: v.detach().numpy() for k, v in
+             cpu_alm.collect_main_params().items()}
+    pairs.append(("hera-alm chain", cpu_alm, gpu_alm, start, False))
     for label, cpu, gpu, params, antpos in pairs:
         bt.load_numpy_pdict(cpu.model, params)
         bt.load_numpy_pdict(gpu.model, params)
@@ -1535,6 +1712,190 @@ def phase_hera_hmc_dH(bt, torch, prob, hmc, trajs, size, f64_chunk):
     torch.cuda.empty_cache()
 
 
+def phase_hera_alm(bt, torch, rime_cuda, pix_chunks, size=ALM, nrow=64,
+                   npx=2048, nch=4):
+    """Phase 14: main path 7, hera-alm, config #2's a_lm sky, at full
+    width unless given another size. Returns the launches of rime_fwd
+    and of rime_dtau on its 3 Adam steps."""
+    import gc
+    from bayeslim_tpu_torch.ops.sph_harm import (_ylm_mm, _ylm_mm_grad,
+                                                 gen_sph2pix)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    prob, truth, info = build_alm(bt, device=None, dtype=torch.float32,
+                                  **size)
+    rime, tgt, alm = prob.model, prob.target[0], info["alm"]
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    Y = alm.Ylm
+    ylm_gib = Y.numel() * Y.element_size() / 2**30
+    build_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    nparams = sum(p.numel() for p in rime.parameters())
+    nt = len(rime.sim_times)
+    nchunks = len(pix_chunks(len(rime.sim_bls), rime.Npix_cut))
+    print(f"phase 14 hera-alm build: {len(rime.array.ants)} antennas, "
+          f"{len(rime.sim_bls)} redundant groups, {rime.Nfreqs} freqs, {nt} "
+          f"times, nside {size['nside']} ({Y.shape[1]} pixels, "
+          f"{rime.Npix_cut} in the FOV), lmax {size['lmax']} ({alm.Ncoeff} "
+          f"modes); Ylm {tuple(Y.shape)} {Y.dtype} ({ylm_gib:.3f} GiB); "
+          f"trainable {nparams} parameters: "
+          + ", ".join(f"{k} {tuple(v.shape)}" for k, v in
+                      rime.named_parameters())
+          + f"; build {build_s:.2f} s, of which generate_Ylm "
+          f"{info['gen_s']:.3f} s: host Legendre table {info['host_s']:.3f} "
+          f"s, device Ylm assembly {info['gen_s'] - info['host_s']:.3f} s; "
+          f"peak device memory of the build {build_peak:.3f} GiB above "
+          f"the {base / 2**30:.3f} GiB held before", flush=True)
+    if size is ALM:
+        # phases 2 and 8 hold rime_fwd to its plain version and time it at
+        # these shapes
+        check(rime.Npix_cut == ALM_SHAPES[0][1] and nchunks == 1
+              and len(rime.sim_bls) == ALM_SHAPES[0][2]
+              and rime.Nfreqs == ALM["nfreq"],
+              f"hera-alm's rime_fwd shapes ({rime.Nfreqs} rows, "
+              f"{rime.Npix_cut} pixels in {nchunks} chunks, "
+              f"{len(rime.sim_bls)} groups) are not ALM_SHAPES'")
+    # finite everywhere, a block of rows at a time (isfinite of the whole
+    # complex Ylm would hold a float copy of each part and their masks)
+    finite = all(bool(torch.isfinite(Y[i:i + 1024]).all())
+                 for i in range(0, Y.shape[0], 1024))
+    check(finite, "hera-alm Ylm has non-finite values")
+
+    # the card's Ylm rows against float64 values
+    rng = np.random.default_rng(7)
+    l, m = alm.l, alm.m
+    lmax = size["lmax"]
+    must = [int(np.flatnonzero((l == a) & (m == b))[0])
+            for a, b in ((lmax, lmax), (lmax, 0), (0, 0))]
+    rows = np.unique(np.concatenate([must, rng.choice(
+        len(l), nrow - len(must), replace=False)]))
+    theta, phi = info["theta"], info["phi"]
+    got = Y.index_select(0, torch.as_tensor(rows, device=Y.device)).cpu() \
+        .numpy().astype(np.complex128)
+    try:
+        from scipy.special import sph_harm_y
+        ref = np.stack([sph_harm_y(int(l[i]), int(m[i]), theta, phi)
+                        for i in rows])
+        ref_from = "scipy.special.sph_harm_y"
+    except ImportError:
+        ref = gen_sph2pix(theta, phi, l[rows], m[rows], high_prec=False,
+                          device="cpu", dtype=torch.float64)[0].numpy()
+        ref_from = "the port's CPU float64 recurrence"
+    row_err = np.abs(got - ref).max(1) / np.abs(ref).max(1)
+    print(f"phase 14 Ylm rows: {len(rows)} rows (l = m = {lmax}, ({lmax}, "
+          f"0) and (0, 0) among them) against {ref_from} in float64: worst "
+          f"error {row_err.max():.3e} of the row maximum (tol 1e-6), at "
+          f"(l, m) = ({l[rows][row_err.argmax()]}, "
+          f"{m[rows][row_err.argmax()]})", flush=True)
+    check(np.isfinite(row_err).all() and row_err.max() <= 1e-6,
+          f"hera-alm Ylm rows {row_err.max():.3e}")
+
+    # the card's map of the truth against a CPU float64 evaluation
+    px = np.sort(rng.choice(len(theta), npx, replace=False))
+    ch = np.sort(rng.choice(rime.Nfreqs, nch, replace=False))
+    with torch.no_grad():
+        sky_map = rime.sky.R(torch.as_tensor(truth, dtype=torch.float32,
+                                             device=Y.device))
+    card = sky_map[0, 0][ch][:, px].double().cpu().numpy()
+    rms = float(torch.sqrt(torch.mean(sky_map.double() ** 2)))
+    Ys, _, am = gen_sph2pix(theta[px], phi[px], l, m, high_prec=False,
+                            device="cpu", dtype=torch.float64)
+    a = truth[0, 0, ch, :, 0] + 1j * truth[0, 0, ch, :, 1]
+    ref = ((torch.as_tensor(a) * am) @ Ys).real.numpy()
+    del Ys
+    map_err = float(np.abs(card - ref).max()) / rms
+    print(f"phase 14 map of the truth: {npx} random pixels x {nch} "
+          f"channels against a CPU float64 evaluation (the Ylm of those "
+          f"pixels): worst error {map_err:.3e} of the map's rms {rms:.4f} "
+          f"(tol 1e-4)", flush=True)
+    check(map_err <= 1e-4, f"hera-alm map {map_err:.3e}")
+
+    with torch.no_grad():
+        vis = rime.updated(bt.ParamDict({"sky.params": torch.as_tensor(
+            truth, dtype=torch.float32, device=Y.device)}))().data
+        vrms = float(torch.sqrt(torch.mean(torch.abs(vis.to(
+            torch.complex128)) ** 2)))
+        nrms = float(torch.sqrt(torch.mean(torch.abs(
+            (tgt.data - vis).to(torch.complex128)) ** 2)))
+    del vis
+    trainer = bt.Trainer(prob, lr=1e-2)
+    torch.cuda.synchronize()
+    checks_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    rime_cuda.launches = rime_cuda.dtau_launches = 0
+    losses, step_s = [], []
+    for _ in range(3):
+        t1 = time.time()
+        losses.append(float(trainer.step()))
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t1)
+    fwd, dtau = rime_cuda.launches, rime_cuda.dtau_launches
+    expect = 3 * 2 * nt * nchunks
+    step_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    peak = max(checks_peak, step_peak)
+    print(f"phase 14 hera-alm main path: visibility rms at the truth "
+          f"{vrms:.4f} against noise rms {nrms:.4f}; Adam (lr 1e-2) losses "
+          f"{losses}; step wall first {step_s[0] * 1e3:.1f} ms, median of "
+          f"the rest {np.median(step_s[1:]) * 1e3:.1f} ms (steps "
+          f"{[round(t * 1e3, 1) for t in step_s]}); rime_fwd launches "
+          f"{fwd} (expected 3 steps x 2 passes x {nt} times x {nchunks} "
+          f"chunks = {expect}), rime_dtau launches {dtau} (expected 0: "
+          f"antenna positions are fixed); peak device memory above what "
+          f"was held before: the steps {step_peak:.3f} GiB, the build and "
+          f"checks {checks_peak:.3f} GiB (the Ylm {ylm_gib:.3f} GiB; limit "
+          f"the Ylm + 2 GiB)", flush=True)
+    check(all(np.isfinite(losses)), "non-finite hera-alm loss")
+    check(losses[2] < losses[1] < losses[0], "hera-alm loss did not fall")
+    check(fwd == expect and dtau == 0,
+          f"hera-alm launches rime_fwd {fwd}, rime_dtau {dtau} != "
+          f"{expect}, 0")
+    check(peak < ylm_gib + 2, f"hera-alm peak {peak:.3f} GiB: a copy of "
+          f"the Ylm ({ylm_gib:.3f} GiB)?")
+    # the two Ylm products of a step by CUDA events, against two bounds:
+    # the complex GEMM as run (8 M K N operations each), and the work the
+    # function needs with real_output (the map Re(a Y) and the a_lm
+    # gradient of a real g: 4 M K N each)
+    a = torch.ones((rime.Nfreqs, alm.Ncoeff), dtype=Y.dtype, device=Y.device)
+    g = torch.ones((rime.Nfreqs, Y.shape[1]), dtype=Y.dtype, device=Y.device)
+    fwd_ms = cuda_ms(torch, lambda: _ylm_mm(a, Y), 5)
+    bwd_ms = cuda_ms(torch, lambda: _ylm_mm_grad(g, Y), 5)
+    flop = 8.0 * a.shape[0] * Y.shape[0] * Y.shape[1]
+    bound = rime_cuda.roofline_ms(flop, 8.0 * (a.numel() + Y.numel()
+                                               + g.numel()))
+    # the map is real (4 bytes a value); Y is read whole
+    need = rime_cuda.roofline_ms(flop / 2, 8.0 * (a.numel() + Y.numel())
+                                 + 4.0 * g.numel())
+    print(f"phase 14 the Ylm products by CUDA events: a_lm -> map "
+          f"{fwd_ms:.3f} ms, the a_lm gradient {bwd_ms:.3f} ms, "
+          f"{flop:.3e} FP32 operations each as complex GEMMs "
+          f"({flop / fwd_ms / 1e9:.1f} / {flop / bwd_ms / 1e9:.1f} TFLOP/s); "
+          f"bound of the complex GEMM {bound[0]:.3f} ms ({bound[1]}; the "
+          f"products at {bound[0] / fwd_ms:.1%} / {bound[0] / bwd_ms:.1%} "
+          f"of it); bound of the work real_output needs ({flop / 2:.3e} "
+          f"operations each) {need[0]:.3f} ms ({need[1]}; the products at "
+          f"{need[0] / fwd_ms:.1%} / {need[0] / bwd_ms:.1%} of it)",
+          flush=True)
+    del a, g
+    busy, gemm = profile(torch, trainer.step, "phase 14 profile of one step",
+                         match="gemm")
+    prods = fwd_ms + bwd_ms
+    seen = "the profiler saw no device time" if busy is None else (
+        f"the profiler saw {gemm:.2f} ms of cuBLAS GEMM kernels in "
+        f"{busy:.2f} ms of device time" + (
+            f" ({gemm / busy:.1%})" if gemm >= 0.9 * prods else
+            ": it missed kernels (less GEMM than the CUDA events time)"))
+    print(f"phase 14 the Ylm products: {prods:.2f} ms a step by CUDA "
+          f"events, {prods / np.median(step_s[1:]) / 1e3:.1%} of the "
+          f"median step wall; {seen}", flush=True)
+    del prob, rime, alm, Y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fwd, dtau
+
+
 def kernel_instances(src, names):
     """{kernel: instances the CUDA source makes}: its distinct template
     arguments (`name<16>`, `name<4>`), or 1 for a kernel that is no
@@ -1818,6 +2179,30 @@ def main():
               f"{bms / ms:.1%} of bound; {S} K slices; no single PyTorch "
               f"call computes this fused function, so no library time",
               flush=True)
+    # hera-alm: one row a channel, 128 channels over 100-200 MHz, the
+    # whole FOV in one launch
+    alm_t = {}
+    nfa = ALM["nfreq"]
+    dfa = (ALM["fmax"] - f0) / (nfa - 1)
+    for label, Kk, Nn, ps_real, conj, out_imag in ALM_SHAPES:
+        ps, tauT = rand_case(rng, nfa, Kk, Nn, ps_real)
+        ps32 = torch.as_tensor(ps, dtype=torch.float32 if ps_real
+                               else torch.complex64, device=dev)
+        tau32 = torch.as_tensor(tauT, dtype=torch.float32, device=dev)
+        ms = cuda_ms(torch, lambda: rime_cuda.rime_fwd(
+            ps32, tau32, f0, dfa, nfa, conj, out_imag), 20)
+        pms = cuda_ms(torch, lambda: rime_cuda.rime_fwd_plain(
+            ps32, tau32, f0, dfa, nfa, conj, out_imag), 3)
+        bms, by = kernel_bound_ms(rime_cuda, nfa, Kk, Nn, ps_real, out_imag)
+        _, _, per_sm, sms = rime_cuda.fwd_info(dev, ps_real, out_imag)
+        S, _ = rime_cuda.fwd_plan(nfa, Kk, Nn, nfa, sms, per_sm)
+        alm_t[label] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
+        print(f"phase 8 times: rime_fwd {label} R={nfa} K={Kk} N={Nn} "
+              f"ps_real={ps_real} conj={conj} out_imag={out_imag}: kernel "
+              f"{ms:.4f} ms, plain {pms:.3f} ms, bound {bms:.4f} ms ({by}), "
+              f"kernel at {bms / ms:.1%} of bound; {S} K slices; no single "
+              f"PyTorch call computes this fused function, so no library "
+              f"time", flush=True)
     # hera-cal: real ps (a power beam on a Stokes-I sky), conj False; the
     # complex-ps variant at the same shape beside it
     dtau_t = {}
@@ -1852,34 +2237,39 @@ def main():
                                           hera_prod)
     redcal_fwd = phase_hera_redcal(bt, torch, rime_cuda, _pix_chunks)
     hmc_fwd = phase_hera_hmc(bt, torch, rime_cuda, _pix_chunks)
+    alm_fwd, alm_dtau = phase_hera_alm(bt, torch, rime_cuda, _pix_chunks)
 
     # rime_fwd: the two shapes are launched equally often on hera-stat:
-    # report the mean per launch (hera-prod's shapes beside them)
+    # report the mean per launch (hera-prod's and hera-alm's shapes beside
+    # them)
     mean = [float(np.mean([t[i] for t in timing])) for i in range(3)]
     kernels = [{
         "name": "rime_fwd", "route": "cuda",
         "source": "bayeslim_tpu_torch/csrc/rime_fwd.cu",
         "replaces": "bayeslim_tpu/ops/rime_pallas.py:298",
         "launches": stat_launches + cal_fwd + prod_fwd + redcal_fwd
-        + hmc_fwd,
+        + hmc_fwd + alm_fwd,
         "launches_by_path": {"hera-stat": stat_launches, "hera-cal": cal_fwd,
                              "hera-prod": prod_fwd,
                              "hera-redcal": redcal_fwd,
-                             "hera-hmc": hmc_fwd},
+                             "hera-hmc": hmc_fwd, "hera-alm": alm_fwd},
         "max_abs_err": max(worst_fwd["hera-fwd"], worst_fwd["hera-bwd"]),
         "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[2],
         "bound_by": timing[0][3] if timing[0][3] == timing[1][3]
         else "operations", "library_ms": None,
         "hera_prod_shapes": {
             label: dict(prod_t[label], max_abs_err=worst_fwd[label])
-            for label, *_ in PROD_SHAPES}}, {
+            for label, *_ in PROD_SHAPES},
+        "hera_alm_shapes": {
+            label: dict(alm_t[label], max_abs_err=worst_fwd[label])
+            for label, *_ in ALM_SHAPES}}, {
         "name": "rime_dtau", "route": "cuda",
         "source": "bayeslim_tpu_torch/csrc/rime_dtau.cu",
         "replaces": "bayeslim_tpu/ops/rime_pallas.py:693",
-        "launches": cal_dtau + prod_dtau,
+        "launches": cal_dtau + prod_dtau + alm_dtau,
         "launches_by_path": {"hera-stat": 0, "hera-cal": cal_dtau,
                              "hera-prod": prod_dtau, "hera-redcal": 0,
-                             "hera-hmc": 0},
+                             "hera-hmc": 0, "hera-alm": alm_dtau},
         "max_abs_err": worst_dtau, "ms": dms, "plain_ms": dpms,
         "bound_ms": dbms, "bound_by": dby, "library_ms": None}]
     kernels += spikes

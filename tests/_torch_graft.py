@@ -21,7 +21,13 @@
   vis2RedVisModel and per-antenna gains from vis2JonesModel (one time
   bin, real pairs, refant the first antenna, the redcal degeneracies
   projected out), each with a LogGaussPrior; redcal_truth and
-  redcal_target make its truth and noisy target.
+  redcal_target make its truth and noisy target;
+- build_alm_torch / build_alm_jax: a small hera-alm chain, config #2's
+  diffuse sky (chip_smoke.build_alm: a_lm real pairs through an
+  AlmModel's complex Ylm and PixelSkyResponse(spatial_mode='alm'), the
+  Airy power beam, both trainable, the redundant groups of a hex array
+  with icov = group counts) at hex-2, nside 8, lmax 23, 8 frequencies,
+  2 times.
 """
 import numpy as np
 import torch
@@ -402,3 +408,63 @@ def redcal_truth(prob, seed=0):
     g = g * np.exp(-1j * np.angle(g[:1]))
     return {REDVIS: np.stack([dv.real, dv.imag], -1)[None, None],
             RGAINS: np.stack([g.real, g.imag], -1)[None, None, :, None]}
+
+
+# the small hera-alm chain: hex-2, nside 8, lmax 23, 8 frequencies, 2 times
+ALM_SMALL = dict(hexN=2, nside=8, lmax=23, nfreq=8, fmax=120e6, ntime=2,
+                 pix_chunk=512)
+
+
+def build_alm_torch(device="cpu", dtype=torch.float64):
+    """chip_smoke.build_alm at ALM_SMALL: (prob, numpy truth, info)."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from chip_smoke import build_alm
+    return build_alm(bt, device=device, dtype=dtype, **ALM_SMALL)
+
+
+def build_alm_jax(target, start):
+    """The same chain through the JAX package, its Ylm from its own fast
+    path (finite at lmax 23), against the numpy target, started at the
+    numpy a_lm real pairs start."""
+    import jax.numpy as jnp
+    import bayeslim_tpu as bl
+    from bayeslim_tpu.models.sky import PixelSky, PixelSkyResponse
+    from bayeslim_tpu.ops.sph_harm import AlmModel, gen_lm
+    from bayeslim_tpu.utils import AntposDict as JAntposDict
+    from bayeslim_tpu.utils import make_hex as jmake_hex
+
+    k = ALM_SMALL
+    ants, antvecs = jmake_hex(k["hexN"], D=15.0)
+    freqs = np.linspace(100e6, k["fmax"], k["nfreq"])
+    T = bl.TelescopeModel(LOC)
+    arr = bl.ArrayModel(JAntposDict(ants, antvecs), freqs=freqs, redtol=0.5,
+                        parameter=False)
+    npix = hp.nside2npix(k["nside"])
+    theta, phi = hp.pix2ang(k["nside"], np.arange(npix))
+    angs = np.stack([phi * 180 / np.pi, 90 - theta * 180 / np.pi])
+    l, m = gen_lm(k["lmax"])
+    alm = AlmModel(l, m)
+    alm.generate_Ylm(theta, phi, method="sphere", high_prec=False)
+    R = PixelSkyResponse(freqs, comp_params=True, spatial_mode="alm",
+                         freq_mode="channel", real_output=True, spat_LM=alm)
+    sky = PixelSky(jnp.asarray(start), angs, hp.nside2pixarea(k["nside"]),
+                   R=R)
+    beam = bl.PixelBeam(jnp.ones((1, 1, 1, 1, 2)) * 14.0, freqs,
+                        R=bl.beam_model.AiryResponse(), pol="e",
+                        powerbeam=True, fov=180.0, parameter=True)
+    reds = [r for r in arr.reds if r[0][0] != r[0][1]]
+    bls = [r[0] for r in reds]
+    times = 2458168.3 + np.arange(k["ntime"]) * 5e-4
+    rime = bl.RIME(sky, T, beam, arr, bls, times, freqs,
+                   pix_chunk=k["pix_chunk"])
+    counts = np.asarray([len(r) for r in reds], dtype=np.float64)
+    tgt = bl.VisData()
+    tgt.setup_meta(T, arr.to_antpos())
+    tgt.setup_data(bls, times, freqs, pol="ee", data=jnp.asarray(target),
+                   icov=jnp.asarray(np.broadcast_to(
+                       counts[None, None, :, None, None],
+                       np.shape(target)).copy()))
+    return bl.inference.LogProb(rime, tgt)

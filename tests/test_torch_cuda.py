@@ -707,3 +707,67 @@ def test_hera_hmc_small_trajectory_on_card(cuda):
         assert _relerr(card[0][k], ref[0][k]) <= 1e-4, k
         assert _relerr(card[1][k], ref[1][k]) <= 1e-4, k
     assert abs(card[2] - ref[2]) <= 1e-4 * abs(ref[2])
+
+
+@pytest.mark.cuda
+def test_hera_alm_small_on_card(cuda):
+    """The hera-alm chain at hex-2 (chip_smoke.build_alm: nside 8, lmax
+    23, the Ylm built on the card) at its start: card float32 against CPU
+    float64, the loss and the a_lm and beam gradients; two rime_fwd
+    launches a time (forward and role-swapped), no rime_dtau."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import bayeslim_tpu_torch as bt
+    from chip_smoke import build_alm
+    kw = dict(hexN=2, nside=8, lmax=23, nfreq=8, fmax=120e6, ntime=2,
+              pix_chunk=512)
+    cpu, _, _ = build_alm(bt, device="cpu", dtype=torch.float64, **kw)
+    gpu, _, info = build_alm(bt, device=cuda, dtype=torch.float32, **kw)
+    assert info["alm"].Ylm.is_cuda and info["alm"].Ylm.dtype == torch.complex64
+    gpu.target[0].data = cpu.target[0].data.to(torch.complex64).to(cuda)
+    n0 = (rime_cuda.launches, rime_cuda.dtau_launches)
+    vg, gg = gpu.value_and_grad()
+    assert (rime_cuda.launches - n0[0],
+            rime_cuda.dtau_launches - n0[1]) == (2 * 2, 0)
+    vc, gc = cpu.value_and_grad()
+    assert abs(float(vg) - float(vc)) / abs(float(vc)) <= 1e-4
+    for k in gc.keys():
+        assert _relerr(gg[k].cpu().numpy(), gc[k].numpy()) <= 1e-4, k
+
+
+@pytest.mark.cuda
+def test_ylm_on_card_and_its_product_in_true_fp32(cuda):
+    """A Ylm built on the card (nside 16, lmax 47) against the CPU
+    float64 one, and the a_lm product and its gradient against float64
+    with TF32 allowed globally: forward_alm turns it off (under TF32 the
+    product would be off by ~5e-4)."""
+    from bayeslim_tpu_torch.ops import sph_harm as tsh
+    from bayeslim_tpu_torch.utils import healpix as hp
+    theta, phi = hp.pix2ang(16, np.arange(hp.nside2npix(16)))
+    l, m = tsh.gen_lm(47)
+    card = tsh.AlmModel(l, m, real_output=True, device=cuda,
+                        dtype=torch.float32)
+    card.generate_Ylm(theta, phi, high_prec=False)
+    ref = tsh.AlmModel(l, m, real_output=True, device="cpu",
+                       dtype=torch.float64)
+    ref.generate_Ylm(theta, phi, high_prec=False)
+    assert _relerr(card.Ylm.cpu().numpy(), ref.Ylm.numpy()) <= 1e-6
+    rng = np.random.default_rng(0)
+    p = rng.standard_normal((16, len(l), 2)) / (l[:, None] + 1.0)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        pc = torch.as_tensor(p, dtype=torch.float32, device=cuda) \
+            .requires_grad_(True)
+        out = card.forward_alm(pc)
+        (out ** 2).sum().backward()
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    pr = torch.as_tensor(p).requires_grad_(True)
+    want = ref.forward_alm(pr)
+    (want ** 2).sum().backward()
+    assert _relerr(out.detach().cpu().numpy(), want.detach().numpy()) <= 1e-5
+    assert _relerr(pc.grad.cpu().numpy(), pr.grad.numpy()) <= 1e-5

@@ -242,3 +242,116 @@ def test_point_sky_minibatched_equals_unbatched():
     assert tb.sim_bls == bls[3:] and list(tb.sim_times) == list(times[2:])
     with pytest.raises(ValueError):
         tb.batch_idx = 4
+
+
+def _alm_models(lmax=6, nside=4, real_output=False):
+    from bayeslim_tpu.ops import sph_harm as jsh
+    from bayeslim_tpu_torch.ops import sph_harm as tsh
+    from bayeslim_tpu_torch.utils import healpix as hp
+    theta, phi = hp.pix2ang(nside, np.arange(hp.nside2npix(nside)))
+    l, m = jsh.gen_lm(lmax)
+    jm = jsh.AlmModel(l, m, real_output=real_output)
+    jm.generate_Ylm(theta, phi, high_prec=False)
+    tm = tsh.AlmModel(l, m, real_output=real_output, **T64)
+    tm.generate_Ylm(theta, phi, high_prec=False)
+    angs = np.stack([np.degrees(phi), 90 - np.degrees(theta)])
+    return jm, tm, angs, hp.nside2pixarea(nside)
+
+
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("log", [False, True])
+@pytest.mark.parametrize("abs_output", [False, True])
+@pytest.mark.parametrize("sky0", [False, True])
+@pytest.mark.parametrize("comp_params", [False, True])
+def test_alm_response_matches_jax(order, log, abs_output, sky0,
+                                  comp_params):
+    rng = np.random.default_rng(8)
+    jm, tm, angs, _ = _alm_models()
+    freqs = np.linspace(100e6, 120e6, 3)
+    p = 0.1 * rng.standard_normal((1, 1, 3, len(jm.l), 2))
+    if not comp_params:
+        p = p[..., 0] + 1j * p[..., 1]
+    s0 = rng.uniform(1, 2, (1, 1, 3, angs.shape[1])) if sky0 else None
+    kw = dict(comp_params=comp_params, spatial_mode="alm",
+              freq_mode="channel", transform_order=order, log=log,
+              abs_output=abs_output, real_output=True)
+    jr = jsky.PixelSkyResponse(freqs, spat_LM=jm, sky0=s0, **kw)
+    tr = tsky.PixelSkyResponse(freqs, spat_LM=tm, sky0=s0, **kw, **T64)
+    for idx in (None, [2, 0]):
+        jr.set_freq_index(idx)
+        tr.set_freq_index(idx)
+        want = jr(jnp.asarray(p))
+        got = tr(torch.as_tensor(p))
+        assert got.shape == want.shape and not got.is_complex()
+        assert _relerr(got.numpy(), want) <= 1e-12
+
+
+def test_alm_powerlaw_response_matches_jax():
+    """a_lm of amplitude and index through the power-law frequency
+    response, complex all the way (real_output=False)."""
+    rng = np.random.default_rng(9)
+    jm, tm, _, _ = _alm_models()
+    freqs = np.linspace(100e6, 120e6, 4)
+    p = rng.standard_normal((1, 1, 2, len(jm.l), 2)) * 0.1
+    kw = dict(comp_params=True, spatial_mode="alm", freq_mode="powerlaw",
+              f0=110e6, real_output=False, transform_order=1)
+    want = jsky.PixelSkyResponse(freqs, spat_LM=jm, **kw)(jnp.asarray(p))
+    got = tsky.PixelSkyResponse(freqs, spat_LM=tm, **kw, **T64)(
+        torch.as_tensor(p))
+    assert got.is_complex() and _relerr(got.numpy(), want) <= 1e-12
+
+
+@pytest.mark.parametrize("mode", [dict(spatial_mode="linear"),
+                                  dict(freq_mode="linear"),
+                                  dict(freq_mode="bessel")])
+def test_pixel_response_names_what_it_waits_for(mode):
+    with pytest.raises(NotImplementedError,
+                       match="A7b" if "bessel" in str(mode) else "A8"):
+        tsky.PixelSkyResponse(np.ones(2), **mode, **T64)
+
+
+@pytest.mark.parametrize("comp_params", [False, True])
+def test_sph_harm_sky_and_ylm_cut_match_jax(comp_params):
+    """SphHarmSky's forward (pixel area included), then
+    pixelsky_Ylm_cut's trim of the modes, the params (a trainable leaf
+    still) and p0, and the forward after it."""
+    rng = np.random.default_rng(10)
+    jm, tm, angs, px = _alm_models(real_output=False)
+    freqs = np.linspace(100e6, 120e6, 3)
+    p = rng.standard_normal((1, 1, 3, len(jm.l), 2))
+    p0 = 0.1 * rng.standard_normal(p.shape)
+    if not comp_params:
+        p, p0 = p[..., 0] + 1j * p[..., 1], p0[..., 0] + 1j * p0[..., 1]
+    js = jsky.SphHarmSky(jnp.asarray(p), angs, px, jm, freqs, p0=p0,
+                         comp_params=comp_params)
+    ts = tsky.SphHarmSky(p, angs, px, tm, freqs, p0=p0,
+                         comp_params=comp_params, **T64)
+    assert _relerr(ts().data.detach().numpy(), js().data) <= 1e-12
+    jidx = jsky.pixelsky_Ylm_cut(js, lmin=1, mmax=4)
+    tidx = tsky.pixelsky_Ylm_cut(ts, lmin=1, mmax=4)
+    np.testing.assert_array_equal(tidx, jidx)
+    assert dict(ts.named_parameters())["params"].shape == js.params.shape
+    assert _relerr(ts.p0.numpy(), js.p0) == 0.0
+    assert _relerr(ts().data.detach().numpy(), js().data) <= 1e-12
+
+
+def test_alm_posterior_matches_jax():
+    """BASELINE config #2 at hex-2, nside 8, lmax 23, 8 channels, 2
+    times (build_alm_torch / build_alm_jax): the loss and the a_lm and
+    beam gradients at the perturbed start, the same target."""
+    from _torch_graft import build_alm_jax, build_alm_torch
+    tp, truth, _ = build_alm_torch()
+    target = tp.target[0].data.numpy()
+    start = tp.model.sky.params.detach().numpy()
+    jp = build_alm_jax(target, start)
+    tv, tg = tp.value_and_grad()
+    jv, jg = jp.value_and_grad()
+    assert abs(float(tv) - float(jv)) <= 1e-9 * abs(float(jv))
+    assert set(tg.keys()) == {"sky.params", "beam.params"}
+    for k in tg.keys():
+        assert _relerr(tg[k].numpy(), jg[k]) <= 1e-9, k
+    # the truth sits lower than the perturbed start
+    bt.load_numpy_pdict(tp.model, {
+        "sky.params": truth,
+        "beam.params": tp.model.beam.params.detach().numpy()})
+    assert float(tp.value_and_grad()[0]) < float(tv)

@@ -105,11 +105,34 @@ def test_port_never_imports_jax():
     assert len(files) > 15
     names = {os.path.relpath(f, REPO) for f in files}
     assert {"bayeslim_tpu_torch/inference/sampler.py",
-            "bayeslim_tpu_torch/inference/hmat.py"} <= names
+            "bayeslim_tpu_torch/inference/hmat.py",
+            "bayeslim_tpu_torch/ops/special.py",
+            "bayeslim_tpu_torch/ops/sph_harm.py"} <= names
     banned = ("jax", "jaxlib", "optax", "bayeslim_tpu")
     for f in files:
         for mod in _imports(f):
             assert mod.split(".")[0] not in banned, f"{f} imports {mod}"
+
+
+def test_port_imports_h5py_and_mpmath_only_inside_functions():
+    """h5py (write_Ylm / load_Ylm) and mpmath (hypF's exact route) are
+    imported where they are asked for, so that the port loads without
+    them (the card's machine has neither)."""
+    lazy = ("h5py", "mpmath")
+    for root, _, names in os.walk(os.path.join(REPO, "bayeslim_tpu_torch")):
+        for n in names:
+            if not n.endswith(".py"):
+                continue
+            path = os.path.join(root, n)
+            tree = ast.parse(open(path).read(), path)
+            for node in tree.body:
+                mods = []
+                if isinstance(node, ast.Import):
+                    mods = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.module:
+                    mods = [node.module]
+                for mod in mods:
+                    assert mod.split(".")[0] not in lazy, f"{path}: {mod}"
 
 
 @pytest.mark.parametrize("make", [
