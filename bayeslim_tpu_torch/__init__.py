@@ -8,14 +8,17 @@ csrc/rime_fwd.cu and csrc/rime_dtau.cu). The layout mirrors
 bayeslim_tpu module for module:
 
 - utils/     : dtype/device policy, ParamDict, nn.Module base and
-               Sequential, indexing, HEALPix, pixel interpolation
+               Sequential, indexing, HEALPix (and multi-resolution
+               HEALPix), pixel interpolation
 - ops/       : fringe phase math, the RIME reduction, its CUDA kernels,
                linear algebra (least squares, inversion dispatch),
                special functions, spherical harmonics (Ylm, AlmModel)
+               and spherical Fourier-Bessel transforms (SFBModel)
 - data/      : VisData / MapData containers
-- models/    : telescope/array, sky (pixel and a_lm), beam, RIME,
-               Jones gains, the per-baseline / per-group visibility
-               models and the redcal degeneracies
+- models/    : telescope/array, sky (pixel, a_lm and SFB t_lmn), beam
+               (pixel and Ylm), RIME, Jones gains, the per-baseline /
+               per-group visibility models and the redcal degeneracies,
+               the cosmology
 - inference/ : priors, LogProb (structured covariances, main-param
                sub-slices), the Trainer, BFGS, L-BFGS and its
                approximate covariance, the hmat operators and the
@@ -38,12 +41,14 @@ from .utils import (ParamDict, Module, Sequential, model2pdict,
 from .data import VisData, MapData, concat_VisData
 from .models import (RIME, TelescopeModel, ArrayModel, PixelBeam,
                      AiryResponse, GaussResponse, UniformResponse,
-                     PixelResponse, PixelSky, PixelSkyResponse, PointSky,
+                     PixelResponse, YlmResponse, AlmBeam, Cosmology,
+                     PixelSky, PixelSkyResponse, PointSky,
                      PointSkyResponse, CompositeModel, Stokes2Coherency,
                      CoherencySky, SphHarmSky, pixelsky_Ylm_cut, JonesModel,
                      JonesResponse, VisModel, VisModelResponse, RedVisModel,
                      vis2JonesModel, vis2RedVisModel)
-from .ops import AlmModel, gen_lm, gen_sph2pix
+from .ops import (AlmModel, SFBModel, gen_bessel2freq, gen_lm,
+                  gen_sph2pix)
 from .inference import (LogProb, Trainer, BFGS, LBFGS, DiagMat,
                         lbfgs_approx_cov, LogGaussPrior, LogLaplacePrior,
                         LogTaperedUniformPrior, LogUniformPrior, MainParams,

@@ -10,7 +10,14 @@ Conventions kept: sky data (Nstokes, 1, Nfreqs, Npix) or a (2, 2,
 Nfreqs, Npix) coherency; angs (2, Npix) equatorial [RA, Dec] in
 degrees; PixelSky multiplies by the pixel solid angle so the output is
 flux density. PixelSkyResponse carries the 'pixel' and 'alm' spatial
-modes and the 'channel' and 'powerlaw' frequency modes.
+modes and the 'channel', 'powerlaw' and 'bessel' frequency modes.
+
+The 'bessel' mode computes what SFBModel computes (it holds one and
+calls it): each (l, m) column of the t_lmn gets its own l's radial
+matrix over that l's first Nk(l) rows. The JAX mode (sky.py:234-243)
+picks one column an l by its rank among the unique l, so the m > 0
+columns come out zero, and it raises when the Nk differ by l; neither
+is copied (ROADMAP queue C item 5).
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from torch import nn
 from ..data.containers import MapData
 from ..utils.dtypes import _float, resolve_device, viewcomp
 from ..utils.module import Module
+from ..ops.sph_harm import SFBModel
 
 __all__ = ["SkyBase", "DefaultResponse", "PointSky", "PointSkyResponse",
            "PixelSky", "PixelSkyResponse", "CompositeModel",
@@ -88,14 +96,19 @@ class PixelSkyResponse(Module):
     AlmModel, or any callable) maps the last axis to pixels. freq_mode
     'channel': params per channel pass through; 'powerlaw': params
     (..., 2, N) hold amplitude and spectral index, out = amp (f / f0) **
-    spix. transform_order 0: spatial then frequency; 1: frequency then
-    spatial. comp_params: real-pair params (trailing axis 2) are read as
-    complex. Then: real_output keeps the real part of a complex result,
-    log exponentiates, sky0 is added, abs_output takes the modulus, and
-    set_freq_index selects channels. LM: an optional callable applied to
-    the params first. freq_LM, cosmo, gln and kbins are the JAX
-    constructor's arguments of the 'linear' and 'bessel' frequency
-    modes, which raise here.
+    spix; 'bessel': params (..., Nn, Ncoeff) are spherical Fourier-Bessel
+    t_lmn, mapped to (..., Nfreqs, Ncoeff) by an SFBModel (self.sfb) of
+    the radial matrices gln {l: (Nfreqs, Nk)} and their kbins
+    (gen_bessel2freq), over the l and m of spat_LM; it needs
+    transform_order 1. cosmo: the Cosmology kept with it (default
+    Cosmology()). transform_order 0: spatial then frequency; 1:
+    frequency then spatial. comp_params: real-pair params (trailing axis
+    2) are read as complex. Then: real_output keeps the real part of a
+    complex result, log exponentiates, sky0 is added, abs_output takes
+    the modulus, and set_freq_index selects channels. LM: an optional
+    callable applied to the params first. freq_LM is the JAX
+    constructor's argument of the 'linear' frequency mode, which raises
+    here.
     """
 
     def __init__(self, freqs, comp_params=False, spatial_mode="pixel",
@@ -108,10 +121,10 @@ class PixelSkyResponse(Module):
             raise NotImplementedError(
                 f"spatial_mode {spatial_mode!r} is not ported yet (linear: "
                 f"ROADMAP queue A8)")
-        if freq_mode not in ("channel", "powerlaw"):
+        if freq_mode not in ("channel", "powerlaw", "bessel"):
             raise NotImplementedError(
                 f"freq_mode {freq_mode!r} is not ported yet (linear: "
-                f"ROADMAP queue A8; bessel: A7b)")
+                f"ROADMAP queue A8)")
         dev = resolve_device(device)
         dt = dtype or _float()
         self.freqs = np.asarray(freqs, dtype=np.float64)
@@ -127,6 +140,20 @@ class PixelSkyResponse(Module):
         self.spat_LM = spat_LM
         self.freq_LM = freq_LM
         self.f0 = f0
+        self.gln = gln
+        self.kbins = kbins
+        self.sfb = None
+        if freq_mode == "bessel":
+            if cosmo is None:
+                from .cosmology import Cosmology
+                cosmo = Cosmology()
+            self.cosmo = cosmo
+            if getattr(spat_LM, "l", None) is None:
+                raise ValueError(
+                    "freq_mode 'bessel' needs the l and m of each column: "
+                    "a spat_LM with l and m (an AlmModel)")
+            self.sfb = SFBModel(spat_LM.l, spat_LM.m, gln, kbins or {},
+                                device=dev, dtype=dt)
         self.register_buffer("_freqs_arr", torch.as_tensor(
             self.freqs, dtype=dt, device=dev))
         self.register_buffer("sky0", None if sky0 is None else _as_tensor(
@@ -146,6 +173,10 @@ class PixelSkyResponse(Module):
         if self.freq_mode == "powerlaw":
             return params[..., 0:1, :] * \
                 (self._freqs_arr[:, None] / self.f0) ** params[..., 1:2, :]
+        if self.freq_mode == "bessel":
+            assert self.transform_order == 1, \
+                "bessel freq mode requires transform_order=1"
+            return self.sfb(params)
         return params
 
     def forward(self, params):
@@ -376,11 +407,13 @@ class SphHarmSky(PixelSky):
 def pixelsky_Ylm_cut(obj, lmin=None, lmax=None, mmin=None, mmax=None,
                      other=None):
     """Cut the a_lm modes of a sky with an 'alm' response, in place: the
-    AlmModel's modes (AlmModel.select), and the params and p0 along the
-    mode axis (-2 for real pairs, comp_params, else -1). Returns the
-    kept indices."""
-    s = obj.R.spat_LM.select(lmin=lmin, lmax=lmax, mmin=mmin, mmax=mmax,
-                             other=other)
+    AlmModel's modes (AlmModel.select), the 'bessel' mode's SFBModel
+    columns, and the params and p0 along the mode axis (-2 for real
+    pairs, comp_params, else -1). Returns the kept indices."""
+    spat = obj.R.spat_LM
+    s = spat.select(lmin=lmin, lmax=lmax, mmin=mmin, mmax=mmax, other=other)
+    if getattr(obj.R, "sfb", None) is not None:
+        obj.R.sfb.setup_gln(spat.l, gln=obj.R.sfb.gln, m=spat.m)
     idx = np.where(s)[0]
     pair = bool(getattr(obj.R, "comp_params", False))
 

@@ -236,7 +236,8 @@ def _squeeze(arr, keepdims):
 
 def jl(l, z, deriv=False, keepdims=False):
     """Spherical Bessel function of the first kind (DLMF 10.47.3), any
-    real l: j_l(z) = sqrt(pi/(2z)) J_{l+1/2}(z)."""
+    real l: j_l(z) = sqrt(pi/(2z)) J_{l+1/2}(z). A 1-D l gives (Nl, Nz);
+    a 2-D l broadcasts against z element by element (so does yl)."""
     l = np.atleast_1d(np.asarray(l, dtype=float))
     if l.ndim == 1:
         l = l[:, None]
@@ -251,10 +252,9 @@ def jl(l, z, deriv=False, keepdims=False):
     # the z = 0 limits
     z0 = np.isclose(z, 0)
     if z0.any():
-        if deriv:
-            out[:, z0] = np.where(np.isclose(l, 1), 1 / 3.0, 0.0)
-        else:
-            out[:, z0] = np.where(np.isclose(l, 0), 1.0, 0.0)
+        lim = np.where(np.isclose(l, 1), 1 / 3.0, 0.0) if deriv \
+            else np.where(np.isclose(l, 0), 1.0, 0.0)
+        out = np.where(z0, lim, out)
     return _squeeze(out, keepdims)
 
 

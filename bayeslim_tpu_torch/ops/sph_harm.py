@@ -1,12 +1,13 @@
 """
-Spherical harmonics: the Legendre bases, the Ylm design matrix and the
-a_lm -> map transform.
+Spherical harmonics and spherical Fourier-Bessel transforms: the
+Legendre bases, the Ylm design matrix and the a_lm -> map transform; the
+radial Bessel bases and the t_lmn -> a_lm(freq) transform.
 
-Counterpart of the Ylm half of bayeslim_tpu/ops/sph_harm.py (gen_lm :41,
-legendre_func :52, _bc_residual :85, compute_lm :112, gen_sph2pix :166,
-inflate_Ylm :232, normalize_Ylm :239, write_Ylm :263, load_Ylm :293,
-AlmModel :403). The spherical Fourier-Bessel half (sph_bessel_*,
-gen_bessel2freq, SFBModel, sfb_binning) is not ported yet.
+Counterpart of bayeslim_tpu/ops/sph_harm.py (gen_lm :41, legendre_func
+:52, _bc_residual :85, compute_lm :112, gen_sph2pix :166, inflate_Ylm
+:232, normalize_Ylm :239, write_Ylm :263, load_Ylm :293, AlmModel :403,
+sph_bessel_func :672, sph_bessel_kln :709, gen_bessel2freq :758,
+SFBModel :809, sfb_binning :886).
 
 - The Legendre functions are host numpy in float64, computed once per
   unique colatitude (a HEALPix map has 4 nside - 1 rings). Integer
@@ -23,6 +24,12 @@ gen_bessel2freq, SFBModel, sfb_binning) is not ported yet.
   separable (Theta, Phi) pair), in true fp32 (TF32 off) forward and
   backward (_YlmProduct); the backward reads the Ylm transposed and
   makes no copy of it.
+- The radial bases are host numpy in float64: sph_bessel_kln bisects
+  every root of one l at once, with the scalar loop's midpoints and
+  comparisons (the same bits); gen_bessel2freq builds one l's columns in
+  one call and runs the l on threads. SFBModel.forward is one batched
+  product against the zero-padded stack of the per-l matrices, in true
+  fp32 both ways (_GlnProduct); forward_plain keeps the per-l loop.
 """
 from __future__ import annotations
 
@@ -39,6 +46,8 @@ from .rime_cuda import no_tf32
 __all__ = [
     "gen_lm", "compute_lm", "legendre_func", "gen_sph2pix",
     "normalize_Ylm", "write_Ylm", "load_Ylm", "AlmModel", "inflate_Ylm",
+    "gen_bessel2freq", "sph_bessel_func", "sph_bessel_kln", "SFBModel",
+    "sfb_binning",
 ]
 
 # float64 elements of one row block while the Ylm is assembled (each of
@@ -832,3 +841,448 @@ def _product(a, Y):
     if Y.is_complex() and not a.is_complex():
         a = a.to(Y.dtype)
     return _YlmProduct.apply(a, Y)
+
+
+# ---------------------------------------------------------------------------
+# spherical Fourier-Bessel (radial) transforms
+# ---------------------------------------------------------------------------
+
+# threads of gen_bessel2freq's per-l work (scipy's Bessel functions
+# release the GIL while they run over an array)
+SFB_THREADS = min(8, os.cpu_count() or 1)
+# sph_bessel_kln scans its k grid at a coarse step first: at most this
+# much of the functions' phase (k r_max for the ball, k (r_max - r_min)
+# for the shell; the grid steps dk_factor of it), where their zeros lie
+# ~pi apart
+KLN_COARSE_RAD = 0.5
+
+
+def sph_bessel_func(l, k, r, method="ball", kbin=None, r_crit=None,
+                    deriv=False, bc_type=2, renorm=False):
+    """Radial basis g_l(k r), (Nk, Nr): row i at k[i] and l[min(i, Nl -
+    1)], all rows at once.
+
+    method 'ball': g = j_l(kr); 'shell': g = j_l(kr) + A y_l(kr) for k >
+    0, with A set by the boundary condition at r_crit: bc_type 1
+    (Dirichlet, g = 0), 2 (Neumann, dg/dr = 0) or 3 (potential, l + 1
+    modes); y_l is clipped below at -1e50. renorm scales each row so
+    that the inner product of r g_l(k r) with itself is pi/2 k^-2.
+    """
+    l = np.atleast_1d(np.asarray(l, dtype=float))
+    k = np.atleast_1d(np.asarray(k, dtype=float))
+    r = np.atleast_1d(np.asarray(r, dtype=float))
+    li = l[np.minimum(np.arange(len(k)), len(l) - 1)][:, None]
+    kr = k[:, None] * r[None, :]
+    g = special.jl(li, kr, deriv, keepdims=True)
+    if method == "shell":
+        assert r_crit is not None
+        bderiv = bc_type == 2
+        ell = li if bc_type < 3 else li + 1
+        kc = k[:, None] * np.atleast_1d(r_crit)[0]
+        with np.errstate(invalid="ignore", over="ignore"):
+            yc = np.clip(special.yl(ell, kc, bderiv, keepdims=True),
+                         -1e50, np.inf)
+            A = -special.jl(ell, kc, bderiv, keepdims=True) / yc
+            y = np.clip(special.yl(li, kr, deriv, keepdims=True), -1e50,
+                        np.inf)
+            g = np.where(k[:, None] > 0, g + A * y, g)
+    if renorm:
+        w = np.sqrt(np.pi / 2 * np.clip(k, 1e-4, None) ** -2
+                    / np.sum(r ** 2 * np.abs(g) ** 2, axis=1))
+        g = g * w[:, None]
+    return g
+
+
+def _kln_fn(r_min, r_max, method, bc_type):
+    """The function f(l, k) whose roots in k sph_bessel_kln finds, of a
+    2-D l against k element by element (special.jl's broadcasting)."""
+    def jl(l, x):
+        return special.jl(l, x, deriv=True, keepdims=True)
+
+    def yl(l, x):
+        return special.yl(l, x, deriv=True, keepdims=True)
+    if method == "ball":
+        return lambda l, k: special.jl(l, k * r_max, deriv=bc_type == 2,
+                                       keepdims=True)
+
+    def det(l, k):
+        return (jl(l, k * r_min) * yl(l, k * r_max)
+                - jl(l, k * r_max) * yl(l, k * r_min))
+    return det
+
+
+def _kln_roots(ls, r_min, r_max, kmax, method="ball", bc_type=2,
+               dk_factor=5e-3):
+    """sph_bessel_kln's roots of every l of ls, all at once: [(Nk,)].
+
+    Each sign change of f(l, k) on the grid k = 1e-4 / r_max + i
+    dk_factor / r_max is bisected 60 times, every sign change of every l
+    at once, with the midpoints and comparisons of a scalar loop over
+    them, so the roots are the same bits. The grid is scanned at a step
+    of KLN_COARSE_RAD of phase first, then bisected by index inside each
+    coarse interval whose ends differ in sign, down to the grid interval
+    of the root: a scan of every point costs three Bessel functions a
+    point, ~8e4 points an l at kmax r_max ~ 400.
+    """
+    ls = np.asarray(ls, dtype=float)
+    kgrid = np.arange(1e-4 / r_max, kmax, dk_factor / r_max)
+    n = len(kgrid)
+    if n < 2:
+        return [np.zeros(0) for _ in ls]
+    f = _kln_fn(r_min, r_max, method, bc_type)
+    step = max(1, int(KLN_COARSE_RAD / dk_factor))
+    ci = np.unique(np.r_[np.arange(0, n, step), n - 1])
+    fc = f(ls[:, None], kgrid[ci][None, :])
+    # row-major: by l, then by k
+    li, sc = np.where(np.sign(fc[:, :-1]) * np.sign(fc[:, 1:]) < 0)
+    L, ia, ib, fa = ls[li], ci[sc], ci[sc + 1], fc[li, sc]
+    keep = np.ones(len(ia), dtype=bool)
+    while np.any(ib - ia > 1):
+        act = np.where(ib - ia > 1)[0]
+        im = (ia[act] + ib[act]) // 2
+        fm = f(L[act, None], kgrid[im, None])[:, 0]
+        # a grid value of exactly 0 is no sign change on either side
+        keep[act[fm == 0]] = False
+        left = np.sign(fm) == np.sign(fa[act])
+        ia[act] = np.where(left, im, ia[act])
+        fa[act] = np.where(left, fm, fa[act])
+        ib[act] = np.where(left, ib[act], im)
+    li, L = li[keep], L[keep]
+    lo, hi, flo = kgrid[ia[keep]], kgrid[ia[keep] + 1], fa[keep]
+    for _ in range(60):
+        mid = 0.5 * (lo + hi)
+        # once mid equals lo or hi an interval keeps its ends
+        act = np.where((mid != lo) & (mid != hi))[0]
+        if not len(act):
+            break
+        fm = f(L[act, None], mid[act, None])[:, 0]
+        same = np.sign(fm) == np.sign(flo[act])
+        lo[act] = np.where(same, mid[act], lo[act])
+        flo[act] = np.where(same, fm, flo[act])
+        hi[act] = np.where(same, hi[act], mid[act])
+    roots = 0.5 * (lo + hi)
+    return [roots[li == i] for i in range(len(ls))]
+
+
+def _kln_finish(l, k, decimate, add_kzero):
+    if decimate:
+        k = k[::2]
+    if add_kzero and np.isclose(float(np.atleast_1d(l)[0]), 0, atol=1e-5):
+        k = np.concatenate([[0.0], k])
+    return k
+
+
+def sph_bessel_kln(l, r_min, r_max, kmax, method="ball", bc_type=2,
+                   dk_factor=5e-3, decimate=False, add_kzero=False):
+    """Wavevectors k_ln that satisfy the radial boundary conditions:
+    roots in k < kmax of d j_l(k r_max)/dr (ball, bc_type 2), of
+    j_l(k r_max) (ball, bc_type 1 or 3) or of the shell determinant
+    j_l'(k r_min) y_l'(k r_max) - j_l'(k r_max) y_l'(k r_min), found as
+    _kln_roots says. decimate keeps every other root; add_kzero prepends
+    k = 0 for l = 0."""
+    k = _kln_roots([float(np.atleast_1d(l)[0])], r_min, r_max, kmax,
+                   method, bc_type, dk_factor)[0]
+    return _kln_finish(l, k, decimate, add_kzero)
+
+
+def gen_bessel2freq(l, freqs=None, cosmo=None, kmax=0.5, method="ball",
+                    bc_type=2, renorm=True, r_crit=None, r=None,
+                    kbins=None, decimate=False, add_kzero=False,
+                    device=None, dtype=None):
+    """Radial SFB design matrices: per unique l, g_l(k_ln r) (Nfreqs,
+    Nk) over the comoving distances r(f) of the 21 cm line (cosmo, a
+    default Cosmology, or r= given), its columns at the roots of
+    sph_bessel_kln (or at kbins[l] given), normalised by the square root
+    of their radial inner product with |dr| if renorm. An l with no root
+    below kmax is left out.
+
+    Returns (gln {l: tensor (Nfreqs, Nk) of dtype (default float32) on
+    device (default CUDA)}, kbins {l: numpy (Nk,)}). The unique l are
+    dealt to SFB_THREADS threads; each solves the roots of its l at once
+    (_kln_roots) and builds one l's columns in one sph_bessel_func call.
+    """
+    if r is None:
+        if cosmo is None:
+            from ..models.cosmology import Cosmology
+            cosmo = Cosmology()
+        freqs = np.asarray(freqs, dtype=np.float64)
+        r = cosmo.comoving_distance(cosmo.f2z(freqs))
+    else:
+        r = np.asarray(r, dtype=np.float64)
+    r_min, r_max = r.min(), r.max()
+    dr = np.abs(np.gradient(r))
+
+    def columns(ll, kln):
+        g = np.ascontiguousarray(sph_bessel_func(
+            float(ll), kln, r, method=method,
+            r_crit=r_crit if r_crit is not None else r_max).T)
+        if renorm:
+            # |dr|: r decreases with frequency
+            w = np.sqrt(np.sum(g ** 2 * (r ** 2 * dr)[:, None], axis=0))
+            w[w == 0] = 1.0
+            g = g / w
+        return g
+
+    def group(ls):
+        if kbins is not None:
+            ks = [np.asarray(kbins[float(ll)]) for ll in ls]
+        else:
+            ks = [_kln_finish(ll, k, decimate, add_kzero) for ll, k in zip(
+                ls, _kln_roots(ls, r_min, r_max, kmax, method, bc_type))]
+        return [(ll, k, columns(ll, k)) for ll, k in zip(ls, ks)
+                if len(k)]
+
+    lu = np.unique(np.asarray(l))
+    nt = max(1, min(SFB_THREADS, len(lu)))
+    if nt > 1:
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(nt) as ex:
+            res = list(ex.map(group, [lu[i::nt] for i in range(nt)]))
+    else:
+        res = [group(lu)]
+    dev, dt = resolve_device(device), dtype or _float()
+    found = sorted((x for rs in res for x in rs), key=lambda x: x[0])
+    gln = {float(ll): torch.as_tensor(g, dtype=dt, device=dev)
+           for ll, _, g in found}
+    return gln, {float(ll): k for ll, k, _ in found}
+
+
+class _GlnProduct(torch.autograd.Function):
+    """G @ p for the stacked radial matrices G (N_l, Nfreqs, Nn) and the
+    gathered params p (..., N_l, Nn, C), in true fp32 both ways: p's
+    gradient G^T g, and G's, g p^T summed over p's leading dimensions,
+    only where G takes one."""
+
+    @staticmethod
+    def forward(ctx, p, G):
+        ctx.save_for_backward(p if G.requires_grad else None, G)
+        with no_tf32():
+            return G @ p
+
+    @staticmethod
+    def backward(ctx, g):
+        p, G = ctx.saved_tensors
+        gp = gG = None
+        with no_tf32():
+            if ctx.needs_input_grad[0]:
+                gp = G.transpose(-1, -2) @ g
+            if ctx.needs_input_grad[1]:
+                gG = (g @ p.transpose(-1, -2)).reshape(
+                    (-1,) + tuple(G.shape)).sum(0)
+        return gp, gG
+
+
+class SFBModel(Module):
+    """Spherical Fourier-Bessel radial transform t_lmn -> a_lm(freq):
+    forward(params (..., Nn, Ncoeff)) -> (..., Nfreqs, Ncoeff), each
+    column c the product of its l's g_ln (Nfreqs, Nk(l)) with the
+    column's first Nk(l) rows; a column whose l has no g_ln is 0.
+
+    forward is one batched product: the g_ln stacked zero-padded to
+    (N_l, Nfreqs, Nn_max) (a buffer), the params' columns gathered per l
+    into (..., N_l, Nn_max, M_max) by an index built once on the host,
+    one matmul in true fp32 (_GlnProduct), and a gather back to the
+    columns; the zero padding reproduces the first-Nk(l)-rows slice.
+    forward_plain is the per-l loop (a product and an indexed add an l).
+
+    gln: {l: (Nfreqs, Nk)} tensors or arrays (gen_bessel2freq), kbins
+    their k. device / dtype: of the stacked g_ln (default: those of the
+    gln tensors, else CUDA and float32).
+    """
+
+    def __init__(self, l, m, gln, kbins, LM=None, name=None, device=None,
+                 dtype=None):
+        super().__init__(name=name)
+        self.l = np.asarray(l)
+        self.m = np.asarray(m)
+        self.kbins = dict(kbins)
+        self.LM = LM
+        self.device = device
+        self.dtype = dtype
+        self.register_buffer("_G", None)
+        self._set_gln(gln)
+
+    @property
+    def l_unique(self):
+        return np.unique(self.l)
+
+    def _set_gln(self, gln):
+        """Attach gln: stack it on the device and build the column
+        index."""
+        self.gln = dict(gln)
+        g0 = next(iter(self.gln.values()))
+        if self.device is not None:
+            dev = resolve_device(self.device)
+        else:
+            dev = g0.device if torch.is_tensor(g0) else resolve_device(None)
+        dt = self.dtype or (g0.dtype if torch.is_tensor(g0)
+                            and g0.is_floating_point() else _float())
+        gs = [torch.as_tensor(g).to(device=dev, dtype=dt)
+              for g in self.gln.values()]
+        nl, nf = len(gs), gs[0].shape[0]
+        nmax = max(g.shape[1] for g in gs)
+        G = torch.zeros((nl, nf, nmax), dtype=dt, device=dev)
+        for i, g in enumerate(gs):
+            G[i, :, :g.shape[1]] = g
+        self._G = G
+        self._nk = [g.shape[1] for g in gs]
+        self._cols = [np.where(np.isclose(self.l, ll))[0]
+                      for ll in self.gln]
+        M = max(1, max(len(c) for c in self._cols))
+        nc = len(self.l)
+        # the params' column of each (l, slot), the zero column nc where
+        # the l has fewer columns than M
+        gidx = np.full((nl, M), nc, dtype=np.int64)
+        # each column's place in the (l, slot) layout; nl * M (a zero
+        # slot) for a column of no l in gln
+        inv = np.full(nc, nl * M, dtype=np.int64)
+        for i, c in enumerate(self._cols):
+            gidx[i, :len(c)] = c
+            inv[c] = i * M + np.arange(len(c))
+        self._index = (gidx.ravel(), inv, M)
+        self._index_dev = None
+
+    def _dev_index(self, device):
+        if self._index_dev is None or self._index_dev[0].device != device:
+            gidx, inv, _ = self._index
+            self._index_dev = (torch.as_tensor(gidx, device=device),
+                               torch.as_tensor(inv, device=device))
+        return self._index_dev
+
+    def setup_gln(self, l, gln=None, kln=None, out_dtype=None, r=None,
+                  m=None, **gln_kwargs):
+        """(Re)attach the radial matrices, generated by gen_bessel2freq
+        (r= comoving distances, **gln_kwargs, on the device and in the
+        dtype of the matrices attached now) when gln is None; m sets the m
+        modes; out_dtype casts the matrices."""
+        self.l = np.asarray(l)
+        if m is not None:
+            self.m = np.asarray(m)
+        if gln is None:
+            gln_kwargs.setdefault("device", self._G.device)
+            gln_kwargs.setdefault("dtype", self._G.dtype)
+            gln, kln = gen_bessel2freq(self.l_unique, r=r, **gln_kwargs)
+        if out_dtype is not None:
+            self.dtype = out_dtype
+        self._set_gln(gln)
+        if kln is not None:
+            self.kbins = dict(kln)
+
+    def forward_gln(self, params, gln=None):
+        """forward with these gln in place of the attached ones."""
+        if gln is None:
+            return self.forward(params)
+        saved = (self.gln, self._G, self._nk, self._cols, self._index,
+                 self._index_dev)
+        self._set_gln(gln)
+        try:
+            return self.forward(params)
+        finally:
+            (self.gln, self._G, self._nk, self._cols, self._index,
+             self._index_dev) = saved
+
+    def make_closure(self, params, loss_fn, target, real=False):
+        """loss() = loss_fn(forward(params), target) (the real parts if
+        real); loss(p) evaluates at other params p."""
+        def closure(p=None):
+            out = self.forward(params if p is None else p)
+            tgt = target
+            if real:
+                out, tgt = out.real, tgt.real
+            return loss_fn(out, tgt)
+        return closure
+
+    def _G_for(self, params):
+        return self._G.to(device=params.device, dtype=_rdtype(params.dtype))
+
+    def forward(self, params, **kwargs):
+        if self.LM is not None:
+            params = self.LM(params)
+        G = self._G_for(params)
+        nl, nf, nn = G.shape
+        gidx, inv = self._dev_index(params.device)
+        M = self._index[2]
+        lead = params.shape[:-2]
+        cplx = params.is_complex()
+        p = torch.view_as_real(params) if cplx else params[..., None]
+        q = p.shape[-1]
+        # rows past the largest Nk(l) are read by no l
+        p = torch.nn.functional.pad(p[..., :nn, :, :], (0, 0, 0, 1))
+        p = p.index_select(-2, gidx).reshape(lead + (nn, nl, M * q))
+        out = _GlnProduct.apply(p.movedim(-2, -3), G)
+        out = out.movedim(-3, -2).reshape(lead + (nf, nl * M, q))
+        out = torch.nn.functional.pad(out, (0, 0, 0, 1)).index_select(-2,
+                                                                       inv)
+        return torch.view_as_complex(out) if cplx else out[..., 0]
+
+    def forward_plain(self, params):
+        """The per-l loop: for each l, its g_ln times its columns' first
+        Nk(l) rows, added at those columns."""
+        if self.LM is not None:
+            params = self.LM(params)
+        G = self._G_for(params)
+        out = torch.zeros(params.shape[:-2] + (G.shape[1], params.shape[-1]),
+                          dtype=params.dtype, device=params.device)
+        with no_tf32():
+            for i, (cols, nk) in enumerate(zip(self._cols, self._nk)):
+                c = torch.as_tensor(cols, device=params.device)
+                g = G[i, :, :nk].to(params.dtype)
+                block = params[..., :nk, :].index_select(-1, c)
+                out = out.index_add(-1, c, torch.einsum("fn,...nc->...fc",
+                                                        g, block))
+        return out
+
+
+def sfb_binning(params, k_arr, kbins, var=None, wgts=None, l_arr=None,
+                lbins=None):
+    """Bin SFB coefficients (..., N) over their k (k_arr (N,)) into kbins
+    (bin centres; edges halfway between them, the last bin as wide as the
+    one before), and over l (l_arr, lbins) too if lbins is given: the
+    weighted mean of params (weights wgts, default ones, normalised in
+    each bin) and the variance var (default ones) times the squared
+    weights. Returns (params (..., Nk) or (..., Nl, Nk), var likewise);
+    an empty bin is 0."""
+    params = torch.as_tensor(params)
+    dev = params.device
+    k_arr = np.asarray(k_arr)
+    kbins = np.asarray(kbins, dtype=np.float64)
+    kdiff = np.diff(kbins)
+    kdiff = np.concatenate([kdiff, kdiff[-1:]])
+    kinds = np.digitize(k_arr, kbins + kdiff / 2)
+    Nk = len(kbins)
+    if var is None:
+        var = torch.ones_like(params)
+    var = torch.as_tensor(var, device=dev)
+    if wgts is None:
+        wgts = torch.ones(params.shape[-1], dtype=params.real.dtype,
+                          device=dev)
+    wgts = torch.as_tensor(wgts, device=dev).broadcast_to(params.shape)
+
+    def mean(idx):
+        if len(idx) == 0:
+            return (torch.zeros(params.shape[:-1], dtype=params.dtype,
+                                device=dev),
+                    torch.zeros(var.shape[:-1], dtype=var.dtype, device=dev))
+        t = torch.as_tensor(idx, device=dev)
+        w = wgts.index_select(-1, t)
+        w = w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-40)
+        return (torch.sum(params.index_select(-1, t) * w, dim=-1)
+                .to(params.dtype),
+                torch.sum(var.index_select(-1, t) * w ** 2, dim=-1)
+                .to(var.dtype))
+
+    if lbins is None:
+        outs = [mean(np.where(kinds == i)[0]) for i in range(Nk)]
+        return (torch.stack([o[0] for o in outs], dim=-1),
+                torch.stack([o[1] for o in outs], dim=-1))
+    l_arr = np.asarray(l_arr)
+    lbins = np.asarray(lbins, dtype=np.float64)
+    ldiff = np.diff(lbins)
+    ldiff = np.concatenate([ldiff, ldiff[-1:]])
+    linds = np.digitize(l_arr, lbins + ldiff / 2)
+    outs = [[mean(np.where((kinds == j) & (linds == i))[0])
+             for j in range(Nk)] for i in range(len(lbins))]
+    return (torch.stack([torch.stack([o[0] for o in row], dim=-1)
+                         for row in outs], dim=-2),
+            torch.stack([torch.stack([o[1] for o in row], dim=-1)
+                         for row in outs], dim=-2))

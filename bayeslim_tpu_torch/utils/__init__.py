@@ -1,6 +1,6 @@
 """Substrate: dtype/device policy, ParamDict, Module, indexing, HEALPix,
-pixel interpolation."""
-from . import dtypes, healpix, indexing, interp, module, paramdict
+multi-resolution HEALPix, pixel interpolation."""
+from . import dtypes, healpix, indexing, interp, module, multires, paramdict
 from .dtypes import (_float, set_default_dtype, resolve_device,
                      viewreal, viewcomp, D2R, R2D, C_MS)
 from .paramdict import ParamDict, load_numpy_pdict

@@ -53,9 +53,10 @@ Phases, one line each; any failure exits non-zero:
    the CPU (float64, plain versions): a small sky/beam posterior, the
    hera-cal chain, the hera-prod chain (its loss and gradients
    accumulated over 2 time batches), the hera-redcal chain (priors
-   included) and the hera-alm chain (nside 8, lmax 23), loss and
-   gradients; and one HMC trajectory of the hera-hmc chain (end
-   position, end momentum and dU);
+   included), the hera-alm chain (nside 8, lmax 23) and the hera-sfb
+   chain (the same sky with 8 k modes, a Ylm beam of lmax 8), loss and
+   gradients; and one HMC trajectory each of the hera-hmc and the
+   hera-hmc-alm chain (end position, end momentum and dU);
 8. kernel and plain-version times at the main paths' shapes (rime_fwd
    also at hera-prod's two and hera-alm's two), each kernel's bound, rime_fwd with its K split against one slice,
    rime_dtau beside the previous design's time, with real and complex
@@ -140,7 +141,33 @@ Phases, one line each; any failure exits non-zero:
    8; peak memory below the Ylm + 2 GiB; the two Ylm products by CUDA
    events against the bound of the complex GEMM and that of the work
    real_output needs (half the operations); then one step under
-   torch.profiler with the Ylm products' share.
+   torch.profiler with the Ylm products' share;
+15. main path 8, hera-sfb at full width (build_sfb), config #2's widths
+   with the spherical Fourier-Bessel radial basis: hera-alm's array,
+   times, target form and sky (phase 14's Ylm, taken through setup_Ylm)
+   through PixelSkyResponse(freq_mode='bessel'), the t_lmn (1, 1, 128,
+   18,528) real pairs over the ball's Neumann k modes (gen_bessel2freq
+   at the kmax that gives at most 128 an l, printed), and a Ylm power
+   beam (YlmResponse(gen_lm(64)) on an nside-64 grid, 2,145 modes, a
+   0.79 GiB Ylm; its truth the Airy beam fitted per channel); the
+   build split into host gen_bessel2freq, the beam's Ylm and the rest;
+   the sky and beam maps at the truth at 2,048 pixels and 4 channels
+   within 1e-4 of a CPU float64 evaluation of each map's rms; 3 Adam
+   steps whose losses fall, rime_fwd launches exactly 2 x times a step
+   and rime_dtau none, the shapes those of ALM_SHAPES; peak memory below
+   the two Ylm + 2 GiB; the SFB transform and its gradient by CUDA
+   events beside their bounds and the per-l plain loop's; then one step
+   under torch.profiler;
+16. main path 9, hera-hmc-alm at full width (build_hmc_alm),
+   BASELINE.json config #4 as written: hera-hmc's chain over hera-alm's
+   a_lm sky and hera-sfb's Ylm beam (both Ylm shared), 128 channels,
+   5,377,024 parameters, started at its truth; a diagonal mass from
+   lbfgs_approx_cov, dual averaging (10 steps of 10), 10 HMC samples, 3
+   NUTS steps (max depth 5); acceptance, every dH, evaluations, step
+   walls, each leaf's share moved; rime_fwd launches exactly 2 x times
+   an evaluation and rime_dtau none; the dH check against the chain in
+   float64 (its own float64 Ylm, 13.6 GiB for the sky) with its peak;
+   then one evaluation under torch.profiler.
    Then the JSON line of all nine kernels.
 
 Each torch.profiler run launches PROFILE_MARKS spin kernels before the
@@ -179,6 +206,12 @@ HERA = dict(hexN=11, nside=32, nfreq=1024, fmax=200e6, ntime=2,
 # nside-64 a_lm sky of lmax 191, 128 channels over 100-200 MHz
 ALM = dict(hexN=11, nside=64, lmax=191, nfreq=128, fmax=200e6, ntime=2,
            pix_chunk=2048)
+# hera-sfb (phase 15): hera-alm's sky with the SFB radial basis of at most
+# 128 k modes an l, and a Ylm power beam of lmax 64 on an nside-64 grid
+SFB = dict(ALM, beam_lmax=64, beam_nside=64, nn=128)
+# hera-hmc-alm (phase 16), config #4 as written: hera-hmc's chain over
+# hera-alm's a_lm sky and hera-sfb's Ylm beam
+HMC_ALM = dict(ALM, beam_lmax=64, beam_nside=64)
 # rime_dtau's previous design at the hera-cal shape (real ps), and a
 # hera-cal function evaluation's device time with it (chip_smoke.py on
 # an NVIDIA H100 80GB HBM3 at 700 W)
@@ -592,6 +625,256 @@ def build_alm(bt, hexN, nside, lmax, nfreq, fmax, ntime, pix_chunk, device,
     tgt.setup_data(bls, times, freqs, pol="ee", data=data, icov=icov)
     info = dict(alm=alm, theta=theta, phi=phi, gen_s=gen_s, host_s=host_s)
     return bt.LogProb(rime, tgt), truth, info
+
+
+def sfb_kmax(bt, r, nn):
+    """The kmax [1/Mpc] at which no l of the ball's Neumann modes over
+    comoving distances r has more than nn k modes: halfway between the
+    nn-th and (nn + 1)-th root of the l whose (nn + 1)-th root is the
+    smallest (l = 1: its roots run one ahead of l = 0's; those of higher
+    l start later)."""
+    from bayeslim_tpu_torch.ops.sph_harm import sph_bessel_kln
+    r_min, r_max = float(np.min(r)), float(np.max(r))
+    ks = [sph_bessel_kln(ll, r_min, r_max, (nn + 3) * np.pi / r_max)
+          for ll in (0.0, 1.0, 2.0, 3.0)]
+    k = min((k for k in ks if len(k) > nn), key=lambda k: k[nn])
+    return 0.5 * (k[nn - 1] + k[nn])
+
+
+def airy_beam_alm(l, m, freqs, nside, D=14.0):
+    """Real pairs (1, 1, 1, Nfreqs, Ncoeff, 2) of the Airy power beam of
+    an aperture D [m] (models/beam.airy_disk's form, sin(zen) held at 1
+    past the horizon), fitted per channel on the host in float64 by
+    weighted least squares on the nside HEALPix rings (weights their
+    pixel counts). The beam is axisymmetric about the zenith, so only
+    the m = 0 modes, Y_l0 = sqrt((2l + 1) / 4 pi) P_l(cos zen), are
+    fitted; the others are 0."""
+    from scipy.special import eval_legendre, j1
+    from bayeslim_tpu_torch.utils import healpix as hp
+    from bayeslim_tpu_torch.utils.dtypes import C_MS
+    theta, _ = hp.pix2ang(nside, np.arange(hp.nside2npix(nside)))
+    rings, counts = np.unique(theta, return_counts=True)
+    szen = np.where(rings > np.pi / 2, 1.0, np.sin(rings))
+    x = 2 * np.pi * np.asarray(freqs)[:, None] * (D / 2) / C_MS * szen
+    xs = np.where(x < 1e-8, 1.0, x)
+    b = np.where(x < 1e-8, 1.0, 2 * j1(xs) / xs) ** 2
+    cols = np.flatnonzero(np.asarray(m) == 0)
+    ls = np.asarray(l)[cols]
+    Y = np.sqrt((2 * ls[None] + 1) / (4 * np.pi)) \
+        * eval_legendre(ls[None], np.cos(rings)[:, None])
+    w = np.sqrt(counts)[:, None]
+    c = np.linalg.lstsq(Y * w, (b * w.T).T, rcond=None)[0]
+    out = np.zeros((1, 1, 1, len(freqs), len(l), 2))
+    out[0, 0, 0, :, cols, 0] = c
+    return out
+
+
+def ylm_beam(bt, freqs, lmax, nside, device, dtype, R=None, perturb=0.1,
+             seed=0):
+    """A PixelBeam of YlmResponse(gen_lm(lmax), 'interpolate' on an
+    nside HEALPix grid, power beam, real beam, real-pair params) whose
+    truth is the fitted Airy power beam (airy_beam_alm), started
+    perturb N(0, 1) off it (numpy seed seed); R: a response to share
+    (its grid Ylm is then not built again). Returns (beam, numpy truth,
+    the seconds of the response's build)."""
+    import torch
+    t0 = time.time()
+    if R is None:
+        lb, mb = bt.gen_lm(lmax)
+        R = bt.YlmResponse(lb, mb, freqs, mode="interpolate",
+                           pixtype="healpix", nside=nside, powerbeam=True,
+                           realbeam=True, comp_params=True,
+                           Ylm_kwargs=dict(method="sphere", high_prec=False),
+                           device=device, dtype=dtype)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    secs = time.time() - t0
+    truth = airy_beam_alm(R.alm.l, R.alm.m, freqs, R.interp.nside)
+    start = truth * (1 + perturb * np.random.default_rng(seed)
+                     .standard_normal(truth.shape))
+    beam = bt.PixelBeam(start, freqs, R=R, pol="e", powerbeam=True,
+                        fov=180.0, device=device, dtype=dtype)
+    return beam, truth, secs
+
+
+def alm_sky_model(bt, lmax, nside, device, dtype, sky_ylm=None):
+    """AlmModel(gen_lm(lmax)) of the nside HEALPix sky: its Ylm given as
+    sky_ylm = (Ylm, alm_mult) through setup_Ylm, or generated. Returns
+    (alm, theta, phi, angs [deg], the seconds of the Ylm)."""
+    import torch
+    from bayeslim_tpu_torch.utils import healpix as hp
+    npix = hp.nside2npix(nside)
+    theta, phi = hp.pix2ang(nside, np.arange(npix))
+    angs = np.stack([phi * 180 / np.pi, 90 - theta * 180 / np.pi])
+    l, m = bt.gen_lm(lmax)
+    alm = bt.AlmModel(l, m, device=device, dtype=dtype)
+    t0 = time.time()
+    if sky_ylm is not None:
+        alm.setup_Ylm(sky_ylm[0], alm_mult=sky_ylm[1])
+    else:
+        alm.generate_Ylm(theta, phi, method="sphere", high_prec=False)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    return alm, theta, phi, angs, time.time() - t0
+
+
+def sfb_truth(alm, gln, freqs, nn, seed=0):
+    """Truth t_lmn of the hera-sfb sky as real pairs (1, 1, nn, Ncoeff,
+    2): alm_truth's a_lm at 150 MHz spread over n, t_lmn = a_lm z_n /
+    rms_f |g_l(f, :)| for n < Nk(l) (z_n ~ N(0, 1), numpy seed seed + 3),
+    0 past Nk(l); so that E|a_lm(f)|^2 ~ |a_lm(150 MHz)|^2."""
+    l, m = alm.l, alm.m
+    a = alm_truth(l, m, [150e6], seed)[0, 0, 0]
+    z = np.random.default_rng(seed + 3).standard_normal((nn, len(l)))
+    t = np.zeros((1, 1, nn, len(l), 2))
+    for ll, g in gln.items():
+        g = g.double().cpu().numpy()
+        cols = np.flatnonzero(l == ll)
+        nk = g.shape[1]
+        scale = 1.0 / np.sqrt(np.mean(np.sum(g ** 2, axis=1)))
+        t[0, 0, :nk][:, cols] = a[cols][None] * scale \
+            * z[:nk, cols][..., None]
+    return t
+
+
+def build_sfb(bt, hexN, nside, lmax, nfreq, fmax, ntime, pix_chunk, device,
+              dtype, beam_lmax, beam_nside, nn, perturb=0.1, seed=0,
+              sky_ylm=None, beam_R=None):
+    """The hera-sfb posterior through the port's public API: hera-alm's
+    array, times and target form (redundant groups, icov = group counts,
+    the RIME at the truth plus unit complex noise, numpy seed seed + 1);
+    an nside sky of AlmModel(gen_lm(lmax)) modes (its Ylm sky_ylm = (Ylm,
+    alm_mult) if given) through PixelSkyResponse(freq_mode='bessel',
+    transform_order=1, spatial_mode='alm', comp_params=True,
+    real_output=True), the radial matrices from gen_bessel2freq(unique l,
+    freqs, cosmo=Cosmology(), method='ball', bc_type=2, renorm=True) at
+    the kmax that gives at most nn k modes an l (sfb_kmax), the t_lmn
+    real pairs (1, 1, nn, Ncoeff, 2) trainable (truth sfb_truth, start
+    perturb N(0, 1) off it, numpy seed seed + 2); and a Ylm power beam
+    (ylm_beam: gen_lm(beam_lmax) on an nside beam_nside grid, the fitted
+    Airy beam, start perturb off it; beam_R a response to share),
+    trainable. Returns (prob, truth {sky, beam: numpy}, info)."""
+    import torch
+    from bayeslim_tpu_torch.utils import AntposDict, healpix as hp, make_hex
+    device = bt.resolve_device(device)
+    t_all = time.time()
+    T = bt.TelescopeModel(LOC)
+    ants, antvecs = make_hex(hexN, D=15.0)
+    freqs = np.linspace(100e6, fmax, nfreq)
+    arr = bt.ArrayModel(AntposDict(ants, antvecs), freqs=freqs, redtol=0.5,
+                        parameter=False, device=device, dtype=dtype)
+    alm, theta, phi, angs, ylm_s = alm_sky_model(bt, lmax, nside, device,
+                                                 dtype, sky_ylm)
+    cosmo = bt.Cosmology()
+    t0 = time.time()
+    kmax = sfb_kmax(bt, cosmo.f2r(freqs), nn)
+    gln, kbins = bt.gen_bessel2freq(np.unique(alm.l), freqs, cosmo=cosmo,
+                                    kmax=kmax, method="ball", bc_type=2,
+                                    renorm=True, device="cpu",
+                                    dtype=torch.float64)
+    bessel_s = time.time() - t0
+    nk = {ll: g.shape[1] for ll, g in gln.items()}
+    check(max(nk.values()) == nn, f"hera-sfb's largest Nk {max(nk.values())}"
+          f" is not {nn}")
+    R = bt.PixelSkyResponse(freqs, comp_params=True, spatial_mode="alm",
+                            freq_mode="bessel", transform_order=1,
+                            real_output=True, spat_LM=alm, gln=gln,
+                            kbins=kbins, cosmo=cosmo, device=device,
+                            dtype=dtype)
+    truth = sfb_truth(alm, gln, freqs, nn, seed)
+    start = truth * (1 + perturb * np.random.default_rng(seed + 2)
+                     .standard_normal(truth.shape))
+    sky = bt.PixelSky(start, angs, hp.nside2pixarea(nside), R=R,
+                      device=device, dtype=dtype)
+    beam, beam_truth, beam_s = ylm_beam(bt, freqs, beam_lmax, beam_nside,
+                                        device, dtype, R=beam_R,
+                                        perturb=perturb, seed=seed + 4)
+    reds = [r for r in arr.reds if r[0][0] != r[0][1]]
+    bls = [r[0] for r in reds]
+    times = 2458168.3 + np.arange(ntime) * 5e-4
+    rime = bt.RIME(sky, T, beam, arr, bls, times, freqs,
+                   pix_chunk=pix_chunk)
+    with torch.no_grad():
+        data = rime.updated(bt.ParamDict({
+            "sky.params": torch.as_tensor(truth, dtype=dtype, device=device),
+            "beam.params": torch.as_tensor(beam_truth, dtype=dtype,
+                                           device=device)}))().data
+    rng = np.random.default_rng(seed + 1)
+    shp = tuple(data.shape)
+    noise = np.sqrt(0.5) * (rng.standard_normal(shp)
+                            + 1j * rng.standard_normal(shp))
+    data = data + torch.as_tensor(noise, dtype=data.dtype, device=device)
+    counts = np.asarray([len(r) for r in reds], dtype=np.float64)
+    icov = torch.as_tensor(np.broadcast_to(
+        counts[None, None, :, None, None], shp).copy(), dtype=dtype,
+        device=device)
+    tgt = bt.VisData()
+    tgt.setup_meta(T, arr.to_antpos())
+    tgt.setup_data(bls, times, freqs, pol="ee", data=data, icov=icov)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    info = dict(alm=alm, theta=theta, phi=phi, kmax=kmax, nk=nk, gln=gln,
+                kbins=kbins, ylm_s=ylm_s, bessel_s=bessel_s, beam_s=beam_s,
+                total_s=time.time() - t_all, freqs=freqs)
+    return bt.LogProb(rime, tgt), dict(sky=truth, beam=beam_truth), info
+
+
+def build_hmc_alm(bt, hexN, nside, lmax, nfreq, fmax, ntime, pix_chunk,
+                  device, dtype, beam_lmax, beam_nside, gain_sigma=0.05,
+                  seed=0, sky_ylm=None, beam_R=None):
+    """The hera-hmc-alm chain, BASELINE.json config #4 as written ("sky
+    a_lm + beam + gains sampled end-to-end"), through the port's public
+    API: hera-hmc's chain (build_hmc: Sequential(RIME -> JonesModel),
+    the array fixed, the redundant groups simulated and expanded to every
+    cross baseline, 1-pol gains per antenna and channel as real pairs,
+    refant the first antenna, the target the chain at the truth plus unit
+    complex noise from a seeded torch.Generator, icov ones) with
+    hera-alm's a_lm sky (alm_truth through PixelSkyResponse(spatial_mode=
+    'alm', comp_params=True, real_output=True); its Ylm sky_ylm if given)
+    and hera-sfb's Ylm power beam (ylm_beam; beam_R a response to share),
+    all three trainable and started at the truth. Returns (prob, numpy
+    truth {sky, beam, gains})."""
+    import torch
+    from bayeslim_tpu_torch.utils import AntposDict, healpix as hp, make_hex
+    device = bt.resolve_device(device)
+    T = bt.TelescopeModel(LOC)
+    ants, antvecs = make_hex(hexN, D=15.0)
+    freqs = np.linspace(100e6, fmax, nfreq)
+    arr = bt.ArrayModel(AntposDict(ants, antvecs), freqs=freqs, redtol=0.5,
+                        parameter=False, device=device, dtype=dtype)
+    alm, _, _, angs, _ = alm_sky_model(bt, lmax, nside, device, dtype,
+                                       sky_ylm)
+    R = bt.PixelSkyResponse(freqs, comp_params=True, spatial_mode="alm",
+                            freq_mode="channel", real_output=True,
+                            spat_LM=alm, device=device, dtype=dtype)
+    truth = alm_truth(alm.l, alm.m, freqs, seed)
+    sky = bt.PixelSky(truth, angs, hp.nside2pixarea(nside), R=R,
+                      device=device, dtype=dtype)
+    beam, beam_truth, _ = ylm_beam(bt, freqs, beam_lmax, beam_nside, device,
+                                   dtype, R=beam_R, perturb=0.0)
+    sim_bls = [r[0] for r in arr.reds if r[0][0] != r[0][1]]
+    times = 2458168.3 + np.arange(ntime) * 5e-4
+    rime = bt.RIME(sky, T, beam, arr, sim_bls, times, freqs,
+                   data_bls=arr.get_bls(keep_autos=False),
+                   pix_chunk=pix_chunk)
+    gains = cal_truth(arr.ants, arr.to_antpos().asnumpy(), nfreq, 0.0,
+                      gain_sigma)[GAINS]
+    cal = bt.JonesModel(gains, arr.ants, refant=arr.ants[0],
+                        R=bt.JonesResponse(param_type="com"), device=device,
+                        dtype=dtype)
+    seq = bt.Sequential({"rime": rime, "cal": cal})
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    with torch.no_grad():
+        data = seq().data
+        for part in (data.real, data.imag):
+            part += np.sqrt(0.5) * torch.randn(
+                data.shape, generator=gen, dtype=dtype, device=device)
+    tgt = bt.VisData()
+    tgt.setup_meta(T, arr.to_antpos())
+    tgt.setup_data(rime.data_bls, times, freqs, pol="ee", data=data,
+                   icov=torch.ones(data.shape, dtype=dtype, device=device))
+    return bt.LogProb(seq, tgt), dict(sky=truth, beam=beam_truth,
+                                      gains=gains)
 
 
 def hmc_trajectory(bt, torch, prob, start, momenta, eps, nstep):
@@ -1152,6 +1435,18 @@ def phase_small(bt, torch, rime_cuda, dev, hera_prod):
     start = {k: v.detach().numpy() for k, v in
              cpu_alm.collect_main_params().items()}
     pairs.append(("hera-alm chain", cpu_alm, gpu_alm, start, False))
+
+    # the hera-sfb chain at hex-2 (nside 8, lmax 23, 8 k modes, a Ylm beam
+    # of lmax 8 on an nside-8 grid) at its start
+    kw = dict(hexN=2, nside=8, lmax=23, nfreq=8, fmax=120e6, ntime=2,
+              pix_chunk=512, beam_lmax=8, beam_nside=8, nn=8)
+    cpu_sfb, _, _ = build_sfb(bt, device="cpu", dtype=torch.float64, **kw)
+    gpu_sfb, _, _ = build_sfb(bt, device=dev, dtype=torch.float32, **kw)
+    gpu_sfb.target[0].data = cpu_sfb.target[0].data.to(torch.complex64).to(
+        dev)
+    start = {k: v.detach().numpy() for k, v in
+             cpu_sfb.collect_main_params().items()}
+    pairs.append(("hera-sfb chain", cpu_sfb, gpu_sfb, start, False))
     for label, cpu, gpu, params, antpos in pairs:
         bt.load_numpy_pdict(cpu.model, params)
         bt.load_numpy_pdict(gpu.model, params)
@@ -1170,22 +1465,33 @@ def phase_small(bt, torch, rime_cuda, dev, hera_prod):
               + f" (tol {TOL:g})", flush=True)
         check(all(v <= TOL for v in errs.values()), f"card vs CPU {label}")
     phase_small_hmc(bt, torch, rime_cuda, dev)
+    phase_small_hmc(bt, torch, rime_cuda, dev, alm=True)
 
 
-def phase_small_hmc(bt, torch, rime_cuda, dev):
-    """Phase 7, end: the hera-hmc chain at hex-2, one HMC trajectory
-    (HMC_STEPS leapfrog steps of HMC_EPS, identity mass) from the same
-    start and momenta, card (float32) against CPU (float64): the end
-    position and momentum of every leaf and dU. The start is 5 % off the
-    truth in the sky amplitudes and at unit gains, so the residual
-    stands well above float32's rounding of the visibilities."""
+def phase_small_hmc(bt, torch, rime_cuda, dev, alm=False):
+    """Phase 7, end: one HMC trajectory (HMC_STEPS leapfrog steps of
+    HMC_EPS, identity mass) of the hera-hmc chain (build_hmc) or, with
+    alm, of the hera-hmc-alm chain (build_hmc_alm: the a_lm sky, the Ylm
+    beam; nside 8, lmax 23, beam lmax 8) at hex-2, from the same start
+    and momenta, card (float32) against CPU (float64): the end position
+    and momentum of every leaf and dU. The start is 5 % off the truth in
+    the sky (the pixel sky's amplitudes, or every a_lm) and at unit
+    gains, so the residual stands well above float32's rounding of the
+    visibilities."""
     kw = dict(hexN=2, nside=8, nfreq=8, fmax=120e6, ntime=2, pix_chunk=512)
-    cpu, _ = build_hmc(bt, device="cpu", dtype=torch.float64, **kw)
-    gpu, _ = build_hmc(bt, device=dev, dtype=torch.float32, **kw)
+    if alm:
+        kw.update(lmax=23, beam_lmax=8, beam_nside=8)
+    build, label = (build_hmc_alm, "hera-hmc-alm chain") if alm \
+        else (build_hmc, "hera-hmc chain")
+    cpu, _ = build(bt, device="cpu", dtype=torch.float64, **kw)
+    gpu, _ = build(bt, device=dev, dtype=torch.float32, **kw)
     gpu.target[0].data = cpu.target[0].data.to(torch.complex64).to(dev)
     start = {k: v.detach().numpy().copy() for k, v in
              cpu.collect_main_params().items()}
-    start[SKY][..., 0, :] *= 1.05
+    if alm:
+        start[SKY] *= 1.05
+    else:
+        start[SKY][..., 0, :] *= 1.05
     start[GAINS][..., 0], start[GAINS][..., 1] = 1.0, 0.0
     rng = np.random.default_rng(4)
     momenta = {k: rng.standard_normal(v.shape) for k, v in start.items()}
@@ -1197,15 +1503,15 @@ def phase_small_hmc(bt, torch, rime_cuda, dev):
     errs.update({f"p {k}": relerr(card[1][k], ref[1][k]) for k in ref[1]})
     errs["dU"] = abs(card[2] - ref[2]) / abs(ref[2])
     evals = HMC_STEPS + 2
-    print(f"phase 7 card vs CPU, hera-hmc chain: one HMC trajectory of "
+    print(f"phase 7 card vs CPU, {label}: one HMC trajectory of "
           f"{HMC_STEPS} leapfrog steps of {HMC_EPS:g} (launches rime_fwd "
           f"{n[0]}, expected {evals} evaluations x 2 times x 2 passes = "
           f"{4 * evals}; rime_dtau {n[1]}): dU card {card[2]:.6e}, CPU "
           f"{ref[2]:.6e}; dH card {card[3]:.6e}, CPU {ref[3]:.6e}; "
           + ", ".join(f"{k} rel {v:.2e}" for k, v in errs.items())
           + f" (tol {TOL:g})", flush=True)
-    check(n == (4 * evals, 0), f"small hera-hmc launches {n}")
-    check(all(v <= TOL for v in errs.values()), "card vs CPU hera-hmc")
+    check(n == (4 * evals, 0), f"small {label} launches {n}")
+    check(all(v <= TOL for v in errs.values()), f"card vs CPU {label}")
 
 
 def build_nmp(bt, device, dtype, hexN=3, nside=16, nfreq=64, ntime=2):
@@ -1660,23 +1966,28 @@ def phase_hera_hmc(bt, torch, rime_cuda, pix_chunks, size=HERA,
     check(fwd == expect and dtau == 0,
           f"hera-hmc launches rime_fwd {fwd}, rime_dtau {dtau} != "
           f"{expect}, 0")
-    phase_hera_hmc_dH(bt, torch, prob, hmc, trajs, size, f64_chunk)
+    phase_hera_hmc_dH(bt, torch, prob, hmc, trajs, lambda: build_hmc(
+        bt, device=None, dtype=torch.float64,
+        **dict(size, pix_chunk=f64_chunk))[0], "phase 13", f64_chunk)
     profile(torch, hmc.step, "phase 13 profile of one HMC step")
     return fwd
 
 
-def phase_hera_hmc_dH(bt, torch, prob, hmc, trajs, size, f64_chunk):
-    """Phase 13, the dH check: the first three trajectories' start and
-    end points evaluated by the same chain in float64 (the plain path),
-    against the sampler's float32 dH; beside them what the energy repair
-    removed: the float32 |r|^2 at those points summed in float32 and in
-    float64, and the dH each sum gives."""
+def phase_hera_hmc_dH(bt, torch, prob, hmc, trajs, build64, label,
+                      f64_chunk):
+    """Phases 13 and 16, the dH check: the first three trajectories'
+    start and end points evaluated by the same chain in float64 (the
+    plain path; build64() builds it), against the sampler's float32 dH;
+    beside them what the energy repair removed: the float32 |r|^2 at
+    those points summed in float32 and in float64, and the dH each sum
+    gives. Returns the worst |dH32 - dH64| and the peak device memory
+    [GiB] of the check."""
     import gc
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t1 = time.time()
-    p64, _ = build_hmc(bt, device=None, dtype=torch.float64,
-                       **dict(size, pix_chunk=f64_chunk))
+    p64 = build64()
     p64.target[0].data = prob.target[0].data.to(torch.complex128)
 
     def sums32(q):
@@ -1703,20 +2014,24 @@ def phase_hera_hmc_dH(bt, torch, prob, hmc, trajs, size, f64_chunk):
                      f"{b64 - a64 + dK!r}"
                      f"; float64 chain dH {dH64!r}; |dH32 - dH64| "
                      f"{abs(dH - dH64):.4e}")
-    print(f"phase 13 dH check ({time.time() - t1:.1f} s, the float64 chain "
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{label} dH check ({time.time() - t1:.1f} s, the float64 chain "
           f"in pixel chunks of {f64_chunk}): " + "; ".join(lines)
-          + f"; worst |dH32 - dH64| {worst:.4e}", flush=True)
-    check(np.isfinite(worst), "hera-hmc dH check not finite")
+          + f"; worst |dH32 - dH64| {worst:.4e}; peak device memory "
+          f"{peak:.2f} GiB", flush=True)
+    check(np.isfinite(worst), f"{label} dH check not finite")
     del p64
     gc.collect()
     torch.cuda.empty_cache()
+    return worst, peak
 
 
 def phase_hera_alm(bt, torch, rime_cuda, pix_chunks, size=ALM, nrow=64,
                    npx=2048, nch=4):
     """Phase 14: main path 7, hera-alm, config #2's a_lm sky, at full
     width unless given another size. Returns the launches of rime_fwd
-    and of rime_dtau on its 3 Adam steps."""
+    and of rime_dtau on its 3 Adam steps, and its sky's (Ylm, alm_mult),
+    which phases 15 and 16 take."""
     import gc
     from bayeslim_tpu_torch.ops.sph_harm import (_ylm_mm, _ylm_mm_grad,
                                                  gen_sph2pix)
@@ -1890,7 +2205,362 @@ def phase_hera_alm(bt, torch, rime_cuda, pix_chunks, size=ALM, nrow=64,
     print(f"phase 14 the Ylm products: {prods:.2f} ms a step by CUDA "
           f"events, {prods / np.median(step_s[1:]) / 1e3:.1%} of the "
           f"median step wall; {seen}", flush=True)
+    ylm = (Y, alm.alm_mult)
     del prob, rime, alm, Y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fwd, dtau, ylm
+
+
+def sfb_bound_ms(rime_cuda, nf, nn, nc, nk_cols, nk_l):
+    """Least times of the SFB transform's forward and of its gradient
+    (complex64 t_lmn and a_lm, float32 g): each (f, n, column) of a
+    column's first Nk(l) rows is a real-by-complex multiply-add, 4
+    operations (nk_cols = sum over columns of Nk); bytes: the forward
+    reads those rows of the t_lmn and every g_ln once and writes the
+    a_lm; the gradient reads the a_lm's cotangent and the g_ln and writes
+    the whole t_lmn gradient (nn rows). Returns ((ms, by), (ms, by))."""
+    flop = 4.0 * nf * nk_cols
+    g = 4.0 * nf * nk_l
+    return (rime_cuda.roofline_ms(flop, 8.0 * nk_cols + g + 8.0 * nf * nc),
+            rime_cuda.roofline_ms(flop, 8.0 * nf * nc + g + 8.0 * nn * nc))
+
+
+def phase_hera_sfb(bt, torch, rime_cuda, pix_chunks, sky_ylm, size=SFB,
+                   npx=2048, nch=4):
+    """Phase 15: main path 8, hera-sfb, config #2's widths with the SFB
+    radial basis and a Ylm beam, at full width unless given another
+    size; the sky's Ylm is phase 14's (sky_ylm = (Ylm, alm_mult)).
+    Returns the launches of rime_fwd and of rime_dtau on its 3 Adam
+    steps, and its beam's response (phase 16 takes it)."""
+    import gc
+    from bayeslim_tpu_torch.ops.sph_harm import SFBModel, gen_sph2pix
+    from bayeslim_tpu_torch.utils import healpix as hp
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    prob, truth, info = build_sfb(bt, device=None, dtype=torch.float32,
+                                  sky_ylm=sky_ylm, **size)
+    rime, tgt, alm = prob.model, prob.target[0], info["alm"]
+    beam_R, sfb = rime.beam.R, rime.sky.R.sfb
+    Y, Yb = alm.Ylm, beam_R.alm.Ylm
+    check(Y is sky_ylm[0], "hera-sfb built a second sky Ylm")
+    sky_gib = Y.numel() * Y.element_size() / 2**30
+    beam_gib = Yb.numel() * Yb.element_size() / 2**30
+    nt = len(rime.sim_times)
+    nchunks = len(pix_chunks(len(rime.sim_bls), rime.Npix_cut))
+    nk = info["nk"]
+    nk_cols = int(sum(nk.get(float(ll), 0) for ll in alm.l))
+    nk_l = int(sum(nk.values()))
+    nparams = sum(p.numel() for p in rime.parameters())
+    print(f"phase 15 hera-sfb build: {len(rime.array.ants)} antennas, "
+          f"{len(rime.sim_bls)} redundant groups, {rime.Nfreqs} freqs, {nt} "
+          f"times, nside {size['nside']} ({Y.shape[1]} pixels, "
+          f"{rime.Npix_cut} in the FOV), lmax {size['lmax']} ({alm.Ncoeff} "
+          f"modes, {len(nk)} distinct l); kmax {float(info['kmax'])!r} "
+          f"1/Mpc: Nk {nk[0.0]} at l = 0, {max(nk.values())} at most (l = "
+          f"{max(nk, key=nk.get):g}), {nk[max(nk)]} at l = {max(nk):g}, "
+          f"{nk_l} over the l, {nk_cols} over the columns; the sky's Ylm "
+          f"{tuple(Y.shape)} {Y.dtype} ({sky_gib:.3f} GiB) phase 14's "
+          f"through setup_Ylm; the beam's lmax {size['beam_lmax']} "
+          f"({beam_R.alm.Ncoeff} modes) on nside {size['beam_nside']}, Ylm "
+          f"{tuple(Yb.shape)} ({beam_gib:.3f} GiB); trainable {nparams} "
+          f"parameters: " + ", ".join(f"{k} {tuple(v.shape)}" for k, v in
+                                      rime.named_parameters())
+          + f"; build {info['total_s']:.2f} s: host gen_bessel2freq "
+          f"{info['bessel_s']:.3f} s (with sfb_kmax), the beam's Ylm "
+          f"{info['beam_s']:.3f} s, the rest "
+          f"{info['total_s'] - info['bessel_s'] - info['beam_s']:.3f} s",
+          flush=True)
+    if size is SFB:
+        check(rime.Npix_cut == ALM_SHAPES[0][1] and nchunks == 1
+              and len(rime.sim_bls) == ALM_SHAPES[0][2]
+              and rime.Nfreqs == ALM["nfreq"],
+              f"hera-sfb's rime_fwd shapes ({rime.Nfreqs} rows, "
+              f"{rime.Npix_cut} pixels in {nchunks} chunks, "
+              f"{len(rime.sim_bls)} groups) are not ALM_SHAPES'")
+
+    # the sky map at the truth and the beam map, card against a CPU
+    # float64 evaluation (SFBModel of the host float64 g_ln, the Ylm of
+    # the sampled pixels)
+    rng = np.random.default_rng(8)
+    ch = np.sort(rng.choice(rime.Nfreqs, nch, replace=False))
+    errs = {}
+    with torch.no_grad():
+        sky_map = rime.sky.R(torch.as_tensor(truth["sky"],
+                                             dtype=torch.float32,
+                                             device=Y.device))[0, 0]
+        beam_map = beam_R.grid_beam(torch.as_tensor(
+            truth["beam"], dtype=torch.float32, device=Y.device))[0, 0, 0]
+    t = torch.as_tensor(truth["sky"])
+    a_sky = SFBModel(alm.l, alm.m, info["gln"], info["kbins"])(
+        torch.complex(t[..., 0], t[..., 1]))[0, 0]
+    bt_ = torch.as_tensor(truth["beam"])[0, 0, 0]
+    a_beam = torch.complex(bt_[..., 0], bt_[..., 1])
+    nb = size["beam_nside"]
+    for name, card_map, a, model, (theta, phi) in (
+            ("sky", sky_map, a_sky, alm, (info["theta"], info["phi"])),
+            ("beam", beam_map, a_beam, beam_R.alm,
+             hp.pix2ang(nb, np.arange(hp.nside2npix(nb))))):
+        px = np.sort(rng.choice(len(theta), npx, replace=False))
+        got = card_map[ch][:, px].double().cpu().numpy()
+        rms = float(torch.sqrt(torch.mean(card_map.double() ** 2)))
+        Ys, _, am = gen_sph2pix(theta[px], phi[px], model.l, model.m,
+                                high_prec=False, device="cpu",
+                                dtype=torch.float64)
+        ref = ((a[ch] * am) @ Ys).real.numpy()
+        errs[name] = (float(np.abs(got - ref).max()) / rms, rms)
+        del Ys
+    print(f"phase 15 maps at the truth, {npx} random pixels x {nch} "
+          f"channels against a CPU float64 evaluation: " + "; ".join(
+              f"{k} worst error {e:.3e} of the map's rms {r:.4e}"
+              for k, (e, r) in errs.items()) + " (tol 1e-4)", flush=True)
+    check(all(e <= 1e-4 for e, _ in errs.values()),
+          f"hera-sfb maps {errs}")
+    del sky_map, beam_map
+
+    # 3 Adam steps: the t_lmn's learning rate is hera-alm's (1e-2) over
+    # the median rms_f |g_l(f, :)| (the t_lmn of an a_lm of 1 are ~1 /
+    # that), the beam a_lm's 1e-3 (they are ~1e-2-1e-1)
+    gscale = float(np.median([1.0 / np.sqrt(np.mean(np.sum(
+        g.numpy() ** 2, axis=1))) for g in info["gln"].values()]))
+    lrs = {"sky.params": 1e-2 * gscale, "beam.params": 1e-3}
+    trainer = bt.Trainer(prob)
+    keys = list(trainer.pdict.keys())
+    trainer.set_opt(lambda ps: torch.optim.Adam(
+        [{"params": [p], "lr": lrs[k]} for k, p in zip(keys, ps)]))
+    torch.cuda.synchronize()
+    checks_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    rime_cuda.launches = rime_cuda.dtau_launches = 0
+    losses, step_s = [], []
+    for _ in range(3):
+        t1 = time.time()
+        losses.append(float(trainer.step()))
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t1)
+    fwd, dtau = rime_cuda.launches, rime_cuda.dtau_launches
+    expect = 3 * 2 * nt * nchunks
+    step_peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = max(checks_peak, step_peak)
+    limit = sky_gib + beam_gib + 2
+    print(f"phase 15 hera-sfb main path: Adam (lr {lrs['sky.params']:.4g} "
+          f"on the t_lmn, {lrs['beam.params']:g} on the beam a_lm) losses "
+          f"{losses}; step wall first {step_s[0] * 1e3:.1f} ms, median of "
+          f"the rest {np.median(step_s[1:]) * 1e3:.1f} ms (steps "
+          f"{[round(x * 1e3, 1) for x in step_s]}); rime_fwd launches "
+          f"{fwd} (expected 3 steps x 2 passes x {nt} times x {nchunks} "
+          f"chunks = {expect}), rime_dtau launches {dtau} (expected 0: "
+          f"antenna positions are fixed); peak device memory: the steps "
+          f"{step_peak:.3f} GiB, the build and checks {checks_peak:.3f} GiB "
+          f"({base / 2**30:.3f} GiB held before, the sky's Ylm among it; "
+          f"limit the sky Ylm + the beam Ylm + 2 GiB = {limit:.3f} GiB)",
+          flush=True)
+    check(all(np.isfinite(losses)), "non-finite hera-sfb loss")
+    check(losses[2] < losses[1] < losses[0], "hera-sfb loss did not fall")
+    check(fwd == expect and dtau == 0,
+          f"hera-sfb launches rime_fwd {fwd}, rime_dtau {dtau} != "
+          f"{expect}, 0")
+    check(peak < limit, f"hera-sfb peak {peak:.3f} GiB above {limit:.3f}")
+
+    # the SFB transform by CUDA events: the batched product and its
+    # gradient beside their bounds and the per-l plain loop's
+    nn, nc = size["nn"], alm.Ncoeff
+    gen = torch.Generator(device=Y.device).manual_seed(9)
+    p = torch.randn((1, 1, nn, nc), generator=gen, dtype=torch.complex64,
+                    device=Y.device).requires_grad_(True)
+    out = sfb(p)
+    outp = sfb.forward_plain(p)
+    g = torch.randn(out.shape, generator=gen, dtype=out.dtype,
+                    device=Y.device)
+    err = relerr(out.detach().cpu().numpy(), outp.detach().cpu().numpy())
+    times = dict(
+        fwd=cuda_ms(torch, lambda: sfb(p.detach()), 20),
+        bwd=cuda_ms(torch, lambda: torch.autograd.grad(
+            out, p, g, retain_graph=True), 20),
+        plain_fwd=cuda_ms(torch, lambda: sfb.forward_plain(p.detach()), 3),
+        plain_bwd=cuda_ms(torch, lambda: torch.autograd.grad(
+            outp, p, g, retain_graph=True), 3))
+    (bf, byf), (bb, byb) = sfb_bound_ms(rime_cuda, rime.Nfreqs, nn, nc,
+                                        nk_cols, nk_l)
+    print(f"phase 15 the SFB transform by CUDA events (t_lmn (1, 1, {nn}, "
+          f"{nc}) complex64; batched against the plain loop rel "
+          f"{err:.2e}): forward {times['fwd']:.4f} ms (bound {bf:.4f} ms, "
+          f"{byf}: {bf / times['fwd']:.1%}; the per-l loop "
+          f"{times['plain_fwd']:.3f} ms), gradient {times['bwd']:.4f} ms "
+          f"(bound {bb:.4f} ms, {byb}: {bb / times['bwd']:.1%}; the per-l "
+          f"loop's {times['plain_bwd']:.3f} ms)", flush=True)
+    check(err <= 1e-5, f"hera-sfb batched SFB against its loop {err:.2e}")
+    del p, out, outp, g
+    busy = profile(torch, trainer.step, "phase 15 profile of one step")
+    if busy is not None:
+        print(f"phase 15 device busy {busy:.2f} ms of the median step wall "
+              f"{np.median(step_s[1:]) * 1e3:.1f} ms", flush=True)
+    del prob, rime, trainer, sfb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fwd, dtau, beam_R
+
+
+def phase_hera_hmc_alm(bt, torch, rime_cuda, pix_chunks, sky_ylm, beam_R,
+                       size=HMC_ALM, f64_chunk=2048, nadapt=10):
+    """Phase 16: main path 9, hera-hmc-alm, BASELINE.json config #4 as
+    written: hera-hmc's chain over hera-alm's a_lm sky (phase 14's Ylm)
+    and phase 15's Ylm beam (beam_R), 128 channels, sampled at full width
+    unless given another size. Returns the launches of rime_fwd and of
+    rime_dtau on the sampling path."""
+    import gc
+    import statistics
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    prob, truth = build_hmc_alm(bt, device=None, dtype=torch.float32,
+                                sky_ylm=sky_ylm, beam_R=beam_R, **size)
+    seq = prob.model
+    rime, tgt = seq.rime, prob.target[0]
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    sizes = {k: v.numel() for k, v in seq.named_parameters()}
+    nparams = sum(sizes.values())
+    nt = len(rime.sim_times)
+    nchunks = len(pix_chunks(len(rime.sim_bls), rime.Npix_cut))
+    nf, nc = rime.Nfreqs, rime.sky.R.spat_LM.Ncoeff
+    expect_n = 2 * nf * (nc + beam_R.alm.Ncoeff + len(rime.array.ants))
+    print(f"phase 16 hera-hmc-alm build: {len(rime.array.ants)} antennas "
+          f"(fixed), {len(rime.sim_bls)} redundant groups simulated, "
+          f"expanded to {len(rime.data_bls)} data baselines, {nf} freqs, "
+          f"{nt} times, {rime.Npix_cut} FOV pixels; the sky's Ylm phase "
+          f"14's, the beam's response phase 15's; trainable {nparams} "
+          f"parameters (expected 2 x {nf} x ({nc} sky modes + "
+          f"{beam_R.alm.Ncoeff} beam modes + {len(rime.array.ants)} gains) "
+          f"= {expect_n}): " + ", ".join(
+              f"{k} {tuple(v.shape)}" for k, v in seq.named_parameters())
+          + f"; target {tuple(tgt.data.shape)} {tgt.data.dtype}; "
+          f"{build_s:.1f} s", flush=True)
+    check(nparams == expect_n, f"hera-hmc-alm has {nparams} parameters")
+    check(rime.sky.R.spat_LM.Ylm is sky_ylm[0] and rime.beam.R is beam_R,
+          "hera-hmc-alm built a second sky Ylm or beam response")
+    if size is HMC_ALM:
+        check(rime.Npix_cut == ALM_SHAPES[0][1] and nchunks == 1
+              and len(rime.sim_bls) == ALM_SHAPES[0][2]
+              and nf == ALM["nfreq"],
+              "hera-hmc-alm's rime_fwd shapes are not ALM_SHAPES'")
+    U, _ = prob.value_and_grad()
+    check(U.dtype == torch.float64 and U.ndim == 0,
+          f"hera-hmc-alm U is {U.dtype} of shape {tuple(U.shape)}")
+    pot = bt.Potential(prob)
+
+    def walls(ts):
+        return (f"first {ts[0] * 1e3:.1f} ms, median of the rest "
+                f"{statistics.median(ts[1:]) * 1e3:.1f} ms" if len(ts) > 1
+                else f"{ts[0] * 1e3:.1f} ms")
+
+    # 1. the diagonal mass from lbfgs_approx_cov's probe (restored after)
+    t1 = time.time()
+    evals0 = prob.closure_eval
+    x0 = prob.collect_main_params().detach().clone()
+    _, g0 = prob.value_and_grad()
+    h0 = {k: torch.full((v.numel(),), HMC_PROBE[k] / float(v.abs().max()),
+                        dtype=v.dtype, device=v.device)
+          for k, v in g0.items()}
+    cov = bt.lbfgs_approx_cov(prob, Nsteps=2, H0=h0)
+    prob.send_main_params(x0)
+    cov_L = x0.unravel(torch.sqrt(cov.diag))
+    torch.cuda.synchronize()
+    print(f"phase 16 U at the truth {float(U)!r}; mass: lbfgs_approx_cov "
+          f"(2 probe steps a leaf) {time.time() - t1:.2f} s, "
+          f"{prob.closure_eval - evals0} evaluations; cov_L per leaf "
+          + ", ".join(f"{k} {float(v.min()):.4e} ... {float(v.max()):.4e}"
+                      for k, v in cov_L.items()), flush=True)
+    check(all(bool(torch.all(torch.isfinite(v) & (v > 0)))
+              for v in cov_L.values()), "hera-hmc-alm mass not finite")
+
+    # 2-3. dual averaging, then 10 samples at the averaged step
+    rime_cuda.launches = rime_cuda.dtau_launches = 0
+    evals0 = prob.closure_eval
+    t1 = time.time()
+    hmc = bt.HMC(pot, x0, eps=1e-3, Nstep=10, seed=0)
+    hmc.set_chol(cov_L=cov_L)
+    hmc.dual_averaging(Nadapt=nadapt, target=0.8)
+    n0 = hmc.fn_evals
+    ts = []
+    for _ in range(nadapt):
+        t2 = time.time()
+        hmc.step()
+        torch.cuda.synchronize()
+        ts.append(time.time() - t2)
+    eps = float(np.exp(hmc.stepsize.log_eps_bar))
+    print(f"phase 16 dual averaging ({nadapt} steps of 10, target 0.8, "
+          f"from eps 1e-3): adapted eps {eps!r}; acceptance "
+          f"{np.mean(hmc._acceptances):.3f}; dH {list(hmc.dHs)}; "
+          f"divergences {hmc._divergences}; fn_evals {hmc.fn_evals - n0}; "
+          f"step walls {walls(ts)}", flush=True)
+    hmc.eps, hmc.stepsize = eps, None
+    n0, a0, d0 = hmc.fn_evals, len(hmc._acceptances), len(hmc.dHs)
+    trajs, ts = [], []
+    for i in range(10):
+        x_start = hmc.x
+        t2 = time.time()
+        hmc.step()
+        torch.cuda.synchronize()
+        ts.append(time.time() - t2)
+        if i < 3:
+            trajs.append((x_start, hmc.p) + hmc.last_proposal
+                         + (hmc.dHs[-1],))
+    acc = hmc._acceptances[a0:]
+    divs = [d for d in hmc._divergences if d >= a0]
+    ch = hmc.get_chain(burn=a0)
+    moved = {k: float((v != v[:1]).any(axis=0).mean()) for k, v in ch.items()}
+    print(f"phase 16 HMC (10 samples, 10 steps of {eps:.4e}): acceptance "
+          f"{np.mean(acc):.3f} ({', '.join(f'{a:.3f}' for a in acc)}); "
+          f"dH {hmc.dHs[d0:]}; divergences {divs}; fn_evals "
+          f"{hmc.fn_evals - n0}; step walls {walls(ts)}; share of elements "
+          f"moved " + ", ".join(f"{k} {v:.4f}" for k, v in moved.items()),
+          flush=True)
+    check(all(np.isfinite(hmc.dHs[d0:])), "hera-hmc-alm dH not finite")
+    check(not divs, f"hera-hmc-alm divergences at {divs}")
+
+    # 4. NUTS at the adapted step
+    nuts = bt.NUTS(pot, hmc.x, eps=eps, mass=hmc.mass.mass, max_treedepth=5,
+                   seed=1)
+    ts = []
+    for _ in range(3):
+        t2 = time.time()
+        nuts.step()
+        torch.cuda.synchronize()
+        ts.append(time.time() - t2)
+    print(f"phase 16 NUTS (3 steps, max depth 5): tree depths "
+          f"{nuts.tree_depths}; acceptance statistics "
+          f"{[round(a, 4) for a in nuts._acceptances]}; fn_evals "
+          f"{nuts.fn_evals}; step walls {walls(ts)}", flush=True)
+    check(all(np.isfinite(v).all() for s in (hmc, nuts)
+              for v in s.get_chain().values()),
+          "hera-hmc-alm chain has non-finite positions")
+    sample_s = time.time() - t1
+    fwd, dtau = rime_cuda.launches, rime_cuda.dtau_launches
+    nevals = prob.closure_eval - evals0
+    expect = 2 * nt * nchunks * nevals
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase 16 hera-hmc-alm main path (dual averaging, HMC, NUTS: "
+          f"{sample_s:.1f} s): {nevals} evaluations, "
+          f"{sample_s / nevals * 1e3:.1f} ms each; rime_fwd launches {fwd} "
+          f"(expected 2 passes x {nt} times x {nchunks} chunks x {nevals} "
+          f"evaluations = {expect}), rime_dtau launches {dtau} (expected 0: "
+          f"antenna positions fixed); peak device memory {peak:.2f} GiB",
+          flush=True)
+    check(fwd == expect and dtau == 0,
+          f"hera-hmc-alm launches rime_fwd {fwd}, rime_dtau {dtau} != "
+          f"{expect}, 0")
+    phase_hera_hmc_dH(bt, torch, prob, hmc, trajs, lambda: build_hmc_alm(
+        bt, device=None, dtype=torch.float64,
+        **dict(size, pix_chunk=f64_chunk))[0], "phase 16", f64_chunk)
+    profile(torch, prob.value_and_grad,
+            "phase 16 profile of one evaluation")
+    print(f"phase 16 wall {time.time() - t_phase:.1f} s", flush=True)
+    del prob, seq, rime, hmc, nuts
     gc.collect()
     torch.cuda.empty_cache()
     return fwd, dtau
@@ -2237,7 +2907,13 @@ def main():
                                           hera_prod)
     redcal_fwd = phase_hera_redcal(bt, torch, rime_cuda, _pix_chunks)
     hmc_fwd = phase_hera_hmc(bt, torch, rime_cuda, _pix_chunks)
-    alm_fwd, alm_dtau = phase_hera_alm(bt, torch, rime_cuda, _pix_chunks)
+    alm_fwd, alm_dtau, sky_ylm = phase_hera_alm(bt, torch, rime_cuda,
+                                                _pix_chunks)
+    sfb_fwd, sfb_dtau, beam_R = phase_hera_sfb(bt, torch, rime_cuda,
+                                               _pix_chunks, sky_ylm)
+    hmca_fwd, hmca_dtau = phase_hera_hmc_alm(bt, torch, rime_cuda,
+                                             _pix_chunks, sky_ylm, beam_R)
+    del sky_ylm, beam_R
 
     # rime_fwd: the two shapes are launched equally often on hera-stat:
     # report the mean per launch (hera-prod's and hera-alm's shapes beside
@@ -2248,11 +2924,13 @@ def main():
         "source": "bayeslim_tpu_torch/csrc/rime_fwd.cu",
         "replaces": "bayeslim_tpu/ops/rime_pallas.py:298",
         "launches": stat_launches + cal_fwd + prod_fwd + redcal_fwd
-        + hmc_fwd + alm_fwd,
+        + hmc_fwd + alm_fwd + sfb_fwd + hmca_fwd,
         "launches_by_path": {"hera-stat": stat_launches, "hera-cal": cal_fwd,
                              "hera-prod": prod_fwd,
                              "hera-redcal": redcal_fwd,
-                             "hera-hmc": hmc_fwd, "hera-alm": alm_fwd},
+                             "hera-hmc": hmc_fwd, "hera-alm": alm_fwd,
+                             "hera-sfb": sfb_fwd,
+                             "hera-hmc-alm": hmca_fwd},
         "max_abs_err": max(worst_fwd["hera-fwd"], worst_fwd["hera-bwd"]),
         "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[2],
         "bound_by": timing[0][3] if timing[0][3] == timing[1][3]
@@ -2266,10 +2944,12 @@ def main():
         "name": "rime_dtau", "route": "cuda",
         "source": "bayeslim_tpu_torch/csrc/rime_dtau.cu",
         "replaces": "bayeslim_tpu/ops/rime_pallas.py:693",
-        "launches": cal_dtau + prod_dtau + alm_dtau,
+        "launches": cal_dtau + prod_dtau + alm_dtau + sfb_dtau + hmca_dtau,
         "launches_by_path": {"hera-stat": 0, "hera-cal": cal_dtau,
                              "hera-prod": prod_dtau, "hera-redcal": 0,
-                             "hera-hmc": 0, "hera-alm": alm_dtau},
+                             "hera-hmc": 0, "hera-alm": alm_dtau,
+                             "hera-sfb": sfb_dtau,
+                             "hera-hmc-alm": hmca_dtau},
         "max_abs_err": worst_dtau, "ms": dms, "plain_ms": dpms,
         "bound_ms": dbms, "bound_by": dby, "library_ms": None}]
     kernels += spikes

@@ -738,6 +738,56 @@ def test_hera_alm_small_on_card(cuda):
 
 
 @pytest.mark.cuda
+def test_hera_sfb_small_on_card(cuda):
+    """The hera-sfb chain at hex-2 (chip_smoke.build_sfb: nside 8, lmax
+    23, 8 k modes, a Ylm beam of lmax 8; the sky's and the beam's Ylm and
+    the stacked g_ln on the card) at its start: card float32 against CPU
+    float64, the loss and the t_lmn and beam gradients; two rime_fwd
+    launches a time (forward and role-swapped), no rime_dtau; and the
+    batched SFB product against its per-l loop on the card."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import bayeslim_tpu_torch as bt
+    from chip_smoke import build_sfb
+    kw = dict(hexN=2, nside=8, lmax=23, nfreq=8, fmax=120e6, ntime=2,
+              pix_chunk=512, beam_lmax=8, beam_nside=8, nn=8)
+    cpu, _, _ = build_sfb(bt, device="cpu", dtype=torch.float64, **kw)
+    gpu, _, info = build_sfb(bt, device=cuda, dtype=torch.float32, **kw)
+    sfb = gpu.model.sky.R.sfb
+    assert sfb._G.is_cuda and sfb._G.dtype == torch.float32
+    assert gpu.model.beam.R.alm.Ylm.is_cuda
+    gpu.target[0].data = cpu.target[0].data.to(torch.complex64).to(cuda)
+    n0 = (rime_cuda.launches, rime_cuda.dtau_launches)
+    vg, gg = gpu.value_and_grad()
+    assert (rime_cuda.launches - n0[0],
+            rime_cuda.dtau_launches - n0[1]) == (2 * 2, 0)
+    vc, gc = cpu.value_and_grad()
+    assert abs(float(vg) - float(vc)) / abs(float(vc)) <= 1e-4
+    for k in gc.keys():
+        assert _relerr(gg[k].cpu().numpy(), gc[k].numpy()) <= 1e-4, k
+    p = torch.randn((2, 8, info["alm"].Ncoeff), dtype=torch.complex64,
+                    device=cuda)
+    assert _relerr(sfb(p).cpu().numpy(),
+                   sfb.forward_plain(p).cpu().numpy()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_hera_hmc_alm_small_trajectory_on_card(cuda):
+    """One HMC trajectory of the hera-hmc-alm chain at hex-2
+    (chip_smoke.build_hmc_alm: the a_lm sky, the Ylm beam and the gains)
+    card float32 against CPU float64, as phase 7 runs it."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import bayeslim_tpu_torch as bt
+    from chip_smoke import phase_small_hmc
+    phase_small_hmc(bt, torch, rime_cuda, cuda, alm=True)
+
+
+@pytest.mark.cuda
 def test_ylm_on_card_and_its_product_in_true_fp32(cuda):
     """A Ylm built on the card (nside 16, lmax 47) against the CPU
     float64 one, and the a_lm product and its gradient against float64
