@@ -18,7 +18,9 @@ bayeslim_tpu module for module:
 - models/    : telescope/array, sky (pixel, a_lm and SFB t_lmn), beam
                (pixel and Ylm), RIME, Jones gains, the per-baseline /
                per-group visibility models and the redcal degeneracies,
-               the cosmology
+               the cosmology, linear models (LinearModel, MultiLM,
+               DictLM), the delay FFT (FFT, PeakDelay) and the filters
+               (MatFilter, GPFilter, LstSqFilter, WedgeFilter)
 - inference/ : priors, LogProb (structured covariances, main-param
                sub-slices), the Trainer, BFGS, L-BFGS and its
                approximate covariance, the hmat operators and the
@@ -46,7 +48,9 @@ from .models import (RIME, TelescopeModel, ArrayModel, PixelBeam,
                      PointSkyResponse, CompositeModel, Stokes2Coherency,
                      CoherencySky, SphHarmSky, pixelsky_Ylm_cut, JonesModel,
                      JonesResponse, VisModel, VisModelResponse, RedVisModel,
-                     vis2JonesModel, vis2RedVisModel)
+                     vis2JonesModel, vis2RedVisModel, LinearModel,
+                     MultiLM, DictLM, FFT, PeakDelay, MatFilter, GPFilter,
+                     LstSqFilter, WedgeFilter)
 from .ops import (AlmModel, SFBModel, gen_bessel2freq, gen_lm,
                   gen_sph2pix)
 from .inference import (LogProb, Trainer, BFGS, LBFGS, DiagMat,

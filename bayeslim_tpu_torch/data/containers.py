@@ -1,9 +1,10 @@
 """
 Data containers: TensorData, VisData, MapData (the slice's subset).
 
-Counterpart of bayeslim_tpu/data/containers.py (TensorData :138,
-VisData :306, MapData :1048, concat_VisData :1549; set_cov :160,
-compute_icov :192). Shapes follow the JAX package:
+Counterpart of bayeslim_tpu/data/containers.py (TensorData :138, VisData
+:306 with _blnum_lookup / _bl2ind :398-415, MapData :1048,
+concat_VisData :1549; set_cov :160, compute_icov :192). Shapes follow
+the JAX package:
 
 - visibilities (Npol, Npol, Nbls, Ntimes, Nfreqs), complex
 - sky maps     (Npol, 1, Nfreqs, Npix) with angs (2, Npix) [RA, Dec deg]
@@ -164,6 +165,26 @@ class VisData(TensorData):
     @property
     def Npol(self):
         return 1 if self.pol is not None else 2
+
+    def _blnum_lookup(self):
+        """blnum -> row dict; build it once for a bulk lookup and pass it
+        to _bl2ind as _lut."""
+        return {int(b): i for i, b in enumerate(self.blnums)}
+
+    def _bl2ind(self, bl, _lut=None):
+        """Rows of baselines (an antenna-pair tuple, a list of them, or
+        blnums) in the data; ValueError for one not in it."""
+        if isinstance(bl, tuple):
+            bl = [bl]
+        if isinstance(bl, list) and len(bl) and isinstance(bl[0], tuple):
+            nums = np.asarray(ants2blnum(bl))
+        else:
+            nums = np.atleast_1d(np.asarray(bl, dtype=np.int64))
+        lookup = _lut if _lut is not None else self._blnum_lookup()
+        try:
+            return np.asarray([lookup[int(n)] for n in nums])
+        except KeyError as e:
+            raise ValueError(f"baseline {e} not found in data") from None
 
     @staticmethod
     def _squeeze(arr):

@@ -27,6 +27,7 @@ import torch
 from ..utils.dtypes import D2R, C_MS, _float, resolve_device, viewcomp
 from ..utils.interp import PixInterp
 from ..utils.module import Module
+from ..ops.special import j1_integral
 from .bessel import j1
 
 __all__ = ["PixelBeam", "GaussResponse", "AiryResponse", "UniformResponse",
@@ -86,13 +87,16 @@ def beam_edge_taper(zen, mode="gauss", fov=180.0, mu=85.0, sigma=2.5,
     raise ValueError(f"unknown taper mode {mode}")
 
 
-def airy_disk(zen_rad, az_rad, Dew, freqs, Dns=None, square=True):
+def airy_disk(zen_rad, az_rad, Dew, freqs, Dns=None, freq_ratio=1.0,
+              square=True, brute_force=False, Ntau=100):
     """Airy-disk beam b = [2 J1(x) / x]^2, x = 2 pi f (D/2) sin(zen) / c.
 
     zen_rad, az_rad : (Npix,) tensors [rad]; Dew (and optional Dns, for
     an elliptical aperture D(az) = Dns + sin^2(az) (Dew - Dns)) have the
-    leading shape (Npol, Nvec, Nmodel); freqs : (Nfreqs,) tensor [Hz].
-    Returns (Npol, Nvec, Nmodel, Nfreqs, Npix).
+    leading shape (Npol, Nvec, Nmodel); freqs : (Nfreqs,) tensor [Hz],
+    scaled by freq_ratio. brute_force takes J1 from the trapezoid rule
+    on its integral with Ntau points (ops/special.j1_integral) instead
+    of the polynomial. Returns (Npol, Nvec, Nmodel, Nfreqs, Npix).
     """
     nb = zen_rad.ndim
     Dew = Dew.reshape(Dew.shape[:3] + (1,) * (nb + 1))
@@ -104,11 +108,12 @@ def airy_disk(zen_rad, az_rad, Dew, freqs, Dns=None, square=True):
     # clip sin(zen) below the horizon so the beam doesn't wrap
     szen = torch.where(zen_rad > np.pi / 2, torch.ones_like(zen_rad),
                        torch.sin(zen_rad))
-    fshape = freqs.reshape((-1,) + (1,) * nb)
+    fshape = (freqs * freq_ratio).reshape((-1,) + (1,) * nb)
     x = 2 * np.pi * fshape * (diameter / 2.0) / C_MS * szen
     small = x < 1e-8
     xs = torch.where(small, torch.ones_like(x), x)
-    b = torch.where(small, torch.ones_like(x), 2 * j1(xs) / xs)
+    J1 = j1_integral(xs, Ntau=Ntau) if brute_force else j1(xs)
+    b = torch.where(small, torch.ones_like(x), 2 * J1 / xs)
     return b ** 2 if square else torch.abs(b)
 
 
@@ -135,19 +140,26 @@ class GaussResponse(Module):
 class AiryResponse(Module):
     """Airy-disk beam response. params (Npol, Nvec, Nmodel, 1, 2): EW and
     NS aperture diameters [m] (or (..., 1, 1) for a circular one);
-    taper_kwargs: an optional beam_edge_taper."""
+    freq_ratio scales the frequencies; brute_force and Ntau: J1 by the
+    trapezoid rule (airy_disk); taper_kwargs: an optional
+    beam_edge_taper."""
 
-    def __init__(self, powerbeam=True, taper_kwargs=None):
+    def __init__(self, freq_ratio=1.0, powerbeam=True, taper_kwargs=None,
+                 brute_force=False, Ntau=100):
         super().__init__()
+        self.freq_ratio = freq_ratio
         self.freq_mode = "other"
         self.powerbeam = powerbeam
         self.taper_kwargs = taper_kwargs
+        self.brute_force = brute_force
+        self.Ntau = Ntau
 
     def forward(self, params, zen, az, freqs, ctx=None):
         Dew = params[..., 0, 0:1]
         Dns = params[..., 0, 1:2] if params.shape[-1] > 1 else None
         beam = airy_disk(zen * D2R, az * D2R, Dew, freqs, Dns,
-                         square=self.powerbeam)
+                         freq_ratio=self.freq_ratio, square=self.powerbeam,
+                         brute_force=self.brute_force, Ntau=self.Ntau)
         if self.taper_kwargs is not None:
             beam = beam * beam_edge_taper(zen, **self.taper_kwargs)
         return beam
@@ -178,8 +190,9 @@ class PixelResponse(Module):
     (nside) or 'rect' (theta_grid / phi_grid [deg]). The interpolation
     neighbours and weights come as ctx = (inds, wgts), precomputed on
     the host (``precompute``; RIME does it per time), or are computed
-    here from the angles. freq_mode 'channel' only: 'linear' needs
-    LinearModel (models/linear_model.py), which is not ported yet.
+    here from the angles. freq_mode 'channel': params per channel;
+    'linear': freq_LM (a LinearModel) maps the params' coefficients to
+    channels after beam0.
     """
 
     def __init__(self, freqs, pixtype, nside=None, theta_grid=None,
@@ -187,11 +200,6 @@ class PixelResponse(Module):
                  freq_LM=None, comp_params=False, log=False, powerbeam=True,
                  realbeam=True, beam0=None, norm_pix=None, taper_kwargs=None):
         super().__init__()
-        if freq_mode != "channel":
-            raise NotImplementedError(
-                f"PixelResponse freq_mode {freq_mode!r} needs LinearModel "
-                f"(models/linear_model.py, ROADMAP queue A8), which is not "
-                f"ported yet")
         self.freqs = np.asarray(freqs, dtype=np.float64)
         self.pixtype = pixtype
         self.interp = PixInterp(pixtype, nside=nside, interp_mode=interp_mode,
@@ -222,6 +230,8 @@ class PixelResponse(Module):
                 else torch.complex64
             params = params + b0.to(cdt if params.is_complex()
                                     or b0.is_complex() else params.dtype)
+        if self.freq_mode == "linear":
+            params = self.freq_LM(params)
         if self.log:
             params = torch.exp(params)
         if self.realbeam and params.is_complex():

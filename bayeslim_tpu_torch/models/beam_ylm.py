@@ -10,7 +10,8 @@ ctx is precomputed on the host), or are evaluated at the requested
 angles themselves from a Ylm of those angles ('generate': the ctx, or
 the attached Ylm). In interpolate mode the grid's Ylm is built in the
 constructor, on device (default CUDA) in dtype (default float32).
-freq_mode 'linear' needs LinearModel (ROADMAP queue A8) and raises.
+freq_mode 'linear' maps the a_lm's frequency coefficients to channels by
+freq_LM (a LinearModel).
 """
 from __future__ import annotations
 
@@ -50,11 +51,6 @@ class YlmResponse(Module):
                  beam0=None, norm_pix=None, taper_kwargs=None, Ylm_kwargs=None,
                  name=None, device=None, dtype=None):
         super().__init__(name=name)
-        if freq_mode != "channel":
-            raise NotImplementedError(
-                f"YlmResponse freq_mode {freq_mode!r} needs LinearModel "
-                f"(models/linear_model.py, ROADMAP queue A8), which is not "
-                f"ported yet")
         self.alm = AlmModel(l, m, real_output=realbeam, device=device,
                             dtype=dtype)
         self.freqs = np.asarray(freqs, dtype=np.float64)
@@ -114,6 +110,8 @@ class YlmResponse(Module):
                 else torch.complex64
             params = params + b0.to(cdt if params.is_complex()
                                     or b0.is_complex() else params.dtype)
+        if self.freq_mode == "linear":
+            params = self.freq_LM(params)
         if self._lm_poly:
             params = self.lm_poly_forward(params)
         return params

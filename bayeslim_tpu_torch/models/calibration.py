@@ -9,9 +9,10 @@ JonesResponse :234, JonesModel :270, VisModelResponse :422, VisModel
 rephase_to_refant :584, compute_redcal_degen :617, redcal_degen_gains
 :651, remove_redcal_degen :664, compute_redcal_degen_vis :685,
 redcal_degen_vis :719, vis2JonesModel :744, vis2RedVisModel :775,
-chisq :799). The 'channel' freq/time modes are carried; 'linear' needs
-LinearModel (ROADMAP queue A8) and the CalData export the data layer
-(A9).
+chisq :799). The freq/time modes are 'channel' (a value per channel
+or time) and 'linear' (a LinearModel, freq_LM / time_LM, maps the
+params' coefficients to channels or times); the CalData export waits on
+the data layer (A9).
 
 Index maps (data times / baselines onto the params' axes, baselines
 onto antennas or redundant groups) are host numpy, built once per
@@ -38,11 +39,6 @@ __all__ = ["params2complex", "complex2params", "BaseResponse",
            "rephase_to_refant", "compute_redcal_degen", "redcal_degen_gains",
            "remove_redcal_degen", "compute_redcal_degen_vis",
            "redcal_degen_vis", "vis2JonesModel", "vis2RedVisModel", "chisq"]
-
-_LINEAR = ("{!r} freq/time mode needs LinearModel "
-           "(models/linear_model.py, ROADMAP queue A8), which is not ported "
-           "yet")
-
 
 def _key(arr):
     """Exact cache key of an index array (the JAX package's arr_hash
@@ -198,19 +194,16 @@ def complex2params(gains, param_type):
 
 class BaseResponse(Module):
     """Maps a params tensor to complex (..., Ntimes, Nfreqs) values: an
-    optional LM, param_type conversion, an optional fixed offset base0,
+    optional LM, then freq_LM ('linear' freq_mode) and time_LM ('linear'
+    time_mode), param_type conversion, an optional fixed offset base0,
     then the projection (redcal degeneracies and / or the reference
-    antenna's phase, setup_projection). Only the 'channel' freq/time
-    modes are carried."""
+    antenna's phase, setup_projection)."""
 
     def __init__(self, freq_mode="channel", time_mode="channel",
                  param_type="com", freq_LM=None, time_LM=None, freqs=None,
                  times=None, LM=None, base0=None, antpos=None, name=None,
                  **proj_kwargs):
         super().__init__(name=name)
-        for mode in (freq_mode, time_mode):
-            if mode != "channel":
-                raise NotImplementedError(_LINEAR.format(mode))
         self.freq_mode = freq_mode
         self.time_mode = time_mode
         self.param_type = param_type
@@ -259,11 +252,20 @@ class BaseResponse(Module):
             params = params * torch.exp(-1j * phs)
         return params
 
+    def _linear_modes(self, params):
+        """The 'linear' freq and time modes' LinearModels."""
+        if self.freq_mode == "linear":
+            params = self.freq_LM(params)
+        if self.time_mode == "linear":
+            params = self.time_LM(params)
+        return params
+
     def forward(self, params, **kwargs):
         if self.LM is not None:
             params = self.LM(params)
         if self.param_type == "com":
             params = viewcomp(params)
+        params = self._linear_modes(params)
         if self.base0 is not None:
             params = params + torch.as_tensor(self.base0, dtype=params.dtype,
                                               device=params.device)
@@ -292,6 +294,7 @@ class JonesResponse(BaseResponse):
             return super().forward(params, **kwargs)
         if self.LM is not None:
             params = self.LM(params)
+        params = self._linear_modes(params)
         A = _like(self.antpos.antvecs[:, :2], params)
         slope = torch.einsum("ab,ijblm->ijalm", A, params)
         if self.slope_type == "dly_slope":
@@ -837,13 +840,23 @@ def redcal_degen_vis(abs_amp=None, phs_slope=None, vd=None, bls=None,
     return out
 
 
+def _tf_shape(vis, time_mode, freq_mode, time_LM, freq_LM):
+    """The params' (time, freq) sizes: the data's times and channels, or
+    the 'linear' modes' coefficients (the columns of their LM's A)."""
+    return (len(vis.times) if time_mode == "channel"
+            else time_LM.A.shape[-1],
+            len(vis.freqs) if freq_mode == "channel"
+            else freq_LM.A.shape[-1])
+
+
 def vis2JonesModel(vis, param_type="com", freq_mode="channel",
                    time_mode="channel", freqs=None, freq_LM=None,
                    time_LM=None, refant=None, single_ant=False, device=None,
                    dtype=None):
     """JonesModel sized from a VisData: one gain per antenna of its
-    baselines (or one for all with single_ant), time and channel; unity
-    ('com', as real pairs) or zero starting params."""
+    baselines (or one for all with single_ant), time and channel (or
+    coefficient of the 'linear' modes' LinearModels); unity ('com', as
+    real pairs) or zero starting params."""
     R = JonesResponse(param_type=param_type, antpos=vis.antpos,
                       freq_mode=freq_mode, freq_LM=freq_LM, freqs=freqs,
                       time_mode=time_mode, time_LM=time_LM)
@@ -854,7 +867,8 @@ def vis2JonesModel(vis, param_type="com", freq_mode="channel",
         nants = 2
     elif single_ant:
         nants = 1
-    shape = (vis.Npol, vis.Npol, nants, len(vis.times), len(vis.freqs))
+    shape = (vis.Npol, vis.Npol, nants) + _tf_shape(vis, time_mode, freq_mode,
+                                                    time_LM, freq_LM)
     params = np.zeros(shape + ((2,) if param_type == "com" else ()))
     if param_type == "com":
         params[..., 0] = 1.0
@@ -866,14 +880,16 @@ def vis2RedVisModel(vis, param_type="com", freq_mode="channel",
                     time_mode="channel", freqs=None, freq_LM=None,
                     time_LM=None, redtol=1.0, device=None, dtype=None):
     """RedVisModel sized from a VisData: one value per redundant group
-    of its baselines (groups within redtol [m]), time and channel,
-    starting at zero."""
+    of its baselines (groups within redtol [m]), time and channel (or
+    coefficient of the 'linear' modes' LinearModels), starting at
+    zero."""
     from .telescope import build_reds
     reds, _, bl2red = build_reds(vis.antpos, bls=vis.bls, redtol=redtol)[:3]
     R = VisModelResponse(param_type=param_type, freq_mode=freq_mode,
                          freqs=freqs, freq_LM=freq_LM, time_mode=time_mode,
                          time_LM=time_LM)
-    shape = (vis.Npol, vis.Npol, len(reds), len(vis.times), len(vis.freqs))
+    shape = (vis.Npol, vis.Npol, len(reds)) + _tf_shape(
+        vis, time_mode, freq_mode, time_LM, freq_LM)
     params = np.zeros(shape + ((2,) if param_type == "com" else ()))
     return RedVisModel(params, bl2red, R=R, device=device, dtype=dtype)
 

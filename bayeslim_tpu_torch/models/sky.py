@@ -9,8 +9,9 @@ Stokes2Coherency :363, SphHarmSky :499, pixelsky_Ylm_cut :559).
 Conventions kept: sky data (Nstokes, 1, Nfreqs, Npix) or a (2, 2,
 Nfreqs, Npix) coherency; angs (2, Npix) equatorial [RA, Dec] in
 degrees; PixelSky multiplies by the pixel solid angle so the output is
-flux density. PixelSkyResponse carries the 'pixel' and 'alm' spatial
-modes and the 'channel', 'powerlaw' and 'bessel' frequency modes.
+flux density. PixelSkyResponse carries the 'pixel', 'linear' and 'alm'
+spatial modes and the 'channel', 'linear', 'powerlaw' and 'bessel'
+frequency modes.
 
 The 'bessel' mode computes what SFBModel computes (it holds one and
 calls it): each (l, m) column of the t_lmn gets its own l's radial
@@ -52,11 +53,11 @@ class PointSkyResponse(Module):
     """Frequency response of a PointSky; params (Nstokes, 1, Ncoeff,
     Nsources).
 
-    freq_mode 'channel': params pass through (Ncoeff = Nfreqs);
-    'linear': freq_LM(params), any callable on tensors (LinearModel is
-    not ported yet); 'powerlaw': params hold amplitude and spectral
-    index, out = amp (f / f0) ** spix. log: the amplitude (powerlaw) or
-    the output (channel, linear) is exp of the params. LM: an optional
+    freq_mode 'channel': params pass through (Ncoeff = Nfreqs); 'linear':
+    freq_LM(params), a LinearModel (or any callable on tensors) of the
+    coefficients; 'powerlaw': params hold amplitude and spectral index,
+    out = amp (f / f0) ** spix. log: the amplitude (powerlaw) or the
+    output (channel, linear) is exp of the params. LM: an optional
     callable applied to the params first.
     """
 
@@ -92,23 +93,22 @@ class PointSkyResponse(Module):
 class PixelSkyResponse(Module):
     """Spatial and frequency response of a PixelSky.
 
-    spatial_mode 'pixel': params are per pixel; 'alm': spat_LM (an
-    AlmModel, or any callable) maps the last axis to pixels. freq_mode
-    'channel': params per channel pass through; 'powerlaw': params
-    (..., 2, N) hold amplitude and spectral index, out = amp (f / f0) **
-    spix; 'bessel': params (..., Nn, Ncoeff) are spherical Fourier-Bessel
-    t_lmn, mapped to (..., Nfreqs, Ncoeff) by an SFBModel (self.sfb) of
-    the radial matrices gln {l: (Nfreqs, Nk)} and their kbins
-    (gen_bessel2freq), over the l and m of spat_LM; it needs
-    transform_order 1. cosmo: the Cosmology kept with it (default
+    spatial_mode 'pixel': params are per pixel; 'linear' or 'alm': spat_LM
+    (a LinearModel or an AlmModel, or any callable) maps the last axis
+    to pixels. freq_mode 'channel': params per channel pass through;
+    'linear': freq_LM (a LinearModel) maps coefficients to channels;
+    'powerlaw': params (..., 2, N) hold amplitude and spectral index,
+    out = amp (f / f0) ** spix; 'bessel': params (..., Nn, Ncoeff) are
+    spherical Fourier-Bessel t_lmn, mapped to (..., Nfreqs, Ncoeff) by
+    an SFBModel (self.sfb) of the radial matrices gln {l: (Nfreqs, Nk)}
+    and their kbins (gen_bessel2freq), over the l and m of spat_LM; it
+    needs transform_order 1. cosmo: the Cosmology kept with it (default
     Cosmology()). transform_order 0: spatial then frequency; 1:
     frequency then spatial. comp_params: real-pair params (trailing axis
     2) are read as complex. Then: real_output keeps the real part of a
     complex result, log exponentiates, sky0 is added, abs_output takes
     the modulus, and set_freq_index selects channels. LM: an optional
-    callable applied to the params first. freq_LM is the JAX
-    constructor's argument of the 'linear' frequency mode, which raises
-    here.
+    callable applied to the params first.
     """
 
     def __init__(self, freqs, comp_params=False, spatial_mode="pixel",
@@ -117,14 +117,10 @@ class PixelSkyResponse(Module):
                  log=False, real_output=True, abs_output=False, LM=None,
                  sky0=None, device=None, dtype=None):
         super().__init__()
-        if spatial_mode not in ("pixel", "alm"):
-            raise NotImplementedError(
-                f"spatial_mode {spatial_mode!r} is not ported yet (linear: "
-                f"ROADMAP queue A8)")
-        if freq_mode not in ("channel", "powerlaw", "bessel"):
-            raise NotImplementedError(
-                f"freq_mode {freq_mode!r} is not ported yet (linear: "
-                f"ROADMAP queue A8)")
+        if spatial_mode not in ("pixel", "linear", "alm"):
+            raise ValueError(f"unknown spatial_mode {spatial_mode}")
+        if freq_mode not in ("channel", "linear", "powerlaw", "bessel"):
+            raise ValueError(f"unknown freq_mode {freq_mode}")
         dev = resolve_device(device)
         dt = dtype or _float()
         self.freqs = np.asarray(freqs, dtype=np.float64)
@@ -170,6 +166,8 @@ class PixelSkyResponse(Module):
     def freq_transform(self, params):
         if self.comp_params and not params.is_complex():
             params = viewcomp(params)
+        if self.freq_mode == "linear":
+            return self.freq_LM(params)
         if self.freq_mode == "powerlaw":
             return params[..., 0:1, :] * \
                 (self._freqs_arr[:, None] / self.f0) ** params[..., 1:2, :]

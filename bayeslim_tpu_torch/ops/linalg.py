@@ -12,6 +12,10 @@ above ``rtol * s_max`` and defaults to ``rtol = max(M, N) * eps``; the
 JAX package's ``jnp.linalg.pinv`` defaults to ``10 * max(M, N) * eps``.
 Every pinv here passes its cut-off explicitly (``pinv_rtol`` gives the
 JAX default).
+
+``apply_along`` is the port's one contraction of a matrix along a
+dimension (LinearModel, the filters of models/filt.py): torch.einsum in
+true fp32 both ways, with the dtype promotion jnp.einsum does.
 """
 from __future__ import annotations
 
@@ -19,13 +23,16 @@ import numpy as np
 import torch
 
 from ..utils.dtypes import viewcomp, viewreal
+from .rime_cuda import no_tf32
 
 __all__ = [
     "cmult", "cdiv", "cconj", "ceinsum", "cinv", "angle", "abs",
     "diag_matmul", "diag_inv", "invert_matrix", "cholesky_inverse",
     "least_squares", "apply_phasor", "project_out_phase", "cmatmul",
-    "cov_get_diag", "pinv", "pinv_rtol",
+    "cov_get_diag", "pinv", "pinv_rtol", "apply_along",
 ]
+
+_LETTERS = "ijklmnop"
 
 
 def cmult(a, b):
@@ -69,6 +76,57 @@ def pinv(A, rtol=None, hermitian=False):
     relative to the largest singular value; None: ``pinv_rtol(A)``)."""
     rtol = pinv_rtol(A) if rtol is None else rtol
     return torch.linalg.pinv(A, rtol=rtol, hermitian=hermitian)
+
+
+class _Einsum(torch.autograd.Function):
+    """torch.einsum(eq, a, b) in true fp32 both ways (torch.einsum's own
+    backward would run outside the caller's no_tf32 block): a's gradient
+    is the einsum of g and conj(b) onto a's subscripts, b's that of
+    conj(a) and g onto b's; each operand is saved only where the other
+    takes a gradient."""
+
+    @staticmethod
+    def forward(ctx, eq, a, b):
+        ctx.eq = eq
+        ctx.save_for_backward(a if ctx.needs_input_grad[2] else None,
+                              b if ctx.needs_input_grad[1] else None)
+        with no_tf32():
+            return torch.einsum(eq, a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ins, out = ctx.eq.split("->")
+        ta, tb = ins.split(",")
+        ga = gb = None
+        with no_tf32():
+            if ctx.needs_input_grad[1]:
+                ga = torch.einsum(f"{out},{tb}->{ta}", g, b.conj())
+            if ctx.needs_input_grad[2]:
+                gb = torch.einsum(f"{ta},{out}->{tb}", a.conj(), g)
+        return None, ga, gb
+
+
+def apply_along(A, x, dim):
+    """y = A x along dimension dim of x: A (Nout, Nin), or (..., Nout,
+    Nin) batched over the dimensions of x just before dim. Operands are
+    promoted to a common dtype as jnp.einsum does; a real A on a complex
+    x is one real product over the real and imaginary planes taken as
+    extra rows (half the operations of a complex product). True fp32
+    both ways."""
+    dim = dim % x.ndim
+    t2 = list(_LETTERS[:x.ndim])
+    t2[dim] = "b"
+    t2 = "".join(t2)
+    t1 = "ab" if A.ndim == 2 else t2[dim - A.ndim + 2:dim] + "ab"
+    tout = t2.replace("b", "a")
+    if x.is_complex() and not A.is_complex():
+        rdt = torch.promote_types(x.real.dtype, A.dtype)
+        planes = torch.stack((x.real, x.imag)).to(rdt)
+        out = _Einsum.apply(f"{t1},z{t2}->z{tout}", A.to(rdt), planes)
+        return torch.complex(out[0], out[1])
+    dt = torch.promote_types(A.dtype, x.dtype)
+    return _Einsum.apply(f"{t1},{t2}->{tout}", A.to(dt), x.to(dt))
 
 
 def diag_matmul(a, b):
@@ -151,7 +209,15 @@ def _lstsq(A, B, rcond):
     """Minimum-norm least-squares solution of A X = B with singular
     values below rcond * s_max dropped (the SVD solver jnp.linalg.lstsq
     uses), on any device."""
-    return torch.linalg.pinv(A, rtol=rcond) @ B
+    P, B = _promoted(torch.linalg.pinv(A, rtol=rcond), B)
+    return P @ B
+
+
+def _promoted(a, b):
+    """a and b in their common dtype (a real design matrix against
+    complex data, as jnp promotes)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)
 
 
 def _moveaxis_for_dim(y, dim):
@@ -219,7 +285,7 @@ def least_squares(A, y, dim=-1, Ninv=None, D=None, pinv=True, rcond=1e-15,
             w, _ = _moveaxis_for_dim(Ninv, dim)
             AhN = A.conj().T[..., None, :, :] * w[..., None, :]
         AhNA = torch.einsum("...fs,sg->...fg", AhN, A)
-        x = torch.einsum("...fs,...s->...f", AhN, y2)
+        x = torch.einsum("...fs,...s->...f", *_promoted(AhN, y2))
         if norm is None:
             return (undo(x), None) if return_D else undo(x)
         if D is None:
@@ -230,7 +296,7 @@ def least_squares(A, y, dim=-1, Ninv=None, D=None, pinv=True, rcond=1e-15,
         AhN = A.conj().T @ Ninv
         AhNA = AhN @ A
 
-    x = torch.einsum("fs,...s->...f", AhN, y2)
+    x = torch.einsum("fs,...s->...f", *_promoted(AhN, y2))
     if norm is None:
         return (undo(x), None) if return_D else undo(x)
     if D is None:
@@ -253,7 +319,7 @@ def _lsq_norm(AhNA, norm, pinv, rcond, eps, hermitian):
 def _apply_D(D, x, norm):
     if norm == "diag":
         return D * x
-    return torch.einsum("...fg,...g->...f", D, x)
+    return torch.einsum("...fg,...g->...f", *_promoted(D, x))
 
 
 def apply_phasor(z, phi):

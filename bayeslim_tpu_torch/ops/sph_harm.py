@@ -512,6 +512,22 @@ def load_Ylm(fname, lmin=None, lmax=None, discard=None, cast=None,
     return out
 
 
+def _cubic_interp1d(xs, ys, xq):
+    """Cubic (Catmull-Rom) interpolation of ys on the uniform grid xs at
+    xq, on the host; the end values are repeated beyond the grid."""
+    xs, ys, xq = map(np.asarray, (xs, ys, xq))
+    dx = xs[1] - xs[0]
+    t = np.clip((xq - xs[0]) / dx, 0, len(xs) - 1)
+    i = np.clip(t.astype(int), 0, len(xs) - 2)
+    f = t - i
+    yp = np.pad(ys, 1, mode="edge")
+    y0, y1, y2, y3 = yp[i], yp[i + 1], yp[i + 2], yp[i + 3]
+    a = -0.5 * y0 + 1.5 * y1 - 1.5 * y2 + 0.5 * y3
+    b = y0 - 2.5 * y1 + 2.0 * y2 - 0.5 * y3
+    c = 0.5 * (y2 - y0)
+    return ((a * f + b) * f + c) * f + y1
+
+
 class AlmModel(Module):
     """a_lm -> map transform: forward_alm(params (..., Ncoeff)) ->
     (..., Npix), one matrix product against the Ylm (Ncoeff, Npix), or
@@ -758,11 +774,22 @@ class AlmModel(Module):
         return self.forward_alm(params, **kwargs)
 
     def taper_alm(self, alm, taper, comp_params=False, **kwargs):
-        """Taper the a_lm with an l-dependent window: needs the window
-        generator of models/fft.py (gen_window), not ported yet."""
-        raise NotImplementedError(
-            "AlmModel.taper_alm needs models/fft.py::gen_window, which is "
-            "not ported yet (ROADMAP queue A8)")
+        """Taper the a_lm with an l-dependent window: the window taper
+        (models/fft.gen_window, kwargs) over 2 Ncoeff samples, its
+        decaying half interpolated (Catmull-Rom) onto l / l_max,
+        multiplies the last axis, or the one before it when a complex
+        alm comes as real pairs (comp_params)."""
+        from ..models.fft import _window
+        N = len(self.l)
+        win = _window(taper, N * 2, **kwargs)[N:]
+        lfrac = np.asarray(self.l, dtype=float)
+        lfrac = lfrac / lfrac.max() if lfrac.max() > 0 else lfrac
+        w = _cubic_interp1d(np.linspace(0.0, 1.0, N, endpoint=True), win,
+                            lfrac)
+        w = torch.as_tensor(w, dtype=alm.real.dtype, device=alm.device)
+        if comp_params and not alm.is_complex():
+            return alm * w[:, None]
+        return alm * w
 
     def make_closure(self, params, loss_fn, target, real=True):
         """loss() = loss_fn(forward_alm(params), target) (the real parts

@@ -53,10 +53,11 @@ Phases, one line each; any failure exits non-zero:
    the CPU (float64, plain versions): a small sky/beam posterior, the
    hera-cal chain, the hera-prod chain (its loss and gradients
    accumulated over 2 time batches), the hera-redcal chain (priors
-   included), the hera-alm chain (nside 8, lmax 23) and the hera-sfb
-   chain (the same sky with 8 k modes, a Ylm beam of lmax 8), loss and
-   gradients; and one HMC trajectory each of the hera-hmc and the
-   hera-hmc-alm chain (end position, end momentum and dU);
+   included), the hera-alm chain (nside 8, lmax 23), the hera-sfb
+   chain (the same sky with 8 k modes, a Ylm beam of lmax 8) and the
+   hera-filt chain (64 channels, its delay filter at a suppression of
+   100), loss and gradients; and one HMC trajectory each of the hera-hmc
+   and the hera-hmc-alm chain (end position, end momentum and dU);
 8. kernel and plain-version times at the main paths' shapes (rime_fwd
    also at hera-prod's two and hera-alm's two), each kernel's bound, rime_fwd with its K split against one slice,
    rime_dtau beside the previous design's time, with real and complex
@@ -167,7 +168,25 @@ Phases, one line each; any failure exits non-zero:
    walls, each leaf's share moved; rime_fwd launches exactly 2 x times
    an evaluation and rime_dtau none; the dH check against the chain in
    float64 (its own float64 Ylm, 13.6 GiB for the sky) with its peak;
-   then one evaluation under torch.profiler.
+   then one evaluation under torch.profiler;
+17. main path 10, hera-filt at full width (build_filt), config #5's
+   baseline-dependent delay filter over hera-cal's chain:
+   Sequential(RIME -> JonesModel -> WedgeFilter), hera-cal's array
+   (antenna positions trainable), sky and beam, 54,615 baselines, 1024
+   channels, 2 times; gains smooth in frequency (JonesResponse(freq_mode=
+   'linear'), 16 Legendre coefficients an antenna); the WedgeFilter of 8
+   GPFilter(residual=True), one a bin of baseline length (sinc
+   covariance of half-width tau = the bin's longest b / c + 100 ns, Cn =
+   1e-9 I); the target the chain at a seeded truth plus unit noise,
+   filtered; 3 L-BFGS steps whose loss falls, rime_fwd and rime_dtau
+   launches exactly times x chunks x evaluations; build seconds (of
+   them the host float64 inversions), peak memory, chi^2/dof; the
+   float32 filtered cube within 1e-5 of the input's rms of the float64
+   filter on the card (and with G in float32), each bin's in-band
+   suppression of the noise-free foregrounds in each, PeakDelay before
+   and after; the filter by CUDA events beside its bound (one G
+   as a real product over the two planes and as a complex product); one
+   evaluation under torch.profiler.
    Then the JSON line of all nine kernels.
 
 Each torch.profiler run launches PROFILE_MARKS spin kernels before the
@@ -220,6 +239,10 @@ DTAU_BEFORE_MS, CAL_EVAL_BEFORE_MS = 3.7004, 29.05
 # third step walls (ms) and the peak device memory (GiB), chip_smoke.py
 # on an NVIDIA H100 80GB HBM3 at 700 W
 STAT_STEPS_BEFORE_MS, STAT_PEAK_BEFORE_GIB = (22.8, 19.4), 2.15
+# hera-filt (phase 17): Legendre coefficients of a gain, bins of
+# baseline length, and the delay [s] each bin's filter keeps beyond its
+# longest horizon delay
+FILT_NDEG, FILT_BINS, FILT_BUFFER = 16, 8, 100e-9
 # the redesigned spikes' previous designs at the script's sizes, ms a
 # launch (the same card): k_nn's, k_nt's and k_bd's 64 x 64 SGEMM tile,
 # k_vt's serial column walk per output, k_lr's one row a block with a
@@ -877,6 +900,129 @@ def build_hmc_alm(bt, hexN, nside, lmax, nfreq, fmax, ntime, pix_chunk,
                                       gains=gains)
 
 
+def filt_wedge(bt, freqs, bls, antpos, device, noise=1e-9):
+    """config #5's baseline-dependent delay filter through the port's
+    public API: the baselines bls (antenna pairs) in FILT_BINS equal bins
+    of length up to the longest; for each bin that holds any, a
+    GPFilter(residual=True) over frequency with Cs = sinc_cov(freqs, ls
+    = 1 / (2 tau)) (a top-hat of half-width tau in delay), tau the bin's
+    longest horizon delay b / c plus FILT_BUFFER, and Cn = noise x I (a
+    suppression of 1 / noise, as DAYENU-style filters take), Cs and Cn
+    made in float64 on the host, G (float64, the filters' default) on
+    device. Returns (WedgeFilter, bin info, seconds of the host
+    inversions)."""
+    from bayeslim_tpu_torch.utils.dtypes import C_MS
+    av = antpos.asnumpy() if hasattr(antpos, "asnumpy") else antpos
+    ants = list(antpos.ants)
+    L = np.asarray([np.linalg.norm(av[ants.index(b)] - av[ants.index(a)])
+                    for a, b in bls])
+    Lmax = float(L.max())
+    nbins = FILT_BINS
+    ib = np.clip(np.ceil(L / Lmax * nbins).astype(int) - 1, 0, nbins - 1)
+    Cn = np.eye(len(freqs)) * noise
+    filters, filt2bls, taus, counts = [], {}, [], []
+    t0 = time.time()
+    for b in range(nbins):
+        rows = np.where(ib == b)[0]
+        if not len(rows):
+            continue
+        tau = float(L[rows].max()) / C_MS + FILT_BUFFER
+        Cs = bt.models.filt.sinc_cov(freqs, ls=1.0 / (2 * tau),
+                                     device="cpu")
+        filt2bls[len(filters)] = [bls[r] for r in rows]
+        filters.append(bt.GPFilter(Cs, Cn, dim=-1, residual=True,
+                                   device=device))
+        taus.append(tau)
+        counts.append(len(rows))
+    secs = time.time() - t0
+    info = dict(edges=np.linspace(0, Lmax, nbins + 1), tau=np.asarray(taus),
+                counts=counts, bin_of=ib, lengths=L)
+    return bt.WedgeFilter(filters, filt2bls), info, secs
+
+
+def filt_truth(ants, antvecs, ndeg, seed=1):
+    """Truth of the hera-filt chain (numpy): antenna positions moved by
+    N(0, 1 cm) in E and N, and gains in the polynomial span: ndeg
+    Legendre coefficients c_k = 0.05 z_k (z complex N(0, 1)) plus
+    1 for c_0, real pairs, the first antenna's (the refant's) real. Every
+    degree draws the same scale, so that the high ones put the gains'
+    errors beyond the filter's band edge, where the filtered chain sees
+    them."""
+    rng = np.random.default_rng(seed)
+    av = np.array(antvecs, dtype=np.float64)
+    av[:, :2] += 0.01 * rng.standard_normal((len(ants), 2))
+    shp = (1, 1, len(ants), 1, ndeg)
+    z = (rng.standard_normal(shp) + 1j * rng.standard_normal(shp)) \
+        / np.sqrt(2)
+    c = 0.05 * z
+    c[..., 0] += 1.0
+    c[:, :, 0] = c[:, :, 0].real
+    return {ANTVECS: av, GAINS: np.stack([c.real, c.imag], axis=-1)}
+
+
+def build_filt(bt, hexN, nside, nfreq, fmax, ntime, pix_chunk, device,
+               dtype, noise=1e-9):
+    """The hera-filt chain, config #5's delay filter inside hera-cal's
+    calibration chain, through the port's public API:
+    Sequential(RIME -> JonesModel -> WedgeFilter). hera-cal's array (its
+    antenna positions trainable), sky (1e4 times hera-stat's) and Airy
+    beam, the redundant groups simulated and expanded to every cross
+    baseline; 1-pol gains smooth in frequency: JonesResponse(freq_mode=
+    'linear') with a LinearModel('poly', dim=4, Ndeg=FILT_NDEG, basis=
+    'legendre', whiten=True) over the channels, FILT_NDEG complex
+    coefficients per antenna (one time bin) as real pairs, refant the
+    first antenna, starting at unit gains; then filt_wedge's delay
+    filter (Cn = noise x I; its products in float64, its output in
+    dtype). The target: the unfiltered chain at filt_truth plus complex
+    noise of unit variance (a seeded torch.Generator), filtered once by
+    the same WedgeFilter; icov ones.
+    Returns (prob, numpy truth, info: the WedgeFilter, its bins, the
+    inversions' seconds, the unfiltered target as a VisData, the
+    construction's antenna positions)."""
+    import torch
+    device = bt.resolve_device(device)
+    T, arr, sky, beam, freqs = build_sky_beam(
+        bt, hexN, nside, nfreq, fmax, 0.5, True, device, dtype,
+        np.random.default_rng(0), amp=1e4)
+    sim_bls = [r[0] for r in arr.reds if r[0][0] != r[0][1]]
+    times = 2458168.3 + np.arange(ntime) * 5e-4
+    rime = bt.RIME(sky, T, beam, arr, sim_bls, times, freqs,
+                   data_bls=arr.get_bls(keep_autos=False),
+                   pix_chunk=pix_chunk)
+    LM = bt.LinearModel("poly", dim=4, x=freqs, Ndeg=FILT_NDEG,
+                        basis="legendre", whiten=True, device=device,
+                        dtype=dtype)
+    gains = np.zeros((1, 1, len(arr.ants), 1, FILT_NDEG, 2))
+    gains[..., 0, 0] = 1.0
+    cal = bt.JonesModel(gains, arr.ants, refant=arr.ants[0],
+                        R=bt.JonesResponse(param_type="com",
+                                           freq_mode="linear", freq_LM=LM,
+                                           freqs=freqs),
+                        device=device, dtype=dtype)
+    antpos = arr.to_antpos()
+    wedge, bins, inv_s = filt_wedge(bt, freqs, rime.data_bls, antpos, device,
+                                    noise=noise)
+    truth = filt_truth(arr.ants, antpos.asnumpy(), FILT_NDEG)
+    gen = torch.Generator(device=device).manual_seed(2)
+    unf = bt.Sequential({"rime": rime, "cal": cal})
+    with torch.no_grad():
+        vd = unf.updated(bt.ParamDict({
+            k: torch.as_tensor(v, dtype=dtype, device=device)
+            for k, v in truth.items()}))()
+        for part in (vd.data.real, vd.data.imag):
+            part += np.sqrt(0.5) * torch.randn(
+                vd.data.shape, generator=gen, dtype=dtype, device=device)
+        data = wedge(vd).data
+    seq = bt.Sequential({"rime": rime, "cal": cal, "filt": wedge})
+    tgt = bt.VisData()
+    tgt.setup_meta(T, antpos)
+    tgt.setup_data(rime.data_bls, times, freqs, pol="ee", data=data,
+                   icov=torch.ones(data.shape, dtype=dtype, device=device))
+    return bt.LogProb(seq, tgt), truth, dict(wedge=wedge, bins=bins,
+                                              inv_s=inv_s, unfiltered=vd,
+                                              antpos=antpos)
+
+
 def hmc_trajectory(bt, torch, prob, start, momenta, eps, nstep):
     """One HMC step of the port's sampler from the numpy start with the
     given numpy momenta (no draw; the Metropolis uniform comes from the
@@ -1008,7 +1154,10 @@ def profile(torch, fn, label, match=None):
         print(f"{label}:   {ms:9.3f} ms {n:5d}x {key[:90]}", flush=True)
     if match is None:
         return busy
-    return busy, sum(r[0] for r in rows if match.lower() in r[2].lower())
+    if isinstance(match, str):
+        return busy, sum(r[0] for r in rows if match.lower() in r[2].lower())
+    return busy, [sum(r[0] for r in rows if m.lower() in r[2].lower())
+                  for m in match]
 
 
 def ptxas_by_function(report):
@@ -1447,6 +1596,23 @@ def phase_small(bt, torch, rime_cuda, dev, hera_prod):
     start = {k: v.detach().numpy() for k, v in
              cpu_sfb.collect_main_params().items()}
     pairs.append(("hera-sfb chain", cpu_sfb, gpu_sfb, start, False))
+
+    # the hera-filt chain at hex-2 (64 channels over 100-200 MHz, 16
+    # Legendre coefficients a gain) at its start, with a suppression of
+    # 100 (Cn = 1e-2 I): at hera-filt's 1e9 the filtered gradient is the
+    # out-of-band remnant of in-band-dominated visibilities, and the
+    # kernels' float32 error moves it by 1e-3 (gains) to 3e-2 (antenna
+    # positions) (card vs CPU at hex-2)
+    kw = dict(hexN=2, nside=8, nfreq=64, fmax=200e6, ntime=2, pix_chunk=512,
+              noise=1e-2)
+    cpu_filt, _, _ = build_filt(bt, device="cpu", dtype=torch.float64, **kw)
+    gpu_filt, _, _ = build_filt(bt, device=dev, dtype=torch.float32, **kw)
+    gpu_filt.target[0].data = cpu_filt.target[0].data.to(
+        torch.complex64).to(dev)
+    start = {k: v.detach().numpy() for k, v in
+             cpu_filt.collect_main_params().items()}
+    pairs.append(("hera-filt chain (suppression 100)", cpu_filt, gpu_filt,
+                  start, True))
     for label, cpu, gpu, params, antpos in pairs:
         bt.load_numpy_pdict(cpu.model, params)
         bt.load_numpy_pdict(gpu.model, params)
@@ -2758,6 +2924,222 @@ def phase_fwd_beside_spikes(torch, spike, dev, fwd_shape, timing):
           f"= {timing[1][0] / kf:.1%} of it", flush=True)
 
 
+def filt_band_power(torch, ft, x, bins, rows):
+    """Power of x's delay spectrum (ft: a float64 FFT over the channels
+    with a window) inside each length bin's filtered band, |delay| <=
+    the bin's tau, summed over the bin's baselines and the times."""
+    delays = torch.as_tensor(ft.freqs, device=x.device)
+    out = []
+    for b, tau in enumerate(bins["tau"]):
+        idx = torch.as_tensor(rows[b], device=x.device)
+        spec = ft(x.index_select(2, idx).to(torch.complex128))
+        out.append(float(torch.sum(torch.abs(spec[..., delays.abs() <= tau])
+                                   ** 2)))
+    return np.asarray(out)
+
+
+def phase_hera_filt(bt, torch, rime_cuda, pix_chunks, size=HERA, steps=3):
+    """Phase 17: main path 10, hera-filt, config #5's delay filter over
+    hera-cal's chain with smooth polynomial gains, at full width unless
+    given another size. Returns (launches of rime_fwd, of rime_dtau)."""
+    import gc
+    from bayeslim_tpu_torch.ops import linalg
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    prob, truth, info = build_filt(bt, device=None, dtype=torch.float32,
+                                   **size)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    seq, tgt = prob.model, prob.target[0]
+    rime, wedge, bins = seq.rime, info["wedge"], info["bins"]
+    vd = info["unfiltered"]
+    nsim, ndata = len(rime.sim_bls), len(rime.data_bls)
+    sizes = {k: v.numel() for k, v in seq.named_parameters()}
+    nparams = sum(sizes.values())
+    nf, nt = rime.Nfreqs, len(rime.sim_times)
+    print(f"phase 17 hera-filt build: {len(rime.array.ants)} antennas, "
+          f"{nsim} redundant groups simulated, expanded to {ndata} data "
+          f"baselines, {nf} freqs, {nt} times, {rime.Npix_cut} FOV pixels; "
+          f"trainable {nparams} parameters: antenna positions "
+          f"({sizes[ANTVECS]}), gains as {seq.cal.params.shape[4]} "
+          f"Legendre coefficients {tuple(seq.cal.params.shape)} "
+          f"({sizes[GAINS]}); WedgeFilter of {len(wedge.filters)} "
+          f"GPFilter(residual=True) over {len(bins['tau'])} length bins of "
+          f"{bins['edges'][1]:.2f} m, baselines a bin {bins['counts']}, "
+          f"tau [ns] {np.round(bins['tau'] * 1e9, 1).tolist()}, Cn 1e-9 I; "
+          f"target {tuple(tgt.data.shape)} {tgt.data.dtype}; build "
+          f"{build_s:.1f} s, of them the {len(wedge.filters)} host float64 "
+          f"inversions {info['inv_s']:.2f} s", flush=True)
+    nchunks = len(pix_chunks(nsim, rime.Npix_cut))
+    loss0, g0 = prob.value_and_grad()
+    first = {ANTVECS: 1e-3, GAINS: 1e-3}
+    opt = bt.LBFGS(prob, H0=first_step_H0(bt, torch, g0, first))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rime_cuda.launches = rime_cuda.dtau_launches = 0
+    losses, step_s, evals = [], [], []
+    for _ in range(steps):
+        t1 = time.time()
+        losses.append(float(opt.step()))
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t1)
+        evals.append(opt.func_evals)
+    fwd, dtau = rime_cuda.launches, rime_cuda.dtau_launches
+    expect = nt * nchunks * opt.func_evals
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with torch.no_grad():
+        chi2 = float(torch.sum(torch.abs(seq().data - tgt.data)
+                               .to(torch.float64) ** 2))
+        # the filtered noise's expected chi^2: sum over the bins of
+        # baselines x times x |I - G|_F^2
+        eye = torch.eye(nf, device=tgt.data.device)
+        noise_chi2 = sum(n * nt * float(torch.sum((eye - f.G) ** 2))
+                         for n, f in zip(bins["counts"], wedge.filters))
+    dof = noise_chi2 - nparams / 2
+    print(f"phase 17 hera-filt main path: L-BFGS (strong Wolfe, lr 1, H0 a "
+          f"DiagMat giving a first trial step of at most "
+          f"{first[ANTVECS] * 1e3:g} mm for antennas and {first[GAINS]:g} "
+          f"for gain coefficients): start loss {float(loss0)}, losses "
+          f"{losses}; step walls {step_s} s; function evaluations after "
+          f"each step {evals}; rime_fwd launches {fwd}, rime_dtau launches "
+          f"{dtau} (each expected {nt} times x {nchunks} chunks x "
+          f"{opt.func_evals} evaluations = {expect}); peak device memory "
+          f"{peak:.2f} GiB", flush=True)
+    print(f"phase 17 hera-filt result: chi^2 {chi2:.6e} over "
+          f"{tgt.data.numel()} filtered visibilities; the filtered noise "
+          f"alone gives {noise_chi2:.6e} (the bins' baselines x times x "
+          f"|I - G|_F^2); chi^2/dof {chi2 / dof:.4f} (dof = that - "
+          f"{nparams} / 2 = {dof:.0f}; reported, not gated)", flush=True)
+    check(np.isfinite(float(loss0)) and all(np.isfinite(losses))
+          and np.isfinite(chi2), "non-finite hera-filt loss")
+    check(losses[-1] < float(loss0), "hera-filt loss did not decrease")
+    check(fwd == expect and dtau == expect,
+          f"hera-filt launches rime_fwd {fwd}, rime_dtau {dtau} != {expect}")
+    check(peak < 20, f"hera-filt took {peak:.2f} GiB of device memory")
+
+    # the filtered cube of float32 data (the chain's filter: products in
+    # float64, output float32) against the same filter on float64 data,
+    # from the same input (the unfiltered target); beside it the same
+    # filters with G and the products in float32
+    del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    freqs = np.asarray(rime.freqs)
+    wedge32 = bt.WedgeFilter(
+        [bt.MatFilter(G=f.G, residual=True, device=f.G.device,
+                      dtype=torch.float32) for f in wedge.filters],
+        wedge.filt2bls)
+    with torch.no_grad():
+        y32 = wedge(vd).data
+        y32g = wedge32(vd).data
+        vd64 = vd.copy()
+        vd64.data = vd.data.to(torch.complex128)
+        y64 = wedge(vd64).data
+        rms_in = float(torch.sqrt(torch.mean(torch.abs(vd64.data) ** 2)))
+        rms_out = float(torch.sqrt(torch.mean(torch.abs(y64) ** 2)))
+        peak_in = float(torch.max(torch.abs(vd64.data)))
+        err = float(torch.max(torch.abs(y32.to(torch.complex128) - y64)))
+        errg = float(torch.max(torch.abs(y32g.to(torch.complex128) - y64)))
+        del vd64, y64, y32g
+        # the suppression of the foregrounds themselves: the chain at its
+        # truth without the noise, filtered
+        unf = bt.Sequential({"rime": seq.rime, "cal": seq.cal})
+        clean = unf.updated(bt.ParamDict({
+            k: torch.as_tensor(v, dtype=torch.float32, device=vd.data.device)
+            for k, v in truth.items()}))()
+        ft = bt.FFT(dim=4, N=nf, dx=freqs[1] - freqs[0], ndim=5,
+                    window="bh", device=vd.data.device, dtype=torch.float64)
+        rows = [np.where(bins["bin_of"] == b)[0]
+                for b in np.unique(bins["bin_of"])]
+        p_in = filt_band_power(torch, ft, clean.data, bins, rows)
+        clean64 = clean.copy()
+        clean64.data = clean.data.to(torch.complex128)
+        sup = {k: filt_band_power(torch, ft, w(c).data, bins, rows) / p_in
+               for k, w, c in (("float32 data", wedge, clean),
+                               ("float32 G", wedge32, clean),
+                               ("float64", wedge, clean64))}
+        del clean, clean64
+        pd = bt.PeakDelay(dim=4, N=nf, dx=freqs[1] - freqs[0], ndim=5,
+                          window="bh", device=vd.data.device,
+                          dtype=torch.float32)
+        before = pd(vd.data)[0, 0].abs().cpu().numpy()
+        after = pd(y32)[0, 0].abs().cpu().numpy()
+    med = [(float(np.median(before[r])) * 1e9,
+            float(np.median(after[r])) * 1e9) for r in rows]
+    print(f"phase 17 hera-filt filter on float32 data (products in float64, "
+          f"output float32) vs float64 data, on the card: max |y32 - y64| "
+          f"{err:.3e} = {err / rms_in:.3e} of the input's rms {rms_in:.4e} "
+          f"(tol 1e-5; its peak {peak_in:.4e}) and {err / rms_out:.3e} of "
+          f"the filtered cube's rms {rms_out:.4e}; with G and the products "
+          f"in float32: {errg:.3e} = {errg / rms_in:.3e} of the input's rms"
+          f", {errg / peak_in:.3e} of its peak, {errg / rms_out:.3e} of the "
+          f"filtered cube's rms", flush=True)
+    print(f"phase 17 hera-filt suppression of the foregrounds (the chain at "
+          f"its truth, no noise): power within each bin's band (|delay| <= "
+          f"tau; blackman-harris window, float64 FFT), filtered / "
+          f"unfiltered: " + "; ".join(
+              f"{k} {[float(f'{v:.3e}') for v in x]}"
+              for k, x in sup.items()), flush=True)
+    print(f"phase 17 hera-filt PeakDelay (blackman-harris): median |peak "
+          f"delay| of each bin [ns], unfiltered -> filtered: "
+          + ", ".join(f"bin {b} (tau {tau * 1e9:.1f}) {m[0]:.1f} -> "
+                      f"{m[1]:.1f}" for b, (tau, m) in
+                      enumerate(zip(bins["tau"], med))), flush=True)
+    check(err <= 1e-5 * rms_in,
+          f"hera-filt float32 filter vs float64: {err / rms_in:.3e}")
+
+    # the filter's time against its bound: M spectra through a real G,
+    # one real product over the two planes (4 M nf^2 FLOPs), the cube
+    # read once and written once
+    x = vd.data
+    M = x.numel() // nf
+    flops = 4.0 * M * nf * nf
+    nbytes = 2.0 * x.numel() * x.element_size()
+    bound, by = rime_cuda.roofline_ms(flops, nbytes)
+    G = wedge.filters[-1].G
+    G32 = G.float()
+    Gc = G32.to(torch.complex64)
+    gy = torch.randn_like(x)
+    with torch.no_grad():
+        t = {"planes float64": cuda_ms(
+                torch, lambda: linalg.apply_along(G, x, 4), 10),
+             "planes float32": cuda_ms(
+                torch, lambda: linalg.apply_along(G32, x, 4), 10),
+             "complex64": cuda_ms(
+                torch, lambda: linalg.apply_along(Gc, x, 4), 10),
+             "WedgeFilter forward": cuda_ms(torch, lambda: wedge(vd), 10),
+             "WedgeFilter forward, float32 G": cuda_ms(
+                torch, lambda: wedge32(vd), 10)}
+
+    def fwd_bwd(w):
+        xg = x.detach().requires_grad_(True)
+        v = vd.copy()
+        v.data = xg
+        torch.autograd.grad(w(v).data, xg, gy)
+    t["WedgeFilter forward and backward"] = cuda_ms(
+        torch, lambda: fwd_bwd(wedge), 5)
+    t["WedgeFilter forward and backward, float32 G"] = cuda_ms(
+        torch, lambda: fwd_bwd(wedge32), 5)
+    print(f"phase 17 hera-filt filter times (CUDA events; {M} spectra of "
+          f"{nf} channels, {flops:.4e} FLOPs, {nbytes:.4e} bytes; bound "
+          f"{bound:.3f} ms ({by}) a pass): one G over the whole cube: "
+          + ", ".join(f"{k} {v:.3f} ms "
+                      f"({bound * (1 + ('backward' in k)) / v:.1%} of bound)"
+                      for k, v in t.items()), flush=True)
+    del x, gy, y32
+    res = profile(torch, prob.value_and_grad,
+                  "phase 17 profile of one function evaluation",
+                  match=("gemm", "rime"))
+    if res[0] is not None:
+        busy, (gemm, rk) = res
+        print(f"phase 17 device time of one function evaluation {busy:.2f} "
+              f"ms: GEMM kernels {gemm:.2f} ms (the filter's, and the "
+              f"RIME's small delay product), rime_fwd and rime_dtau "
+              f"{rk:.2f} ms, the rest {busy - gemm - rk:.2f} ms", flush=True)
+    return fwd, dtau
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2914,6 +3296,7 @@ def main():
     hmca_fwd, hmca_dtau = phase_hera_hmc_alm(bt, torch, rime_cuda,
                                              _pix_chunks, sky_ylm, beam_R)
     del sky_ylm, beam_R
+    filt_fwd, filt_dtau = phase_hera_filt(bt, torch, rime_cuda, _pix_chunks)
 
     # rime_fwd: the two shapes are launched equally often on hera-stat:
     # report the mean per launch (hera-prod's and hera-alm's shapes beside
@@ -2924,13 +3307,14 @@ def main():
         "source": "bayeslim_tpu_torch/csrc/rime_fwd.cu",
         "replaces": "bayeslim_tpu/ops/rime_pallas.py:298",
         "launches": stat_launches + cal_fwd + prod_fwd + redcal_fwd
-        + hmc_fwd + alm_fwd + sfb_fwd + hmca_fwd,
+        + hmc_fwd + alm_fwd + sfb_fwd + hmca_fwd + filt_fwd,
         "launches_by_path": {"hera-stat": stat_launches, "hera-cal": cal_fwd,
                              "hera-prod": prod_fwd,
                              "hera-redcal": redcal_fwd,
                              "hera-hmc": hmc_fwd, "hera-alm": alm_fwd,
                              "hera-sfb": sfb_fwd,
-                             "hera-hmc-alm": hmca_fwd},
+                             "hera-hmc-alm": hmca_fwd,
+                             "hera-filt": filt_fwd},
         "max_abs_err": max(worst_fwd["hera-fwd"], worst_fwd["hera-bwd"]),
         "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[2],
         "bound_by": timing[0][3] if timing[0][3] == timing[1][3]
@@ -2944,12 +3328,14 @@ def main():
         "name": "rime_dtau", "route": "cuda",
         "source": "bayeslim_tpu_torch/csrc/rime_dtau.cu",
         "replaces": "bayeslim_tpu/ops/rime_pallas.py:693",
-        "launches": cal_dtau + prod_dtau + alm_dtau + sfb_dtau + hmca_dtau,
+        "launches": cal_dtau + prod_dtau + alm_dtau + sfb_dtau + hmca_dtau
+        + filt_dtau,
         "launches_by_path": {"hera-stat": 0, "hera-cal": cal_dtau,
                              "hera-prod": prod_dtau, "hera-redcal": 0,
                              "hera-hmc": 0, "hera-alm": alm_dtau,
                              "hera-sfb": sfb_dtau,
-                             "hera-hmc-alm": hmca_dtau},
+                             "hera-hmc-alm": hmca_dtau,
+                             "hera-filt": filt_dtau},
         "max_abs_err": worst_dtau, "ms": dms, "plain_ms": dpms,
         "bound_ms": dbms, "bound_by": dby, "library_ms": None}]
     kernels += spikes

@@ -80,6 +80,11 @@ def _responses():
                     tbeam.AiryResponse(powerbeam=pb, taper_kwargs=tk),
                     jbeam.AiryResponse(powerbeam=pb, taper_kwargs=tk), p,
                     freqs))
+    for kw in (dict(brute_force=True), dict(brute_force=True, Ntau=300,
+                                            freq_ratio=1.1, powerbeam=False),
+               dict(freq_ratio=0.9)):
+        out.append((f"airy {kw}", tbeam.AiryResponse(**kw),
+                    jbeam.AiryResponse(**kw), p, freqs))
     out.append(("uniform", tbeam.UniformResponse(),
                 jbeam.UniformResponse(), np.ones((2, 1, 3, 1, 1)), freqs))
     out.append(("uniform tukey", tbeam.UniformResponse(
@@ -88,7 +93,7 @@ def _responses():
     return out
 
 
-@pytest.mark.parametrize("case", range(6))
+@pytest.mark.parametrize("case", range(9))
 def test_analytic_responses_match_jax(case):
     name, tr, jr, p, freqs = _responses()[case]
     zen, az = _angles(2)
@@ -161,8 +166,36 @@ def test_pixel_response_matches_jax(case, with_ctx):
 
 
 def test_pixel_response_linear_freq_mode_raises():
-    with pytest.raises(NotImplementedError, match="LinearModel"):
-        tbeam.PixelResponse([1e8], "healpix", nside=4, freq_mode="linear")
+    """The 'linear' frequency mode (it raised before LinearModel was
+    ported): freq_LM maps each grid pixel's coefficients to channels,
+    after beam0; values and gradients against the JAX package."""
+    from bayeslim_tpu.models import linear_model as jlm
+    from bayeslim_tpu_torch.models import linear_model as tlm
+    rng = np.random.default_rng(5)
+    freqs = np.linspace(100e6, 120e6, 5)
+    npix = hp.nside2npix(4)
+    p = 1 + 0.1 * rng.standard_normal((1, 1, 1, 3, npix))
+    kw = dict(x=freqs, Ndeg=3, basis="legendre", whiten=True)
+    tr = tbeam.PixelResponse(freqs, "healpix", nside=4, freq_mode="linear",
+                             freq_LM=tlm.LinearModel(
+                                 "poly", dim=3, dtype=torch.float64,
+                                 device="cpu", **kw), beam0=0.1 * p)
+    jr = jbeam.PixelResponse(freqs, "healpix", nside=4, freq_mode="linear",
+                             freq_LM=jlm.LinearModel("poly", dim=3, **kw),
+                             beam0=0.1 * p)
+    zen, az = rng.uniform(0, 88, 50), rng.uniform(0, 360, 50)
+    ctx = jr.precompute(zen, az)
+    j = jr(jnp.asarray(p), jnp.asarray(zen), jnp.asarray(az), freqs,
+           ctx=ctx)
+    pt = torch.as_tensor(p).requires_grad_(True)
+    t = tr(pt, torch.as_tensor(zen), torch.as_tensor(az), None,
+           ctx=tuple(torch.as_tensor(x) for x in ctx))
+    assert t.shape == j.shape == (1, 1, 1, 5, 50)
+    assert _relerr(t.detach().numpy(), j) <= 1e-12
+    jg = jax.grad(lambda q: jnp.sum(jr(q, jnp.asarray(zen), jnp.asarray(az),
+                                       freqs, ctx=ctx) ** 2))(jnp.asarray(p))
+    (tg,) = torch.autograd.grad(torch.sum(t ** 2), pt)
+    assert _relerr(tg.numpy(), jg) <= 1e-12
 
 
 def _beam_pair(npol, nvec, powerbeam, nmodel, seed):

@@ -79,6 +79,7 @@ _INTERP_CASES = [
     dict(pixtype="rect", separable=False, powerbeam=False),
     dict(pixtype="rect", interp_mode="cubic", realbeam=False,
          powerbeam=False),
+    dict(pixtype="healpix", linear=True, beam0=True),
 ]
 
 
@@ -98,9 +99,18 @@ def _interp_pair(c, l, m):
         c["beam0"] = 0.1 * _params(l, seed=9)
     if taper:
         c["taper_kwargs"] = dict(mode="gauss", mu=60.0)
+    tk, jk = {}, {}
+    if c.pop("linear", False):
+        # 3 Legendre coefficients a mode over the 3 channels
+        lkw = dict(dim=3, x=FREQS, Ndeg=3, basis="legendre", whiten=True)
+        tk = dict(freq_mode="linear",
+                  freq_LM=tlm.LinearModel("poly", **lkw, **T64))
+        jk = dict(freq_mode="linear",
+                  freq_LM=jlm.LinearModel("poly", **lkw))
     kw = dict(mode="interpolate", pixtype=pixtype, **grid, **c)
-    tr = tby.YlmResponse(l, m, FREQS, Ylm_kwargs=dict(yk), **kw, **T64)
-    jr = jby.YlmResponse(l, m, FREQS, Ylm_kwargs=dict(yk), **kw)
+    tr = tby.YlmResponse(l, m, FREQS, Ylm_kwargs=dict(yk), **kw, **tk,
+                         **T64)
+    jr = jby.YlmResponse(l, m, FREQS, Ylm_kwargs=dict(yk), **kw, **jk)
     return tr, jr
 
 
@@ -244,13 +254,25 @@ def test_lm_poly_matches_jax(lm_kw):
 
 
 def test_lm_poly_off_and_linear_freq_mode_raises():
+    """lm_poly_setup(None) leaves the a_lm as they are; the 'linear'
+    frequency mode (it raised before LinearModel was ported) maps each
+    mode's coefficients to channels after beam0, as the JAX response
+    does, in generate mode too."""
     l, m = jsh.gen_lm(2)
     tr, _ = _interp_pair(dict(pixtype="healpix"), l, m)
     tr.lm_poly_setup(None)
     assert not tr._lm_poly
-    with pytest.raises(NotImplementedError, match="A8"):
-        tby.YlmResponse(l, m, FREQS, mode="generate", freq_mode="linear",
-                        **T64)
+    lkw = dict(dim=3, x=FREQS, Ndeg=2, basis="legendre", whiten=True)
+    p = _params(l, nfreq=2)
+    b0 = 0.1 * _params(l, nfreq=2, seed=3)
+    tr = tby.YlmResponse(l, m, FREQS, mode="generate", freq_mode="linear",
+                         freq_LM=tlm.LinearModel("poly", **lkw, **T64),
+                         beam0=b0, **T64)
+    jr = jby.YlmResponse(l, m, FREQS, mode="generate", freq_mode="linear",
+                         freq_LM=jlm.LinearModel("poly", **lkw), beam0=b0)
+    got = tr._freq_transform(torch.as_tensor(p))
+    assert got.shape == (1, 1, 1, 3, len(l))
+    assert _relerr(got.numpy(), jr._freq_transform(jnp.asarray(p))) <= 1e-12
 
 
 def _ylm_rime_pair():

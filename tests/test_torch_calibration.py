@@ -14,6 +14,7 @@ import bayeslim_tpu as bl
 import bayeslim_tpu_torch as bt
 from bayeslim_tpu.inference import bfgs as jbfgs
 from bayeslim_tpu.models import calibration as jcal
+from bayeslim_tpu.models import linear_model as jlm
 from bayeslim_tpu_torch.models import calibration as tcal
 
 from _torch_graft import build_cal_jax, build_cal_torch, cal_target, cal_truth
@@ -152,14 +153,94 @@ def test_jones_model_forward_and_grad_vs_jax(polmode, slope):
 
 def test_jones_model_rejects_what_is_not_ported():
     """What waits on later queue items raises and names the item; the
-    redcal degeneracy projections are ported."""
-    with pytest.raises(NotImplementedError, match="LinearModel.*A8"):
-        tcal.JonesResponse(freq_mode="linear")
+    redcal degeneracy projections and the 'linear' modes are ported."""
+    LM = bt.LinearModel("poly", dim=4, x=np.linspace(1e8, 2e8, 4), Ndeg=2,
+                        device="cpu")
+    R = tcal.JonesResponse(freq_mode="linear", freq_LM=LM)
+    assert R.freq_LM is LM and dict(R.named_buffers())["freq_LM.A"] is LM.A
     R = tcal.JonesResponse(abs_amp_gain=True)
     assert R._proj_abs_amp and R._projection
     J = tcal.JonesModel(np.ones((1, 1, 2, 1, 2, 2)), [0, 1], device="cpu")
     with pytest.raises(NotImplementedError, match="CalData.*A9"):
         J.to_CalData(np.ones(2), np.ones(1))
+
+
+def _linear_LMs(pkg, freq, time, ntime):
+    """The 'linear' modes' LinearModels of a JonesResponse: 4 Legendre
+    coefficients over the channels (dim 4), 2 over the times (dim 3)."""
+    kw = {} if pkg is jlm else dict(dtype=torch.float64, device="cpu")
+    out = {}
+    if freq:
+        out.update(freq_mode="linear", freq_LM=pkg.LinearModel(
+            "poly", dim=4, x=np.linspace(100e6, 120e6, NFREQ), Ndeg=4,
+            basis="legendre", whiten=True, **kw))
+    if time:
+        out.update(time_mode="linear", time_LM=pkg.LinearModel(
+            "poly", dim=3, x=np.arange(ntime, dtype=float), Ndeg=2,
+            basis="direct", whiten=True, **kw))
+    return out
+
+
+@pytest.mark.parametrize("freq,time,ptype,refant", [
+    (True, False, "com", True), (False, True, "com", False),
+    (True, True, "com", True), (True, False, "amp", False),
+    (True, False, "phs", True), (True, False, "dly_slope", False)])
+def test_jones_linear_modes_vs_jax(freq, time, ptype, refant):
+    """JonesModel with the 'linear' freq and / or time modes (gains from
+    polynomial coefficients, tests/test_calibration.py:187's form), each
+    param type, the refant's phase zeroed on the coefficients: forward
+    and gradient against the JAX package, and vis2JonesModel's sizing
+    by the LinearModels' columns."""
+    rng = np.random.default_rng(6)
+    freqs = np.linspace(100e6, 120e6, NFREQ)
+    ntime = 2
+    nf = 4 if freq else NFREQ
+    nt = 2 if time else ntime
+    slope = ptype == "dly_slope"
+    nant = 2 if slope else NANT
+    shape = (1, 1, nant, nt, nf)
+    if ptype == "com":
+        p = np.stack([1 + 0.1 * rng.standard_normal(shape),
+                      0.1 * rng.standard_normal(shape)], axis=-1)
+    else:
+        p = 0.1 * rng.standard_normal(shape)
+    antvecs = rng.uniform(-30, 30, (NANT, 3))
+    kw = dict(param_type=ptype, freqs=freqs)
+    jR = jcal.JonesResponse(antpos=bl.utils.AntposDict(ANTS, antvecs), **kw,
+                            **_linear_LMs(jlm, freq, time, ntime))
+    tR = tcal.JonesResponse(antpos=bt.utils.AntposDict(ANTS, antvecs), **kw,
+                            **_linear_LMs(bt, freq, time, ntime))
+    ra = ANTS[1] if refant else None
+    J = jcal.JonesModel(jnp.asarray(p), ANTS, refant=ra, R=jR)
+    T = tcal.JonesModel(p, ANTS, refant=ra, R=tR, device="cpu",
+                        dtype=torch.float64)
+    np.testing.assert_allclose(T.params.detach().numpy(), J.params,
+                               rtol=1e-12, atol=1e-14)
+    vis = _cplx(rng, (1, 1, len(BLS), ntime, NFREQ), 1.0)
+    w = rng.standard_normal(vis.shape) + 1j * rng.standard_normal(vis.shape)
+
+    def jloss(q):
+        J.params = q
+        out = J(_vd(bl, vis, jnp.asarray)).data
+        return jnp.sum(jnp.real(out * w)), out
+    (jl, jout), jg = jax.value_and_grad(jloss, has_aux=True)(
+        jnp.asarray(J.params))
+    out = T(_vd(bt, vis, torch.as_tensor)).data
+    tl = torch.sum(torch.real(out * torch.as_tensor(w)))
+    (tg,) = torch.autograd.grad(tl, T.params)
+    assert _relerr(out.detach().numpy(), jout) <= 1e-9
+    assert _relerr(tg.numpy(), jg) <= 1e-9
+    # vis2JonesModel sizes the params by the LinearModels' columns
+    jvd, tvd = _vd(bl, vis, jnp.asarray), _vd(bt, vis, torch.as_tensor)
+    tvd.setup_meta(antpos=bt.utils.AntposDict(ANTS, antvecs))
+    jvd.setup_meta(antpos=bl.utils.AntposDict(ANTS, antvecs))
+    jj = jcal.vis2JonesModel(jvd, param_type=ptype, freqs=freqs,
+                             **_linear_LMs(jlm, freq, time, ntime))
+    tj = bt.vis2JonesModel(tvd, param_type=ptype, freqs=freqs,
+                           **_linear_LMs(bt, freq, time, ntime),
+                           device="cpu", dtype=torch.float64)
+    assert tuple(tj.params.shape) == jj.params.shape
+    np.testing.assert_array_equal(tj.params.detach().numpy(), jj.params)
 
 
 # ------------------------------------------------------- small hera-cal chain

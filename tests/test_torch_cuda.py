@@ -821,3 +821,130 @@ def test_ylm_on_card_and_its_product_in_true_fp32(cuda):
     (want ** 2).sum().backward()
     assert _relerr(out.detach().cpu().numpy(), want.detach().numpy()) <= 1e-5
     assert _relerr(pc.grad.cpu().numpy(), pr.grad.numpy()) <= 1e-5
+
+
+def _filt_case(nf=1024, nspec=64, seed=0):
+    """Smooth spectra over 100-200 MHz (in the band of a 300 ns delay
+    filter) plus unit noise, and that filter (Cn = 1e-9 I)."""
+    from bayeslim_tpu_torch.models import filt as tfilt
+    freqs = np.linspace(100e6, 200e6, nf)
+    Cs = tfilt.sinc_cov(freqs, ls=1 / (2 * 3e-7), device="cpu")
+    rng = np.random.default_rng(seed)
+    L = np.linalg.cholesky(Cs.numpy() + 1e-6 * np.eye(nf))
+    y = (L @ (rng.standard_normal((nf, nspec))
+              + 1j * rng.standard_normal((nf, nspec)))).T * 100
+    y = y + rng.standard_normal(y.shape) + 1j * rng.standard_normal(y.shape)
+    return freqs, Cs, np.eye(nf) * 1e-9, y.reshape(1, 1, nspec // 2, 2, nf)
+
+
+@pytest.mark.cuda
+def test_linear_model_fft_and_filters_on_card_against_float64(cuda):
+    """LinearModel, FFT and WedgeFilter on the card: float32 data
+    against the same modules on float64 data. The filters take their
+    products in float64, so float32 data lose only the output's
+    rounding."""
+    import bayeslim_tpu_torch as bt
+    freqs, Cs, Cn, y = _filt_case()
+    kw = dict(dim=4, x=freqs, Ndeg=16, basis="legendre", whiten=True,
+              device=cuda)
+    lm32 = bt.LinearModel("poly", dtype=torch.float32, **kw)
+    lm64 = bt.LinearModel("poly", dtype=torch.float64, **kw)
+    rng = np.random.default_rng(1)
+    c = rng.standard_normal((1, 1, 7, 1, 16)) \
+        + 1j * rng.standard_normal((1, 1, 7, 1, 16))
+    got = lm32(torch.as_tensor(c, dtype=torch.complex64, device=cuda))
+    want = lm64(torch.as_tensor(c, device=cuda))
+    assert got.dtype == torch.complex64
+    assert _relerr(got.cpu().numpy(), want.cpu().numpy()) <= 1e-6
+    spectra = [bt.FFT(dim=4, N=len(freqs), dx=freqs[1] - freqs[0], ndim=5,
+                      window="bh", device=cuda, dtype=dt)(
+        torch.as_tensor(y, dtype=cdt, device=cuda)).cpu().numpy()
+        for dt, cdt in ((torch.float32, torch.complex64),
+                        (torch.float64, torch.complex128))]
+    assert _relerr(*spectra) <= 1e-6
+    bls = [(0, i) for i in range(1, y.shape[2] + 1)]
+    f = bt.GPFilter(Cs, Cn, residual=True, device=cuda)
+    w = bt.WedgeFilter([f], {0: bls[::2]}, bls=bls)
+    y64 = torch.as_tensor(y, device=cuda)
+    out32 = w(y64.to(torch.complex64))
+    out64 = w(y64)
+    assert out32.dtype == torch.complex64
+    err = float(torch.max(torch.abs(out32.to(torch.complex128) - out64)))
+    assert err <= 1e-7 * float(torch.max(torch.abs(y64)))
+    # the baselines in no group pass through
+    assert torch.equal(out64[:, :, 1::2], y64[:, :, 1::2])
+
+
+@pytest.mark.cuda
+def test_linear_model_and_filter_products_in_true_fp32(cuda):
+    """With TF32 allowed globally, a float32 LinearModel and a filter
+    with G in float32 (forward and gradient) stay within float32's
+    rounding of float64 (TF32 keeps ~3 digits: ~1e-3)."""
+    import bayeslim_tpu_torch as bt
+    freqs, Cs, Cn, y = _filt_case(nspec=32)
+    rng = np.random.default_rng(2)
+    A = rng.standard_normal((512, 512))
+    x = rng.standard_normal((8, 512)) + 1j * rng.standard_normal((8, 512))
+    f64 = bt.GPFilter(Cs, Cn, residual=True, device=cuda)
+    f32 = bt.MatFilter(G=f64.G, residual=True, device=cuda,
+                       dtype=torch.float32)
+    lm32 = bt.LinearModel("custom", A=A, dim=1, device=cuda,
+                          dtype=torch.float32)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        x32 = torch.as_tensor(x, dtype=torch.complex64,
+                              device=cuda).requires_grad_(True)
+        lout = lm32(x32)
+        torch.abs(lout).pow(2).sum().backward()
+        y32 = torch.as_tensor(y, dtype=torch.complex64,
+                              device=cuda).requires_grad_(True)
+        fout = f32(y32)
+        torch.abs(fout).pow(2).sum().backward()
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    x64 = torch.as_tensor(x, device=cuda).requires_grad_(True)
+    lwant = torch.as_tensor(A, device=cuda).to(torch.complex128) @ x64.T
+    torch.abs(lwant).pow(2).sum().backward()
+    assert _relerr(lout.detach().cpu().numpy(),
+                   lwant.T.detach().cpu().numpy()) <= 1e-5
+    assert _relerr(x32.grad.cpu().numpy(), x64.grad.cpu().numpy()) <= 1e-5
+    y64 = torch.as_tensor(y, device=cuda).requires_grad_(True)
+    fwant = f64(y64)
+    torch.abs(fwant).pow(2).sum().backward()
+    # the residual is ~1e-4 of the data: its errors, and its gradient's,
+    # are held to the data's peak
+    peak = float(torch.max(torch.abs(y64.detach())))
+    assert float(torch.max(torch.abs(fout.detach().to(torch.complex128)
+                                     - fwant))) <= 1e-5 * peak
+    assert float(torch.max(torch.abs(y32.grad.to(torch.complex128)
+                                     - y64.grad))) <= 1e-5 * peak
+
+
+@pytest.mark.cuda
+def test_hera_filt_small_on_card(cuda):
+    """The hera-filt chain at hex-2 (chip_smoke.build_filt: 64 channels,
+    16 Legendre coefficients a gain, the delay filter at a suppression
+    of 100) at its start: card float32 against CPU float64, the loss and
+    the antenna and gain gradients; one rime_fwd and one rime_dtau a
+    time."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import bayeslim_tpu_torch as bt
+    from chip_smoke import build_filt
+    kw = dict(hexN=2, nside=8, nfreq=64, fmax=200e6, ntime=2, pix_chunk=512,
+              noise=1e-2)
+    cpu, _, _ = build_filt(bt, device="cpu", dtype=torch.float64, **kw)
+    gpu, _, _ = build_filt(bt, device=cuda, dtype=torch.float32, **kw)
+    gpu.target[0].data = cpu.target[0].data.to(torch.complex64).to(cuda)
+    n0 = (rime_cuda.launches, rime_cuda.dtau_launches)
+    vg, gg = gpu.value_and_grad()
+    assert (rime_cuda.launches - n0[0],
+            rime_cuda.dtau_launches - n0[1]) == (2, 2)
+    vc, gc = cpu.value_and_grad()
+    assert abs(float(vg) - float(vc)) / abs(float(vc)) <= 1e-4
+    for k in gc.keys():
+        assert _relerr(gg[k].cpu().numpy(), gc[k].numpy()) <= 1e-4, k

@@ -256,8 +256,22 @@ def test_vis2models_vs_jax():
         assert tj.ants == jj.ants and tj.refant_idx == jj.refant_idx
         np.testing.assert_array_equal(tj.params.detach().numpy(),
                                       jj.params)
-    with pytest.raises(NotImplementedError, match="A8"):
-        bt.vis2RedVisModel(tvd, time_mode="linear", device="cpu")
+    # the 'linear' modes size the params by their LinearModels' columns
+    # and the response maps them back to the data's times and channels
+    from bayeslim_tpu.models import linear_model as jlm
+    lkw = dict(dim=3, x=np.arange(2.0), Ndeg=1, basis="direct")
+    jr = jcal.vis2RedVisModel(jvd, redtol=0.5, time_mode="linear",
+                              time_LM=jlm.LinearModel("poly", **lkw))
+    tr = bt.vis2RedVisModel(tvd, redtol=0.5, time_mode="linear",
+                            time_LM=bt.LinearModel("poly", device="cpu",
+                                                   dtype=torch.float64,
+                                                   **lkw),
+                            device="cpu", dtype=torch.float64)
+    assert tuple(tr.params.shape) == jr.params.shape
+    assert jr.params.shape[3] == 1
+    p = np.random.default_rng(3).standard_normal(jr.params.shape)
+    assert _relerr(tr.R(torch.as_tensor(p)).numpy(),
+                   jr.R(jnp.asarray(p))) <= TOL
 
 
 @pytest.mark.parametrize("axis,dof,cov_axis", [

@@ -304,8 +304,46 @@ def test_alm_powerlaw_response_matches_jax():
 @pytest.mark.parametrize("mode", [dict(spatial_mode="linear"),
                                   dict(freq_mode="linear")])
 def test_pixel_response_names_what_it_waits_for(mode):
-    with pytest.raises(NotImplementedError, match="A8"):
-        tsky.PixelSkyResponse(np.ones(2), **mode, **T64)
+    """The 'linear' spatial and frequency modes (they raised before
+    LinearModel was ported), in both transform orders, and the point
+    sky's 'linear' mode with a LinearModel: values and gradients."""
+    from bayeslim_tpu.models import linear_model as jlm
+    from bayeslim_tpu_torch.models import linear_model as tlm
+    rng = np.random.default_rng(11)
+    freqs = np.linspace(100e6, 120e6, 5)
+    if "spatial_mode" in mode:
+        A = rng.standard_normal((10, 4))
+        jLM = jlm.LinearModel("custom", A=A, dim=-1)
+        tLM = tlm.LinearModel("custom", A=A, dim=-1, **T64)
+        kw, shape = dict(spat_LM=None), (1, 1, 5, 4)
+    else:
+        lkw = dict(dim=2, x=freqs, Ndeg=3, basis="legendre", whiten=True)
+        jLM = jlm.LinearModel("poly", **lkw)
+        tLM = tlm.LinearModel("poly", **lkw, **T64)
+        kw, shape = dict(freq_LM=None), (1, 1, 3, 10)
+    p = rng.uniform(0.5, 2, shape)
+    key = next(iter(kw))
+    for order in (0, 1):
+        jr = jsky.PixelSkyResponse(freqs, transform_order=order, **mode,
+                                   **{key: jLM})
+        tr = tsky.PixelSkyResponse(freqs, transform_order=order, **mode,
+                                   **{key: tLM}, **T64)
+        want = jr(jnp.asarray(p))
+        pt = torch.as_tensor(p).requires_grad_(True)
+        got = tr(pt)
+        assert got.shape == want.shape == (1, 1, 5, 10)
+        assert _relerr(got.detach().numpy(), want) <= 1e-12
+        jg = jax.grad(lambda q: jnp.sum(jr(q) ** 2))(jnp.asarray(p))
+        (tg,) = torch.autograd.grad(torch.sum(got ** 2), pt)
+        assert _relerr(tg.numpy(), jg) <= 1e-12
+    if key == "freq_LM":
+        jR = jsky.PointSkyResponse(freqs, freq_mode="linear", log=True,
+                                   freq_LM=jLM)
+        tR = tsky.PointSkyResponse(freqs, freq_mode="linear", log=True,
+                                   freq_LM=tLM, **T64)
+        q = 0.1 * p[..., :7]
+        assert _relerr(tR(torch.as_tensor(q)).numpy(),
+                       jR(jnp.asarray(q))) <= 1e-12
 
 
 @pytest.mark.parametrize("comp_params", [False, True])

@@ -470,9 +470,24 @@ def test_alm_setup_Ylm_generates_through_the_cache():
 
 
 def test_alm_taper_names_what_it_waits_for():
-    am = tsh.AlmModel(*jsh.gen_lm(2), **T64)
-    with pytest.raises(NotImplementedError, match="gen_window"):
-        am.taper_alm(torch.ones(6), "tukey")
+    """taper_alm (it raised before models/fft.py's gen_window was
+    ported): the window's decaying half over l / l_max on complex a_lm,
+    on real pairs (comp_params) and on real a_lm, for several windows,
+    against the JAX AlmModel."""
+    l, m = jsh.gen_lm(6)
+    am, jm = tsh.AlmModel(l, m, **T64), jsh.AlmModel(l, m)
+    rng = np.random.default_rng(12)
+    a = rng.standard_normal((2, len(l))) + 1j * rng.standard_normal(
+        (2, len(l)))
+    pairs = np.stack([a.real, a.imag], -1)
+    for taper, kw in (("tukey", dict(alpha=0.4)), ("bh", {}),
+                      ("hann", {}), ("cs9", {})):
+        for x, cp in ((a, False), (pairs, True), (a.real, False)):
+            want = jm.taper_alm(jnp.asarray(x), taper, comp_params=cp, **kw)
+            got = am.taper_alm(torch.as_tensor(x), taper, comp_params=cp,
+                               **kw)
+            assert got.dtype == torch.as_tensor(x).dtype
+            assert _relerr(got.numpy(), want) <= 1e-12, (taper, cp)
 
 
 def test_alm_make_closure_is_differentiable():
