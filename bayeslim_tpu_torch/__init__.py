@@ -19,11 +19,14 @@ bayeslim_tpu module for module:
                (pixel and Ylm), RIME, Jones gains, the per-baseline /
                per-group visibility models and the redcal degeneracies,
                the cosmology, linear models (LinearModel, MultiLM,
-               DictLM), the delay FFT (FFT, PeakDelay) and the filters
-               (MatFilter, GPFilter, LstSqFilter, WedgeFilter)
+               DictLM), the delay FFT (FFT, PeakDelay), the filters
+               (MatFilter, GPFilter, LstSqFilter, WedgeFilter), antenna
+               cross-coupling (VisCoupling, RedVisCoupling) and
+               dirty-map imaging (VisMapper)
 - inference/ : priors, LogProb (structured covariances, main-param
                sub-slices), the Trainer, BFGS, L-BFGS and its
-               approximate covariance, the hmat operators and the
+               approximate covariance, Hessians (compute_hessian,
+               FactoredInvHessian), the hmat operators and the
                samplers (HMC, RecycledHMC, NUTS)
 - scripts/   : the microbenchmark spikes of scripts/mosaic_spike.py
                (not imported here; run python -m
@@ -50,10 +53,12 @@ from .models import (RIME, TelescopeModel, ArrayModel, PixelBeam,
                      JonesResponse, VisModel, VisModelResponse, RedVisModel,
                      vis2JonesModel, vis2RedVisModel, LinearModel,
                      MultiLM, DictLM, FFT, PeakDelay, MatFilter, GPFilter,
-                     LstSqFilter, WedgeFilter)
+                     LstSqFilter, WedgeFilter, VisCoupling, RedVisCoupling,
+                     CouplingInflate, PartialRedVisInflate, VisMapper)
 from .ops import (AlmModel, SFBModel, gen_bessel2freq, gen_lm,
                   gen_sph2pix)
 from .inference import (LogProb, Trainer, BFGS, LBFGS, DiagMat,
                         lbfgs_approx_cov, LogGaussPrior, LogLaplacePrior,
                         LogTaperedUniformPrior, LogUniformPrior, MainParams,
-                        HMC, NUTS, RecycledHMC, Potential)
+                        HMC, NUTS, RecycledHMC, Potential,
+                        compute_hessian, FactoredInvHessian)

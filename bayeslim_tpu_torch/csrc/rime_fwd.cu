@@ -10,8 +10,10 @@
 // complex cotangent as ps, K = Nbls, N = Npix) for the sky gradient.
 //
 // ps is float32 (R, K) or interleaved complex64 (R, K); tauT is float32
-// (K, N). out is interleaved complex64 (R, N), or float32 (R, N) with
-// only the real plane when out_imag is 0. All row-major, contiguous.
+// (K, N), and tauT_lo, when given (else null), its float32 residual:
+// the delay is tauT + tauT_lo. out is interleaved complex64 (R, N), or
+// float32 (R, N) with only the real plane when out_imag is 0. All
+// row-major, contiguous.
 //
 // What bounds it on this card: FP32 instruction issue. Every (r, c, n)
 // triple needs a unit phasor and 2-4 FMAs, while each input byte is
@@ -44,7 +46,11 @@
 //   (__sincosf, at most 2^-21.41 absolute error there, in a few
 //   instructions where sincospif takes a polynomial). Remainders are
 //   x - rint(x), exact for every float (x - floor(x) rounds for small
-//   negative x).
+//   negative x). A float32 delay of ~1e-6 s is itself rounded by up to
+//   6e-14 s, 7.5e-5 rad of phase at 200 MHz; a caller that has the
+//   delay in float64 passes the rounding's residual tauT_lo, and the
+//   table adds f tau_lo (|f tau_lo| < 2e-5 cycles) to the low parts of
+//   c0 and c1 in float32.
 // - Chains: rows 1-7 come from the seed by D, D^2 = D D and D^4, three
 //   products deep; then 4 chains over rows g + 4j advance by the
 //   two-term recurrence e_{j+1} = 2 Re(D^4) e_j - e_{j-1}, one FMA per
@@ -108,8 +114,9 @@ constexpr size_t smem_bytes(bool ps_real)
 template <bool PS_REAL, bool OUT_IMAG>
 __global__ void __launch_bounds__(NT, 2)
 rime_fwd_kernel(const float* __restrict__ ps, const float* __restrict__ tauT,
-                float* __restrict__ out, size_t slice_stride, int K, int N,
-                int nf, int rps, int nruns, int cslice, Split sp, float sgn)
+                const float* __restrict__ tauT_lo, float* __restrict__ out,
+                size_t slice_stride, int K, int N, int nf, int rps,
+                int nruns, int cslice, Split sp, float sgn)
 {
     static_assert(TK == TN && NT % TK == 0 && (TR / (NT / TK)) % 4 == 0
                   && (TK * TN) % NT == 0, "tiling");
@@ -150,13 +157,15 @@ rime_fwd_kernel(const float* __restrict__ ps, const float* __restrict__ tauT,
         // this thread's delays of the tile's phase table (loaded first, so
         // that they are in flight with the ps loads)
         constexpr int TAB = TK * TN / NT;         // entries a thread
-        float t[TAB];
+        float t[TAB], tl[TAB];
 #pragma unroll
         for (int m = 0; m < TAB; ++m) {
             const int i = tid + m * NT, cc = i / TN;
             const int col = blockIdx.x * TN + i % TN;
-            t[m] = (cc < kmax && col < N) ? tauT[(size_t)(kt + cc) * N + col]
-                                          : 0.f;
+            const bool in = cc < kmax && col < N;
+            const size_t at = (size_t)(kt + cc) * N + col;
+            t[m] = in ? tauT[at] : 0.f;
+            tl[m] = (in && tauT_lo) ? tauT_lo[at] : 0.f;
         }
         // ps staged transposed: this thread's column c = kt + tx, rows
         // ty, ty + NT / TK, ... (a warp reads 32 consecutive c of a row).
@@ -203,8 +212,12 @@ rime_fwd_kernel(const float* __restrict__ ps, const float* __restrict__ tauT,
         // 4-row step D^4 (with 2 Re D^4, the two-term coefficient)
 #pragma unroll
         for (int m = 0; m < TAB; ++m) {
-            const float2 c0 = cycles(sp.a0, sp.b0, sp.lo0, t[m]);
-            const float2 c1 = cycles(sp.a1, sp.b1, sp.lo1, t[m]);
+            float2 c0 = cycles(sp.a0, sp.b0, sp.lo0, t[m]);
+            float2 c1 = cycles(sp.a1, sp.b1, sp.lo1, t[m]);
+            // the delay's residual: f0 tau_lo and df tau_lo (a + b is
+            // float32(f) exactly)
+            c0.y = fmaf(sp.a0 + sp.b0, tl[m], c0.y);
+            c1.y = fmaf(sp.a1 + sp.b1, tl[m], c1.y);
             float sd, cd, s4, c4;
             sincospif(2.f * (c1.x + c1.y), &sd, &cd);
             // 4 c1h is exact
@@ -324,9 +337,9 @@ rime_fwd_sum(const float* __restrict__ part, float* __restrict__ out,
 }
 
 template <bool PS_REAL, bool OUT_IMAG>
-int launch(const void* ps, const void* tauT, void* out, void* part, int R,
-           int K, int N, int nf, int S, int cslice, Split sp, float sgn,
-           cudaStream_t stream)
+int launch(const void* ps, const void* tauT, const void* tauT_lo, void* out,
+           void* part, int R, int K, int N, int nf, int S, int cslice,
+           Split sp, float sgn, cudaStream_t stream)
 {
     auto kernel = rime_fwd_kernel<PS_REAL, OUT_IMAG>;
     const size_t smem = smem_bytes(PS_REAL);
@@ -340,8 +353,9 @@ int launch(const void* ps, const void* tauT, void* out, void* part, int R,
     const dim3 grid((N + TN - 1) / TN, (nruns + RG - 1) / RG, S);
     float* dst = static_cast<float*>(S > 1 ? part : out);
     kernel<<<grid, block, smem, stream>>>(
-        static_cast<const float*>(ps), static_cast<const float*>(tauT), dst,
-        S > 1 ? count : 0, K, N, nf, rps, nruns, cslice, sp, sgn);
+        static_cast<const float*>(ps), static_cast<const float*>(tauT),
+        static_cast<const float*>(tauT_lo), dst, S > 1 ? count : 0, K, N, nf,
+        rps, nruns, cslice, sp, sgn);
     err = cudaGetLastError();
     if (err != cudaSuccess || S == 1) return (int)err;
     const float* p = static_cast<const float*>(part);
@@ -378,9 +392,10 @@ int info(int* regs, int* smem, int* blocks_per_sm)
 
 // Launch on `stream`; returns the first CUDA error (0 on success). With
 // S > 1 the slices' partial sums go to part (S * R * N floats, twice that
-// for out_imag) and are then added into out.
-extern "C" int rime_fwd_launch(const void* ps, const void* tauT, void* out,
-                               void* part, int R, int K, int N, int nf, int S,
+// for out_imag) and are then added into out. tauT_lo may be null.
+extern "C" int rime_fwd_launch(const void* ps, const void* tauT,
+                               const void* tauT_lo, void* out, void* part,
+                               int R, int K, int N, int nf, int S,
                                int cslice, float a0, float b0, float lo0,
                                float a1, float b1, float lo1, int conj,
                                int ps_real, int out_imag, void* stream)
@@ -390,15 +405,15 @@ extern "C" int rime_fwd_launch(const void* ps, const void* tauT, void* out,
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (ps_real)
         return out_imag
-            ? launch<true, true>(ps, tauT, out, part, R, K, N, nf, S, cslice,
-                                 sp, sgn, s)
-            : launch<true, false>(ps, tauT, out, part, R, K, N, nf, S, cslice,
-                                  sp, sgn, s);
+            ? launch<true, true>(ps, tauT, tauT_lo, out, part, R, K, N, nf, S,
+                                 cslice, sp, sgn, s)
+            : launch<true, false>(ps, tauT, tauT_lo, out, part, R, K, N, nf,
+                                  S, cslice, sp, sgn, s);
     return out_imag
-        ? launch<false, true>(ps, tauT, out, part, R, K, N, nf, S, cslice, sp,
-                              sgn, s)
-        : launch<false, false>(ps, tauT, out, part, R, K, N, nf, S, cslice,
-                               sp, sgn, s);
+        ? launch<false, true>(ps, tauT, tauT_lo, out, part, R, K, N, nf, S,
+                              cslice, sp, sgn, s)
+        : launch<false, false>(ps, tauT, tauT_lo, out, part, R, K, N, nf, S,
+                               cslice, sp, sgn, s);
 }
 
 // The variant's registers per thread, shared memory per block (static +

@@ -2,7 +2,9 @@
 Data containers: TensorData, VisData, MapData (the slice's subset).
 
 Counterpart of bayeslim_tpu/data/containers.py (TensorData :138, VisData
-:306 with _blnum_lookup / _bl2ind :398-415, MapData :1048,
+:306 with _set_bls :340, _blnum_lookup / _bl2ind :398-415, the
+selections _time2ind ... get_inds :422-473, _index_arr :475 and select
+:534, MapData :1048 with setup_data's df / pols / norm :1063,
 concat_VisData :1549; set_cov :160, compute_icov :192). Shapes follow
 the JAX package:
 
@@ -35,6 +37,21 @@ def _sum_log_real(x):
 def _host(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
         else np.asarray(x)
+
+
+def _take(arr, idx, axis):
+    """arr indexed along axis by a slice or an integer array (tensors
+    by index_select on their device, numpy arrays by np.take)."""
+    if arr is None:
+        return None
+    if isinstance(idx, slice):
+        sl = [slice(None)] * arr.ndim
+        sl[axis] = idx
+        return arr[tuple(sl)]
+    if isinstance(arr, torch.Tensor):
+        return arr.index_select(axis, torch.as_tensor(
+            np.asarray(idx, dtype=np.int64), device=arr.device))
+    return np.take(arr, idx, axis=axis)
 
 
 class TensorData:
@@ -117,6 +134,7 @@ class VisData(TensorData):
 
     def __init__(self):
         super().__init__()
+        self.atol = 1e-10
         self.setup_meta()
         self.blnums = None
         self.times = None
@@ -130,10 +148,7 @@ class VisData(TensorData):
 
     def setup_data(self, bls, times, freqs, pol=None, data=None, flags=None,
                    cov=None, cov_axis=None, icov=None, history=""):
-        if isinstance(bls, np.ndarray) and bls.ndim == 1:
-            self.blnums = bls.astype(np.int64)
-        else:
-            self.blnums = np.asarray(ants2blnum(list(bls)), dtype=np.int64)
+        self._set_bls(bls)
         self.times = np.asarray(times)
         self.freqs = np.asarray(freqs)
         if isinstance(pol, str):
@@ -145,6 +160,14 @@ class VisData(TensorData):
         self.flags = flags
         self.set_cov(cov, cov_axis, icov=icov)
         self.history = history
+
+    def _set_bls(self, bls):
+        """Baselines as antenna-pair tuples or as blnums (a 1-D integer
+        array)."""
+        if isinstance(bls, np.ndarray) and bls.ndim == 1:
+            self.blnums = bls.astype(np.int64)
+        else:
+            self.blnums = np.asarray(ants2blnum(list(bls)), dtype=np.int64)
 
     @property
     def bls(self):
@@ -186,6 +209,104 @@ class VisData(TensorData):
         except KeyError as e:
             raise ValueError(f"baseline {e} not found in data") from None
 
+    def _time2ind(self, time, atol=None):
+        """Rows of times within atol (default self.atol) of the given
+        ones, in their order."""
+        atol = self.atol if atol is None else atol
+        out = []
+        for t in np.atleast_1d(np.asarray(time)):
+            out.extend(np.where(np.isclose(self.times, t, atol=atol,
+                                           rtol=0))[0].tolist())
+        return np.asarray(out, dtype=np.int64)
+
+    def _freq2ind(self, freq, atol=1.0):
+        """Channels within atol [Hz] of the given frequencies."""
+        out = []
+        for f in np.atleast_1d(np.asarray(freq)):
+            out.extend(np.where(np.isclose(self.freqs, f, atol=atol,
+                                           rtol=0))[0].tolist())
+        return np.asarray(out, dtype=np.int64)
+
+    def _pol2ind(self, pol):
+        pol = pol.lower()
+        if self.Npol == 1:
+            if pol != self.pol:
+                raise ValueError(f"data is {self.pol}, asked for {pol}")
+            return slice(0, 1), slice(0, 1)
+        p = {"e": 0, "n": 1}
+        return (slice(p[pol[0]], p[pol[0]] + 1),
+                slice(p[pol[1]], p[pol[1]] + 1))
+
+    def _resolve_inds(self, bl, times, freqs, bl_inds, time_inds,
+                      freq_inds):
+        """Integer *_inds selections as the values they select."""
+        if bl_inds is not None:
+            if bl is not None:
+                raise ValueError("give bl or bl_inds, not both")
+            bl = [self.bls[int(i)] for i in np.atleast_1d(bl_inds)]
+        if time_inds is not None:
+            if times is not None:
+                raise ValueError("give times or time_inds, not both")
+            times = np.asarray(self.times)[np.atleast_1d(time_inds)]
+        if freq_inds is not None:
+            if freqs is not None:
+                raise ValueError("give freqs or freq_inds, not both")
+            freqs = np.asarray(self.freqs)[np.atleast_1d(freq_inds)]
+        return bl, times, freqs
+
+    def get_inds(self, bl=None, times=None, freqs=None, pol=None,
+                 bl_inds=None, time_inds=None, freq_inds=None, atol=None,
+                 **kwargs):
+        """Indices (pol1, pol2, bl, time, freq) of a selection: slices
+        where an axis is not selected, integer arrays where it is."""
+        bl, times, freqs = self._resolve_inds(bl, times, freqs, bl_inds,
+                                              time_inds, freq_inds)
+        p1 = p2 = slice(None)
+        if pol is not None:
+            p1, p2 = self._pol2ind(pol)
+        kw = {} if atol is None else {"atol": atol}
+        b = self._bl2ind(bl) if bl is not None else slice(None)
+        t = self._time2ind(times, **kw) if times is not None \
+            else slice(None)
+        f = self._freq2ind(freqs, **kw) if freqs is not None \
+            else slice(None)
+        return p1, p2, b, t, f
+
+    def _index_arr(self, arr, inds, squeeze=False):
+        """arr (Npol, Npol, Nbls, Ntimes, Nfreqs) at get_inds' indices."""
+        if arr is None:
+            return None
+        p1, p2, b, t, f = inds
+        out = arr[p1][:, p2]
+        out = _take(out, b, 2)
+        out = _take(out, t, 3)
+        out = _take(out, f, 4)
+        return self._squeeze(out) if squeeze else out
+
+    def select(self, bl=None, times=None, freqs=None, pol=None,
+               bl_inds=None, time_inds=None, freq_inds=None, inplace=True,
+               **kwargs):
+        """Down-select baselines, times, frequencies or a polarization,
+        in place by default: data, flags and a diagonal cov / icov (a
+        structured one is kept as it is) with the metadata."""
+        bl, times, freqs = self._resolve_inds(bl, times, freqs, bl_inds,
+                                              time_inds, freq_inds)
+        inds = self.get_inds(bl=bl, times=times, freqs=freqs, pol=pol)
+        obj = self if inplace else self.copy()
+        _, _, b, t, f = inds
+        obj.data = self._index_arr(self.data, inds)
+        obj.flags = self._index_arr(self.flags, inds)
+        if self.cov is not None and self.cov_axis is None:
+            obj.cov = self._index_arr(self.cov, inds)
+        if self.icov is not None and self.cov_axis is None:
+            obj.icov = self._index_arr(self.icov, inds)
+        obj.blnums = self.blnums if isinstance(b, slice) else self.blnums[b]
+        obj.times = self.times if isinstance(t, slice) else self.times[t]
+        obj.freqs = self.freqs if isinstance(f, slice) else self.freqs[f]
+        if pol is not None:
+            obj.pol = pol.lower()
+        return obj
+
     @staticmethod
     def _squeeze(arr):
         """Drop the (1, 1) polarization axes, as the JAX get_data does
@@ -213,14 +334,24 @@ class MapData(TensorData):
         self.name = None
         self.angs = None
         self.freqs = None
+        self.pols = None
+        self.df = None
+        self.norm = None
         self.px_area = None
 
     def setup_meta(self, name=None):
         self.name = name
 
-    def setup_data(self, freqs, data=None, angs=None, flags=None, cov=None,
-                   cov_axis=None, icov=None, history="", px_area=None):
+    def setup_data(self, freqs, df=None, pols=None, data=None, angs=None,
+                   flags=None, cov=None, cov_axis=None, icov=None,
+                   norm=None, history="", px_area=None):
+        """df: channel widths; pols: the polarizations of the leading
+        axis; norm: the normalisation the map was made with (a
+        VisMapper's D)."""
         self.freqs = np.asarray(freqs)
+        self.df = df
+        self.pols = pols
+        self.norm = norm
         self.data = data
         self.angs = angs
         self.flags = flags

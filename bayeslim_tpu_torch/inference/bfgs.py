@@ -197,7 +197,7 @@ class _QuasiNewtonBase:
     def _direction(self, g):
         raise NotImplementedError
 
-    def _update_curvature(self, s, y, ys):
+    def _update_curvature(self, s, y, ys, t):
         raise NotImplementedError
 
     def step(self):
@@ -236,7 +236,7 @@ class _QuasiNewtonBase:
         ys = float(y @ s)
         # sufficient-curvature condition
         if ys > self.tolerance_grad:
-            self._update_curvature(s, y, ys)
+            self._update_curvature(s, y, ys, t)
         self._commit(x_new)
         self._f, self._g = f_new, g_new
         self.n_iter += 1
@@ -264,7 +264,7 @@ class BFGS(_QuasiNewtonBase):
     def _direction(self, g):
         return self.H @ g
 
-    def _update_curvature(self, s, y, ys):
+    def _update_curvature(self, s, y, ys, t):
         rho = 1.0 / ys
         eye = torch.eye(s.numel(), dtype=s.dtype, device=s.device)
         V = eye - rho * torch.outer(s, y)
@@ -278,7 +278,9 @@ class LBFGS(_QuasiNewtonBase):
     DiagMat. update_Hdiag (default True) rescales the starting diagonal
     at each accepted curvature pair by s^T y / (y^T H0 y) (Nocedal Eqn
     7.20 normalized to the current diagonal); with a uniform H0 this is
-    the standard gamma scaling s^T y / y^T y.
+    the standard gamma scaling s^T y / y^T y. s_hist, y_hist, rho_hist
+    and t_hist (the line-search step of each pair) hold the retained
+    curvature pairs, oldest first.
     """
 
     def __init__(self, prob, pdict=None, history_size=20, H0=None,
@@ -289,6 +291,7 @@ class LBFGS(_QuasiNewtonBase):
         self.s_hist = []
         self.y_hist = []
         self.rho_hist = []
+        self.t_hist = []
         x = self.x
         if isinstance(H0, DiagMat):
             H0 = H0.diagonal().real
@@ -317,12 +320,14 @@ class LBFGS(_QuasiNewtonBase):
             r = r + (a - b) * s
         return r
 
-    def _update_curvature(self, s, y, ys):
+    def _update_curvature(self, s, y, ys, t):
         self.s_hist.append(s)
         self.y_hist.append(y)
         self.rho_hist.append(1.0 / ys)
+        self.t_hist.append(t)
         if len(self.s_hist) > self.history_size:
-            for hist in (self.s_hist, self.y_hist, self.rho_hist):
+            for hist in (self.s_hist, self.y_hist, self.rho_hist,
+                         self.t_hist):
                 hist.pop(0)
         if self.update_Hdiag:
             self._Hdiag = self._Hdiag * (ys / float(y @ (self._Hdiag * y)))

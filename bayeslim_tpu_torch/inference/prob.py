@@ -362,15 +362,25 @@ class _Sum64(torch.autograd.Function):
     accumulated in float64 a chunk at a time (a whole-array cast would
     hold a float64 copy of the ~0.9 GB cube). Its backward is a plain
     sum's: the upstream gradient expanded, never materialised at full
-    size."""
+    size (differentiable again); its jvp sums the tangent the same
+    way."""
 
     @staticmethod
-    def forward(ctx, x):
-        ctx.shape, ctx.dtype = x.shape, x.dtype
+    def _sum(x):
         xr = (x.real if x.is_complex() else x).reshape(-1)
         return torch.sum(torch.stack([
             torch.sum(xr[i:i + _SUM_CHUNK], dtype=torch.float64)
             for i in range(0, xr.numel(), _SUM_CHUNK)]))
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.shape, ctx.dtype = x.shape, x.dtype
+        return _Sum64._sum(x)
+
+    @staticmethod
+    @torch.no_grad()
+    def jvp(ctx, t):
+        return _Sum64._sum(t)
 
     @staticmethod
     def backward(ctx, g):

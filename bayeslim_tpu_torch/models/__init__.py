@@ -1,8 +1,8 @@
 """Telescope, sky, beam (pixel and Ylm), the RIME forward model, antenna
-gains, the cosmology, the linear models, the delay FFT and the
-filters."""
-from . import (beam, beam_ylm, bessel, calibration, cosmology, fft, filt,
-               linear_model, rime, sky, telescope)
+gains, the cosmology, the linear models, the delay FFT, the filters,
+antenna cross-coupling and dirty-map imaging."""
+from . import (beam, beam_ylm, bessel, calibration, cosmology, coupling,
+               fft, filt, imaging, linear_model, rime, sky, telescope)
 from .beam import (PixelBeam, AiryResponse, GaussResponse, UniformResponse,
                    PixelResponse)
 from .beam_ylm import YlmResponse, AlmBeam
@@ -15,6 +15,10 @@ from .filt import (MatFilter, GPFilter, LstSqFilter, WedgeFilter, rbf_cov,
                    gen_cov_modes)
 from .calibration import (JonesModel, JonesResponse, RedVisModel, VisModel,
                           VisModelResponse, vis2JonesModel, vis2RedVisModel)
+from .coupling import (VisCoupling, RedVisCoupling, CouplingInflate,
+                       PartialRedVisInflate, gen_coupling_terms, cut_bl)
+from .imaging import (VisMapper, VisData2MapData, make_map, compute_P,
+                      deconvolve_map, compute_Am, compute_Pm, get_visdata)
 from .rime import RIME
 from .sky import (PixelSky, PixelSkyResponse, PointSky, PointSkyResponse,
                   CompositeModel, Stokes2Coherency, CoherencySky,

@@ -4,7 +4,9 @@ Primary-beam models evaluated on sky pixels.
 Counterpart of bayeslim_tpu/models/beam.py (cut_sky_fov :43,
 pointing_offset :53, beam_edge_taper :80, airy_disk :109, GaussResponse
 :161, AiryResponse :187, UniformResponse :220, PixelResponse :237,
-PixelBeam :306-496, _expand_2pol :513). Beam tensors are (Npol, Nvec,
+PixelBeam :306-496, _expand_2pol :513, and the host rotation helpers
+R_eq_to_xyz, rotation, R_beta, R_XYZ_to_top and R_chi :525-583). Beam
+tensors are (Npol, Nvec,
 Nmodel, Nfreqs, Npix). Polarization modes:
 
 - '1pol': a power beam (Npol = Nvec = 1) or a Jones beam (Npol = 1,
@@ -32,7 +34,8 @@ from .bessel import j1
 
 __all__ = ["PixelBeam", "GaussResponse", "AiryResponse", "UniformResponse",
            "PixelResponse", "airy_disk", "beam_edge_taper", "cut_sky_fov",
-           "pointing_offset"]
+           "pointing_offset", "R_eq_to_xyz", "rotation", "R_beta",
+           "R_XYZ_to_top", "R_chi"]
 
 
 def cut_sky_fov(sky, cut):
@@ -351,17 +354,19 @@ class PixelBeam(Module):
         return mp1, mp2, mp_idx
 
     def gen_beam(self, zen, az, prior_cache=None, ctx=None, params=None,
-                 angles_offset=False):
+                 angles_offset=False, freqs=None):
         """Beam response at zen / az [deg] tensors: (Npol, Nvec, Nmodel,
         Nfreqs, Npix). angles_offset: the caller already folded the
-        pointing offset into zen / az (and ctx), as RIME does. The
-        beam's priors go into prior_cache."""
+        pointing offset into zen / az (and ctx), as RIME does. freqs: the
+        channels [Hz] as a tensor (default the beam's own, in its type).
+        The beam's priors go into prior_cache."""
         p = self.params if params is None else params
         if self.p0 is not None:
             p = p + self.p0
         if not angles_offset:
             zen, az = self.apply_pointing(zen, az)
-        beam = self.R(p, zen, az, self._freqs_t, ctx=ctx)
+        beam = self.R(p, zen, az, self._freqs_t if freqs is None else freqs,
+                      ctx=ctx)
         self.eval_prior(prior_cache, inp_params=self.params, out_params=None)
         return beam
 
@@ -422,3 +427,63 @@ def _expand_2pol(psky):
     top = torch.cat([psky[0:1, 0:1], z[0:1]], dim=1)
     bot = torch.cat([z[1:2], psky[1:2, 0:1]], dim=1)
     return torch.cat([top, bot], dim=0)
+
+
+# ---------------------------------------------------------------------------
+# polarization / frame rotations (host numpy)
+# ---------------------------------------------------------------------------
+
+def R_eq_to_xyz(alpha, delta):
+    """The equatorial unit vectors (e_alpha, e_delta) at (alpha, delta)
+    [rad] in xyz: (3, 2, ...)."""
+    alpha = np.asarray(alpha)
+    delta = np.asarray(delta)
+    return np.array([
+        [-np.sin(alpha), np.cos(alpha) * np.sin(delta)],
+        [np.cos(alpha), np.sin(alpha) * np.sin(delta)],
+        [np.zeros_like(alpha), -np.cos(delta)],
+    ])
+
+
+def rotation(beta, axis):
+    """3x3 rotation by beta [rad] about 'x' or 'y'."""
+    c, s = np.cos(beta), np.sin(beta)
+    if axis.lower() == "x":
+        return np.array([[1.0, 0, 0], [0, c, -s], [0, s, c]])
+    if axis.lower() == "y":
+        return np.array([[c, 0, s], [0, 1.0, 0], [-s, 0, c]])
+    raise ValueError(f"unknown axis {axis}")
+
+
+def R_beta(beta):
+    """xyz -> XYZ: the rotation by beta about y."""
+    return rotation(beta, "y")
+
+
+def R_XYZ_to_top(phi, theta):
+    """XYZ unit vectors projected onto the topocentric (e_phi, e_theta)
+    at (phi, theta) [rad]: (2, 3, ...)."""
+    phi = np.asarray(phi)
+    theta = np.asarray(theta)
+    return np.array([
+        [-np.sin(phi), np.cos(phi), np.zeros_like(phi)],
+        [np.cos(phi) * np.cos(theta), np.sin(phi) * np.cos(theta),
+         -np.sin(theta)],
+    ])
+
+
+def R_chi(alpha, delta, beta):
+    """Rotation from the equatorial basis (e_alpha, e_delta) to the
+    spherical basis (e_phi, e_theta) of a polarized beam at (alpha,
+    delta) [rad], the frame turned by beta [rad]: (2, 2, Nangles)."""
+    alpha = np.atleast_1d(np.asarray(alpha, dtype=np.float64))
+    delta = np.atleast_1d(np.asarray(delta, dtype=np.float64))
+    Rb = R_beta(beta)
+    xyz = np.einsum("ij,jk...->ik...", Rb, R_eq_to_xyz(alpha, delta))
+    v = np.array([np.cos(delta) * np.cos(alpha),
+                  np.cos(delta) * np.sin(alpha),
+                  np.sin(delta)])
+    V = Rb @ v
+    theta = np.arccos(np.clip(V[2], -1, 1))
+    phi = np.mod(np.arctan2(V[1], V[0]), 2 * np.pi)
+    return np.einsum("ij...,jk...->ik...", R_XYZ_to_top(phi, theta), xyz)

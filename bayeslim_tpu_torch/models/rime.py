@@ -33,6 +33,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..data.containers import VisData, concat_VisData
+from ..ops.linalg import dual_active
 from ..ops.rime_kernel import rime_reduce
 from ..utils.dtypes import C_MS
 from ..utils.indexing import ants2blnum, flatten
@@ -237,7 +238,11 @@ class RIME(Module):
     def _sim_component(self, sky, pres, blvecs, mp1, mp2, mp_idx):
         """Simulate one sky component (Nvec, Nvec, Nfreqs, Npix) over the
         active time group: (Npol, Npol, Nsim_bls, Ntimes, Nfreqs)."""
-        grad = torch.is_grad_enabled()
+        # the checkpoints hold memory down for a backward; forward-mode AD
+        # (compute_hessian's rows) does without them: torch 2.11's
+        # checkpoint has no jvp, and the pixel chunks of rime_reduce
+        # still keep only their inputs
+        grad = torch.is_grad_enabled() and not dual_active()
 
         def make_psky(sky, zen, az, cut, mask, *ctx):
             csky = cut_sky_fov(sky, cut) * mask

@@ -78,20 +78,45 @@ def pinv(A, rtol=None, hermitian=False):
     return torch.linalg.pinv(A, rtol=rtol, hermitian=hermitian)
 
 
+def dual_active():
+    """True inside a torch.autograd.forward_ad.dual_level (forward-mode
+    AD, as compute_hessian runs it): the product Functions then keep
+    both operands for their jvp."""
+    import torch.autograd.forward_ad as fwAD
+    return fwAD._current_level >= 0
+
+
 class _Einsum(torch.autograd.Function):
     """torch.einsum(eq, a, b) in true fp32 both ways (torch.einsum's own
     backward would run outside the caller's no_tf32 block): a's gradient
     is the einsum of g and conj(b) onto a's subscripts, b's that of
     conj(a) and g onto b's; each operand is saved only where the other
-    takes a gradient."""
+    takes a gradient. The backward is itself differentiable (a Hessian
+    runs it under forward-mode AD, or differentiates it again), and jvp
+    is the product rule (both operands kept under forward-mode AD)."""
 
     @staticmethod
     def forward(ctx, eq, a, b):
         ctx.eq = eq
         ctx.save_for_backward(a if ctx.needs_input_grad[2] else None,
                               b if ctx.needs_input_grad[1] else None)
+        if dual_active():
+            ctx.save_for_forward(a, b)
         with no_tf32():
             return torch.einsum(eq, a, b)
+
+    @staticmethod
+    @torch.no_grad()
+    def jvp(ctx, _, ta, tb):
+        a, b = ctx.saved_tensors
+        out = None
+        with no_tf32():
+            if ta is not None:
+                out = torch.einsum(ctx.eq, ta, b)
+            if tb is not None:
+                o = torch.einsum(ctx.eq, a, tb)
+                out = o if out is None else out + o
+        return out
 
     @staticmethod
     def backward(ctx, g):

@@ -2,7 +2,7 @@
 Float32-safe fringe phase: (f * tau) mod 1 in cycles.
 
 Counterpart of bayeslim_tpu/ops/phase.py (mod1 :34, split_mul_mod1 :53,
-fringe_cycles :76). The fringe phase 2 pi f tau reaches ~1e4 rad
+fringe_cycles :76, fringe_phasor :114). The fringe phase 2 pi f tau reaches ~1e4 rad
 (f ~ 2e8 Hz, tau ~ 1e-5 s), so a float32 product f * tau keeps only
 ~1e-3 of a cycle. Phases matter modulo one cycle, so the frequency is
 split into parts whose products with tau are exact enough in float32
@@ -20,7 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["mod1", "split_mul_mod1", "fringe_cycles", "regular_grid"]
+__all__ = ["mod1", "split_mul_mod1", "fringe_cycles", "fringe_phasor",
+           "regular_grid"]
 
 
 def mod1(x):
@@ -59,18 +60,22 @@ def regular_grid(freqs, rtol=1e-12, atol=1e-6):
     return None
 
 
-def fringe_cycles(tau, freqs):
+def fringe_cycles(tau, freqs, f0=None, df=None):
     """Fringe phase in cycles, (f tau) mod 1 in [0, 1).
 
-    tau : (...,) delay tensor [s]; freqs : (Nfreqs,) host array [Hz].
-    Returns (..., Nfreqs).
+    tau : (...,) delay tensor [s]; freqs : (Nfreqs,) host array [Hz];
+    f0, df : optional scalars declaring freqs = f0 + k df (found from
+    freqs when not given; the part of freqs off that grid is added
+    after the reduction). Returns (..., Nfreqs).
     """
     freqs = np.asarray(freqs, dtype=np.float64)
     if tau.dtype == torch.float64:
         f = torch.as_tensor(freqs, dtype=tau.dtype, device=tau.device)
         return mod1(tau[..., None] * f)
-    grid = regular_grid(freqs)
-    f0, df = grid if grid is not None else (float(freqs[0]), 0.0)
+    if f0 is None:
+        grid = regular_grid(freqs)
+        f0, df = grid if grid is not None else (float(freqs[0]), 0.0)
+    f0, df = float(f0), float(df or 0.0)
     k = torch.arange(len(freqs), dtype=tau.dtype, device=tau.device)
     c0 = split_mul_mod1(f0, tau)
     c1 = split_mul_mod1(df, tau) if df else torch.zeros_like(tau)
@@ -80,3 +85,12 @@ def fringe_cycles(tau, freqs):
         r = torch.as_tensor(resid, dtype=tau.dtype, device=tau.device)
         cyc = mod1(cyc + r * tau[..., None])
     return cyc
+
+
+def fringe_phasor(tau, freqs, conj=False, f0=None, df=None):
+    """exp(+-2 pi i f tau), (..., Nfreqs) complex, from the reduced
+    phase of fringe_cycles; the sign is that of the RIME's fringe
+    exp(+2 pi i f b.s / c), flipped by conj."""
+    ang = (2 * np.pi) * fringe_cycles(tau, freqs, f0=f0, df=df)
+    s = -1.0 if conj else 1.0
+    return torch.complex(torch.cos(ang), s * torch.sin(ang))

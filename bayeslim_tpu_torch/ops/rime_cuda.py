@@ -13,7 +13,10 @@ tauT (K, N) float,
     f_r = f0 + (r mod nf) df          (R = nstack * nf stacked rows)
 
 returned complex (R, N), or real (R, N) holding only the real plane
-when ``out_imag=False``.
+when ``out_imag=False``. ``tauT_lo`` (optional, float32 like tauT) is
+the residual of a delay known more precisely than float32: the delay
+is then tauT + tauT_lo (a float32 delay alone is rounded by up to
+~6e-14 s, 7.5e-5 rad at 200 MHz).
 
 Contract (`rime_dtau`, the delay cotangent): for ct (R, N) complex,
 
@@ -41,6 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -50,7 +54,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.autograd.function import once_differentiable
 
 from .phase import _split_f32, fringe_cycles
 
@@ -143,7 +146,7 @@ def roofline_ms(flops, nbytes):
 # argument types of the C launchers (pointers and the stream as
 # c_void_p, so ctypes does not cut them to 32 bits)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FWD_ARGS = [_P, _P, _P, _P] + [_I] * 6 + [_F] * 6 + [_I] * 3 + [_P]
+_FWD_ARGS = [_P] * 5 + [_I] * 6 + [_F] * 6 + [_I] * 3 + [_P]
 _DTAU_ARGS = [_P] * 5 + [_I] * 5 + [_F] * 8 + [_I] * 2 + [_P]
 
 # rime_fwd's tiling (csrc/rime_fwd.cu): rows of a run (one thread's),
@@ -250,11 +253,12 @@ def _lib(source, symbol, argtypes):
     return _LIB[source, symbol]
 
 
-def rime_fwd(ps, tauT, f0, df, nf, conj=False, out_imag=True):
+def rime_fwd(ps, tauT, f0, df, nf, conj=False, out_imag=True,
+             tauT_lo=None):
     """The fused reduction (contract in the module docstring)."""
     if not ps.is_cuda:
         return rime_fwd_plain(ps, tauT, f0, df, nf, conj=conj,
-                              out_imag=out_imag)
+                              out_imag=out_imag, tauT_lo=tauT_lo)
     global launches
     if not tauT.is_cuda or tauT.device != ps.device:
         raise ValueError("rime_fwd: ps and tauT must be on one CUDA device")
@@ -265,17 +269,24 @@ def rime_fwd(ps, tauT, f0, df, nf, conj=False, out_imag=True):
     if ps.ndim != 2 or tauT.ndim != 2 or ps.shape[1] != tauT.shape[0]:
         raise ValueError(f"rime_fwd: bad shapes {tuple(ps.shape)}, "
                          f"{tuple(tauT.shape)}")
+    if tauT_lo is not None and (tauT_lo.shape != tauT.shape
+                                or tauT_lo.dtype != tauT.dtype
+                                or tauT_lo.device != tauT.device):
+        raise ValueError("rime_fwd: tauT_lo must match tauT's shape, dtype "
+                         "and device")
     R, K = ps.shape
     N = tauT.shape[1]
     ps_real = not ps.is_complex()
     _, _, per_sm, sms = fwd_info(ps.device, ps_real, out_imag)
     S, cslice = fwd_plan(R, K, N, int(nf), sms, per_sm)
-    out = _launch_fwd(ps, tauT, f0, df, nf, conj, out_imag, S, cslice)
+    out = _launch_fwd(ps, tauT, f0, df, nf, conj, out_imag, S, cslice,
+                      tauT_lo)
     launches += 1
     return out
 
 
-def _launch_fwd(ps, tauT, f0, df, nf, conj, out_imag, S, cslice):
+def _launch_fwd(ps, tauT, f0, df, nf, conj, out_imag, S, cslice,
+                tauT_lo=None):
     """One rime_fwd kernel launch with the K split (S, cslice) (see
     fwd_plan); the slices' partial sums go to a scratch (S, R, N) and are
     added in order by a second launch. Counts nothing: rime_fwd does."""
@@ -285,13 +296,16 @@ def _launch_fwd(ps, tauT, f0, df, nf, conj, out_imag, S, cslice):
     # resolve it before the kernel reads the raw buffer
     ps = ps.resolve_conj().contiguous()
     tauT = tauT.contiguous()
+    if tauT_lo is not None:
+        tauT_lo = tauT_lo.contiguous()
     odt = torch.complex64 if out_imag else torch.float32
     out = torch.empty((R, N), device=ps.device, dtype=odt)
     part = torch.empty((S, R, N), device=ps.device, dtype=odt) \
         if S > 1 else None
     stream = torch.cuda.current_stream(ps.device).cuda_stream
     rc = _lib("rime_fwd.cu", "rime_fwd_launch", _FWD_ARGS)(
-        ps.data_ptr(), tauT.data_ptr(), out.data_ptr(),
+        ps.data_ptr(), tauT.data_ptr(),
+        None if tauT_lo is None else tauT_lo.data_ptr(), out.data_ptr(),
         None if part is None else part.data_ptr(), R, K, N, int(nf), S,
         cslice, *_split_f32(f0), *_split_f32(df), int(bool(conj)),
         int(not ps.is_complex()), int(bool(out_imag)), stream)
@@ -358,15 +372,19 @@ def _launch_dtau(launcher, ct, ps, tauT, f0, df, nf, conj):
 _PLAIN_ELEMS = 1 << 24
 
 
-def _phasors(tauT, freqs, sgn, dtype):
+def _phasors(tauT, freqs, sgn, dtype, tauT_lo=None):
     """cos and sgn * sin of 2 pi f tau, (K, N, nf): the phases f tau mod 1
     and their cos/sin are formed in float64 (the kernels also reduce
-    phases in double), then cast to the working dtype."""
-    ang = (2 * np.pi) * fringe_cycles(tauT.double(), freqs)
+    phases in double), then cast to the working dtype. tau = tauT (+
+    tauT_lo)."""
+    tau = tauT.double() if tauT_lo is None \
+        else tauT.double() + tauT_lo.double()
+    ang = (2 * np.pi) * fringe_cycles(tau, freqs)
     return torch.cos(ang).to(dtype), (sgn * torch.sin(ang)).to(dtype)
 
 
-def rime_fwd_plain(ps, tauT, f0, df, nf, conj=False, out_imag=True):
+def rime_fwd_plain(ps, tauT, f0, df, nf, conj=False, out_imag=True,
+                   tauT_lo=None):
     """Plain PyTorch version of ``rime_fwd``: chunked over K, it
     materialises cos/sin of each chunk's phases and contracts them in
     the inputs' dtype (true fp32 or fp64). Differentiable."""
@@ -380,8 +398,9 @@ def rime_fwd_plain(ps, tauT, f0, df, nf, conj=False, out_imag=True):
     re = im = None
     with no_tf32():
         for i in range(0, K, chunk):
-            cosf, sinf = _phasors(tauT[i:i + chunk], freqs, sgn,
-                                  tauT.dtype)           # (C, N, nf)
+            cosf, sinf = _phasors(tauT[i:i + chunk], freqs, sgn, tauT.dtype,
+                                  None if tauT_lo is None
+                                  else tauT_lo[i:i + chunk])  # (C, N, nf)
             p = ps3[..., i:i + chunk]                   # (S, nf, C)
 
             def es(a, b):
@@ -452,6 +471,48 @@ def _mm(a, b):
         return a @ b
 
 
+SECOND_ORDER_ERROR = (
+    "the fused RIME kernels have no second derivative: take Hessians and "
+    "Hessian-vector products inside "
+    "bayeslim_tpu_torch.ops.rime_kernel.force_chunked(), which runs the "
+    "chunked PyTorch path (inference.hessian.compute_hessian enters it)")
+
+
+class _SecondOrderRefused(torch.autograd.Function):
+    """x, as a function of x and of deps (the tensors it was computed
+    from), whose derivative raises SECOND_ORDER_ERROR."""
+
+    @staticmethod
+    def forward(ctx, x, *deps):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError(SECOND_ORDER_ERROR)
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        raise RuntimeError(SECOND_ORDER_ERROR)
+
+
+def _first_order(backward):
+    """Decorate a fused Function's backward as once_differentiable does,
+    with an error that names force_chunked: the backward runs without
+    recording a graph, and under create_graph its gradients are marked
+    so that differentiating them raises."""
+    @functools.wraps(backward)
+    def wrapped(ctx, *grads):
+        with torch.no_grad():
+            outs = backward(ctx, *grads)
+        deps = [t for t in (*ctx.saved_tensors, *grads)
+                if isinstance(t, torch.Tensor) and t.requires_grad]
+        if not (torch.is_grad_enabled() and deps):
+            return outs
+        return tuple(None if o is None else _SecondOrderRefused.apply(
+            o, *deps) for o in outs)
+    return wrapped
+
+
 class RimeFusedBS(torch.autograd.Function):
     """``rime_fwd`` with the delay factored as tau = blvecs @ s_c, built
     pixel-chunk by chunk in both passes and never saved for the
@@ -470,6 +531,10 @@ class RimeFusedBS(torch.autograd.Function):
     - the delay cotangent dtauT = ``rime_dtau`` with ct = conj(g),
       contracted at once to dblvecs = (s_c dtauT)^T and
       ds_c = (dtauT blvecs)^T in true fp32 / fp64.
+
+    The backward is first-order only: a second derivative (a double
+    backward, or forward-mode over it) raises SECOND_ORDER_ERROR, which
+    names ``ops.rime_kernel.force_chunked``.
     """
 
     @staticmethod
@@ -484,7 +549,11 @@ class RimeFusedBS(torch.autograd.Function):
         return out
 
     @staticmethod
-    @once_differentiable
+    def jvp(ctx, *tangents):
+        raise RuntimeError(SECOND_ORDER_ERROR)
+
+    @staticmethod
+    @_first_order
     def backward(ctx, g):
         ps2d, blvecs, s_c = ctx.saved_tensors
         f0, df, nf, conj = ctx.meta
@@ -529,7 +598,8 @@ class RimeFused(torch.autograd.Function):
     for (rime_pallas.py::_rime_fused_bwd :916): dps is ``rime_fwd`` with
     baselines and pixels swapped and ``conj`` flipped, as in
     RimeFusedBS; dtau is ``rime_dtau`` with ct = conj(g), transposed to
-    (Nbls, Npix) and not contracted further.
+    (Nbls, Npix) and not contracted further. First-order only, as
+    RimeFusedBS.
     """
 
     @staticmethod
@@ -539,7 +609,11 @@ class RimeFused(torch.autograd.Function):
         return rime_fwd(ps2d, tau.t(), f0, df, nf, conj=conj)
 
     @staticmethod
-    @once_differentiable
+    def jvp(ctx, *tangents):
+        raise RuntimeError(SECOND_ORDER_ERROR)
+
+    @staticmethod
+    @_first_order
     def backward(ctx, g):
         ps2d, tau = ctx.saved_tensors
         f0, df, nf, conj = ctx.meta

@@ -7,9 +7,11 @@ Counterpart of bayeslim_tpu/ops/rime_kernel.py (`_pallas_eligible` :59,
 
 - ``rime_reduce_ref`` materialises the whole fringe (small problems,
   tests).
-- ``rime_reduce`` reduces pixel chunk by chunk, each chunk under
-  ``torch.utils.checkpoint`` so the backward recomputes the chunk's
-  fringe instead of storing it. Eligible problems (float32, a regular
+- ``rime_reduce`` reduces pixel chunk by chunk, each chunk a
+  ``_ChunkReduce`` that keeps only its inputs: its backward recomputes
+  the chunk's fringe instead of storing it (torch.utils.checkpoint's
+  job, written out with explicit formulas so that forward-mode AD over
+  it works on every torch release). Eligible problems (float32, a regular
   frequency grid, psky in model-pair space) go to the fused kernel
   instead: automatically on CUDA, or everywhere with use_kernel=True
   (on the CPU the fused Functions run the kernel's plain version).
@@ -18,24 +20,57 @@ Counterpart of bayeslim_tpu/ops/rime_kernel.py (`_pallas_eligible` :59,
   grouped by pair, one fused call a pair, and the result
   inverse-permuted. Delays factored as blvecs @ s_c go through
   ``RimeFusedBS``, a given delay matrix tau through ``RimeFused``.
+- ``force_chunked`` (the JAX package's ``force_xla`` :45-56) turns the
+  fused dispatch off inside its block: the fused Functions' backward
+  has no derivative of its own, and second-order differentiation
+  (Hessians, Hessian-vector products) goes through the chunked path.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from .phase import fringe_cycles
 from .rime_cuda import no_tf32, rime_fused, rime_fused_bs
 
-__all__ = ["rime_reduce", "rime_reduce_ref"]
+__all__ = ["rime_reduce", "rime_reduce_ref", "force_chunked",
+           "chunked_forced"]
+
+_FORCE_CHUNKED = [False]
+
+
+@contextlib.contextmanager
+def force_chunked():
+    """Run every RIME reduction on the chunked PyTorch path inside the
+    block, whatever its use_kernel (counterpart of the JAX package's
+    ``force_xla``, ops/rime_kernel.py:45-56, which turns the Pallas
+    dispatch off). The fused Functions' backward launches the kernels
+    and is not itself differentiable; the chunked path is, at any order.
+    ``inference.hessian.compute_hessian`` enters it; a second derivative
+    taken through the fused Functions outside it raises an error that
+    names it. Nothing enters it on its own when a kernel fails."""
+    prev = _FORCE_CHUNKED[0]
+    _FORCE_CHUNKED[0] = True
+    try:
+        yield
+    finally:
+        _FORCE_CHUNKED[0] = prev
+
+
+def chunked_forced():
+    """True inside a force_chunked block."""
+    return _FORCE_CHUNKED[0]
 
 
 def _kernel_eligible(psky, mp_idx, freqs, use_kernel, blvecs, tau=None):
     """float32, regular frequency grid, delays given (factored or as a
     matrix), psky in model-pair space (shared across baselines, or
-    Nmp pairs with an mp_idx); on CUDA unless forced."""
-    if not use_kernel or (blvecs is None and tau is None) or psky.ndim < 3:
+    Nmp pairs with an mp_idx); on CUDA unless forced; never inside
+    force_chunked."""
+    if _FORCE_CHUNKED[0] or not use_kernel \
+            or (blvecs is None and tau is None) or psky.ndim < 3:
         return False
     if mp_idx is None and psky.shape[-3] != 1:
         return False      # per-baseline psky: the kernel shares rows
@@ -114,29 +149,113 @@ def rime_reduce_ref(psky, tau, freqs, mp_idx=None, conj=False):
     return torch.sum(psky * fr, dim=-1)
 
 
-def _chunk_body(psky_c, tau_c, freqs, mp_idx, conj, out_dtype):
-    """Reduce one pixel chunk: returns (..., Nbls, Nfreqs) complex."""
-    ang = (2 * np.pi) * fringe_cycles(tau_c, freqs)        # (Nb, C, F)
-    cosf = torch.cos(ang)
-    sinf = -torch.sin(ang) if conj else torch.sin(ang)
-    if mp_idx is None and psky_c.shape[-3] == 1:
-        ps = psky_c[..., 0, :, :]                          # (..., F, C)
-        spec = "...fc,bcf->...bf"
-    else:
-        ps = psky_c if mp_idx is None else psky_c.index_select(
-            -3, torch.as_tensor(np.asarray(mp_idx), device=psky_c.device))
-        spec = "...bfc,bcf->...bf"
+def _fringe(tau_c, freqs, conj):
+    """cos and sgn sin of 2 pi f tau for a chunk's delays: (Nb, C, F)."""
+    ang = (2 * np.pi) * fringe_cycles(tau_c, freqs)
+    return torch.cos(ang), (-torch.sin(ang) if conj else torch.sin(ang))
+
+
+def _contract(ps, er, ei, shared):
+    """sum_c ps[..., (b,) f, c] (er + i ei)[b, c, f] -> (re, im) planes of
+    (..., Nb, F), true fp32 / fp64; ps real or complex, er / ei real."""
+    spec = "...fc,bcf->...bf" if shared else "...bfc,bcf->...bf"
 
     def es(a, b):
         return torch.einsum(spec, a, b)
     with no_tf32():
         if ps.is_complex():
-            re = es(ps.real, cosf) - es(ps.imag, sinf)
-            im = es(ps.real, sinf) + es(ps.imag, cosf)
-        else:
-            re = es(ps, cosf)
-            im = es(ps, sinf)
+            return (es(ps.real, er) - es(ps.imag, ei),
+                    es(ps.real, ei) + es(ps.imag, er))
+        return es(ps, er), es(ps, ei)
+
+
+def _per_bl(ps, mp):
+    """ps (..., Nmp, F, C) gathered onto the baselines by the pair index
+    mp (a device tensor); ps itself without one."""
+    return ps if mp is None else ps.index_select(-3, mp)
+
+
+def _chunk_body(ps, tau_c, freqs, conj, shared, out_dtype, mp=None):
+    """Reduce one pixel chunk: ps (..., F, C) shared across baselines,
+    (..., Nb, F, C) per baseline, or (..., Nmp, F, C) per model pair
+    with the baseline -> pair index mp; returns (..., Nbls, Nfreqs)
+    complex."""
+    ps = _per_bl(ps, mp)
+    cosf, sinf = _fringe(tau_c, freqs, conj)
+    re, im = _contract(ps, cosf, sinf, shared)
     return torch.complex(re, im).to(out_dtype)
+
+
+class _ChunkReduce(torch.autograd.Function):
+    """_chunk_body keeping only its inputs. The backward recomputes the
+    chunk's fringe E = exp(i sgn 2 pi f tau) and returns, with g the
+    incoming gradient, dps = sum_b g conj(E) (its real part for a real
+    ps) and dtau = Re(sum conj(g) ps E i sgn 2 pi f) over the leading
+    dimensions and channels: torch.utils.checkpoint's memory with
+    explicit formulas. Those formulas are plain differentiable tensor
+    operations on the saved inputs, so a second derivative through them
+    is exact, forward-over-reverse (compute_hessian) or reverse-over-
+    reverse; jvp is the product rule. torch 2.11's checkpoint has no
+    jvp, so forward-mode AD could not cross it there. With a model-pair
+    index mp, ps is kept per pair (..., Nmp, F, C) and gathered onto the
+    baselines inside each pass; dps is summed back over each pair's
+    baselines (index_add), so no per-baseline sky outlives a pass."""
+
+    @staticmethod
+    def forward(ctx, ps, tau_c, freqs, conj, shared, out_dtype, mp=None):
+        ctx.meta = (freqs, conj, shared)
+        ctx.save_for_backward(ps, tau_c, mp)
+        ctx.save_for_forward(ps, tau_c, mp)
+        with torch.no_grad():
+            return _chunk_body(ps, tau_c, freqs, conj, shared, out_dtype,
+                               mp)
+
+    @staticmethod
+    def _dphase(tau_c, freqs, conj):
+        """d(sgn 2 pi f tau) / d tau on the (Nb, C, F) layout."""
+        w = (-2 * np.pi if conj else 2 * np.pi) * np.asarray(freqs)
+        return torch.as_tensor(w, dtype=tau_c.dtype, device=tau_c.device)
+
+    @staticmethod
+    @torch.no_grad()
+    def jvp(ctx, tps, ttau, *_):
+        # no graph: the tangent is not differentiated again, and a graph
+        # would keep every chunk's fringe alive through it
+        ps, tau_c, mp = ctx.saved_tensors
+        freqs, conj, shared = ctx.meta
+        cosf, sinf = _fringe(tau_c, freqs, conj)
+        re = im = None
+        if tps is not None:
+            re, im = _contract(_per_bl(tps, mp), cosf, sinf, shared)
+        if ttau is not None:
+            # dE = E i w ttau
+            d = _ChunkReduce._dphase(tau_c, freqs, conj) * ttau[..., None]
+            r, i = _contract(_per_bl(ps, mp), -sinf * d, cosf * d, shared)
+            re, im = (r, i) if re is None else (re + r, im + i)
+        out_dtype = torch.complex128 if re.dtype == torch.float64 \
+            else torch.complex64
+        return torch.complex(re, im).to(out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        ps, tau_c, mp = ctx.saved_tensors
+        freqs, conj, shared = ctx.meta
+        cosf, sinf = _fringe(tau_c, freqs, conj)
+        E = torch.complex(cosf, sinf).to(g.dtype)          # (Nb, C, F)
+        dps = dtau = None
+        with no_tf32():
+            if ctx.needs_input_grad[0]:
+                spec = "...bf,bcf->...fc" if shared else "...bf,bcf->...bfc"
+                dps = torch.einsum(spec, g, E.conj())
+                dps = (dps if ps.is_complex() else dps.real).to(ps.dtype)
+                if mp is not None:
+                    dps = torch.zeros_like(ps).index_add(-3, mp, dps)
+            if ctx.needs_input_grad[1]:
+                spec = "...bf,...fc->bcf" if shared else "...bf,...bfc->bcf"
+                P = torch.einsum(spec, g.conj(), _per_bl(ps, mp).to(g.dtype))
+                w = _ChunkReduce._dphase(tau_c, freqs, conj)
+                dtau = (-(P * E).imag * w).sum(-1).to(tau_c.dtype)
+        return dps, dtau, None, None, None, None, None
 
 
 def rime_reduce(psky, tau, freqs, mp_idx=None, conj=False, chunk=1024,
@@ -161,13 +280,15 @@ def rime_reduce(psky, tau, freqs, mp_idx=None, conj=False, chunk=1024,
     out_dtype = torch.complex128 if rdtype == torch.float64 \
         else torch.complex64
 
-    def body(ps, tc):
-        return _chunk_body(ps, tc, freqs, mp_idx, conj, out_dtype)
-
+    shared = mp_idx is None and psky.shape[-3] == 1
+    ps = psky[..., 0, :, :] if shared else psky        # (..., [N,] F, Npix)
+    # the pair index gathers psky onto the baselines a chunk at a time
+    mp = None if mp_idx is None else torch.as_tensor(
+        mp_idx, dtype=torch.int64, device=psky.device)
     out = None
     for i in range(0, psky.shape[-1], chunk):
-        args = (psky[..., i:i + chunk], tau[..., i:i + chunk])
-        o = checkpoint(body, *args, use_reentrant=False) if remat \
-            else body(*args)
+        args = (ps[..., i:i + chunk], tau[..., i:i + chunk], freqs, conj,
+                shared, out_dtype, mp)
+        o = _ChunkReduce.apply(*args) if remat else _chunk_body(*args)
         out = o if out is None else out + o
     return out

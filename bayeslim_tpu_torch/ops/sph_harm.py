@@ -41,6 +41,7 @@ import torch
 from ..utils.dtypes import _float, resolve_device, viewcomp
 from ..utils.module import Module
 from . import special
+from .linalg import dual_active
 from .rime_cuda import no_tf32
 
 __all__ = [
@@ -841,12 +842,25 @@ class _YlmProduct(torch.autograd.Function):
     """a @ Y in true fp32 both ways (torch.matmul's own backward would
     run outside forward_alm's no_tf32 block): a's gradient g Y^H with no
     copy of Y, and Y's, a^H g summed over a's leading dimensions, only
-    where Y takes one."""
+    where Y takes one. The backward is itself differentiable; jvp is the
+    product rule (both operands kept under forward-mode AD)."""
 
     @staticmethod
     def forward(ctx, a, Y):
         ctx.save_for_backward(a if Y.requires_grad else None, Y)
+        if dual_active():
+            ctx.save_for_forward(a, Y)
         return _ylm_mm(a, Y)
+
+    @staticmethod
+    @torch.no_grad()
+    def jvp(ctx, ta, tY):
+        a, Y = ctx.saved_tensors
+        out = None if ta is None else _ylm_mm(ta, Y)
+        if tY is not None:
+            o = _ylm_mm(a, tY)
+            out = o if out is None else out + o
+        return out
 
     @staticmethod
     def backward(ctx, g):
@@ -1078,13 +1092,29 @@ class _GlnProduct(torch.autograd.Function):
     """G @ p for the stacked radial matrices G (N_l, Nfreqs, Nn) and the
     gathered params p (..., N_l, Nn, C), in true fp32 both ways: p's
     gradient G^T g, and G's, g p^T summed over p's leading dimensions,
-    only where G takes one."""
+    only where G takes one. The backward is itself differentiable; jvp
+    is the product rule (both operands kept under forward-mode AD)."""
 
     @staticmethod
     def forward(ctx, p, G):
         ctx.save_for_backward(p if G.requires_grad else None, G)
+        if dual_active():
+            ctx.save_for_forward(p, G)
         with no_tf32():
             return G @ p
+
+    @staticmethod
+    @torch.no_grad()
+    def jvp(ctx, tp, tG):
+        p, G = ctx.saved_tensors
+        out = None
+        with no_tf32():
+            if tp is not None:
+                out = G @ tp
+            if tG is not None:
+                o = tG @ p
+                out = o if out is None else out + o
+        return out
 
     @staticmethod
     def backward(ctx, g):

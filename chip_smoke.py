@@ -57,7 +57,12 @@ Phases, one line each; any failure exits non-zero:
    chain (the same sky with 8 k modes, a Ylm beam of lmax 8) and the
    hera-filt chain (64 channels, its delay filter at a suppression of
    100), loss and gradients; and one HMC trajectory each of the hera-hmc
-   and the hera-hmc-alm chain (end position, end momentum and dU);
+   and the hera-hmc-alm chain (end position, end momentum and dU); then
+   a hex-2 imaging case (VisMapper's maps, diagonal and row-sum P,
+   compute_Am and compute_Pm), the hex-2 hera-coupling chain (at its
+   truth and its start) and the whole hex-2 hera-cal Hessian, each on
+   the card in float64 against the CPU in float64 at 1e-9, the imaging
+   and the coupling also in float32 through the kernels at TOL;
 8. kernel and plain-version times at the main paths' shapes (rime_fwd
    also at hera-prod's two and hera-alm's two), each kernel's bound, rime_fwd with its K split against one slice,
    rime_dtau beside the previous design's time, with real and complex
@@ -186,7 +191,40 @@ Phases, one line each; any failure exits non-zero:
    suppression of the noise-free foregrounds in each, PeakDelay before
    and after; the filter by CUDA events beside its bound (one G
    as a real product over the two planes and as a complex product); one
-   evaluation under torch.profiler.
+   evaluation under torch.profiler;
+18. main path 11, hera-img at full width, config #5's imaging:
+   hera-filt's chain at its truth plus noise, the 54,615-baseline,
+   1024-channel cube before and after its WedgeFilter, imaged by one
+   VisMapper onto the nside-32 HEALPix grid (12,288 pixels; ~6,144 in
+   each time's FOV) with unit weights, 'A2w' and the Airy power beam,
+   through rime_fwd (the delay factored as blvecs @ s / c; A is never
+   built): make_map(return_P=True, contract='diag') of both cubes,
+   compute_Am and compute_Pm of the unfiltered map, each by CUDA events
+   with its launches (exactly times x pixel chunks a launch kind; no
+   rime_dtau); peak memory; the filtered map's summed |m| below half the
+   unfiltered one's; both maps at 2,048 FOV pixels and 4 channels
+   within TOL of the map's rms of the float64 plain version (the same
+   beam values); rime_fwd at hera-img's two shapes (K = 54,615 in the
+   role-swapped one) against its float64 plain version on 64 columns,
+   bit-equal twice, timed beside its bound;
+19. main path 12, hera-coupling at full width (build_coupling):
+   Sequential(RIME -> RedVisCoupling -> JonesModel), the 630 groups
+   inflated onto all 54,615 cross baselines and coupled to first and
+   second order by terms within COUPLING_MAX_LEN (one complex amplitude
+   a redundant separation, CouplingInflate), 1-pol gains; 3 Adam steps
+   whose loss falls, rime_fwd launches exactly steps x times x chunks
+   and no rime_dtau, step walls, peak memory; the coupling's forward by
+   CUDA events beside its four products' bound; one step under
+   torch.profiler with the GEMMs' share;
+20. main path 13, hera-hess: hera-cal's chain through 3 L-BFGS steps,
+   FactoredInvHessian.from_lbfgs over its 678,881 parameters on the card
+   (<w, Hv> = <v, Hw>, <v, Hv> > 0, lvp finite; nothing dense); a double
+   backward through the fused kernels raises the error naming
+   force_chunked; compute_hessian(keys=[antenna positions], Nstart=0,
+   Nrows=6) in float64 on the card inside force_chunked (no launch),
+   its 6 x 6 block symmetric, its rows within 1e-6 of central
+   differences of the float64 gradient, beside the float32 chain's rows;
+   wall time and peak memory.
    Then the JSON line of all nine kernels.
 
 Each torch.profiler run launches PROFILE_MARKS spin kernels before the
@@ -212,6 +250,7 @@ GAINS = "models.cal.params"
 REDVIS = "models.redvis.params"
 SKY = "models.rime.sky.params"
 BEAM = "models.rime.beam.params"
+COUPLING = "models.coupling.coupling.params"
 # phase 7's hex-2 HMC trajectory: leapfrog steps and step size
 HMC_STEPS, HMC_EPS = 5, 1e-5
 # phase 13: the largest first trial step of lbfgs_approx_cov's probe in
@@ -243,6 +282,9 @@ STAT_STEPS_BEFORE_MS, STAT_PEAK_BEFORE_GIB = (22.8, 19.4), 2.15
 # baseline length, and the delay [s] each bin's filter keeps beyond its
 # longest horizon delay
 FILT_NDEG, FILT_BINS, FILT_BUFFER = 16, 8, 100e-9
+# hera-coupling (phase 19): the longest antenna separation [m] that
+# couples (three hex spacings of 15 m, plus a margin)
+COUPLING_MAX_LEN = 46.0
 # the redesigned spikes' previous designs at the script's sizes, ms a
 # launch (the same card): k_nn's, k_nt's and k_bd's 64 x 64 SGEMM tile,
 # k_vt's serial column walk per output, k_lr's one row a block with a
@@ -1023,6 +1065,85 @@ def build_filt(bt, hexN, nside, nfreq, fmax, ntime, pix_chunk, device,
                                               antpos=antpos)
 
 
+def coupling_layout(arr):
+    """The redundant groups' representatives (the RIME's simulated
+    baselines, autos left out), each cross baseline's group row and
+    every cross baseline."""
+    reds = [r for r in arr.reds if r[0][0] != r[0][1]]
+    bl2red = {bl: i for i, red in enumerate(reds) for bl in red}
+    return [r[0] for r in reds], bl2red, arr.get_bls(keep_autos=False)
+
+
+def coupling_truth(ants, nterms, nfreq, seed=1):
+    """Truth of the hera-coupling chain (numpy): each coupling term a
+    complex amplitude 0.01 (N + iN) / sqrt(2), gains 1 + 0.05 (N + iN) /
+    sqrt(2) as real pairs with the refant's imaginary part zero."""
+    rng = np.random.default_rng(seed)
+    shp = (1, 1, nterms, 1, 1)
+    X = 0.01 * (rng.standard_normal(shp) + 1j * rng.standard_normal(shp)) \
+        / np.sqrt(2)
+    gshp = (1, 1, len(ants), 1, nfreq)
+    g = 1 + 0.05 * (rng.standard_normal(gshp)
+                    + 1j * rng.standard_normal(gshp)) / np.sqrt(2)
+    g[:, :, 0] = g[:, :, 0].real
+    return {COUPLING: X, GAINS: np.stack([g.real, g.imag], axis=-1)}
+
+
+def build_coupling(bt, hexN, nside, nfreq, fmax, ntime, pix_chunk, device,
+                   dtype, max_len=COUPLING_MAX_LEN, amp=1e4, seed=0):
+    """The hera-coupling chain through the port's public API:
+    Sequential(RIME -> RedVisCoupling -> JonesModel). hera-redcal's
+    array, sky (amp times hera-stat's) and Airy beam, all fixed; the
+    RIME simulates the redundant groups, RedVisCoupling inflates them
+    onto every cross baseline and couples them (first and second order,
+    Vc = V + X V + V X^H + X V X^H); then 1-pol gains (real pairs, refant
+    the first antenna). The coupling terms are gen_coupling_terms(antpos,
+    max_len=max_len, compress_to_red=True): one complex amplitude per
+    redundant antenna separation within max_len, constant in time and
+    channel (the frequency structure is the fixed inter-antenna delay
+    phasor), spread onto the (Nant, Nant) matrix by CouplingInflate,
+    starting at zero. The target: the chain at coupling_truth plus
+    complex noise of unit variance (a seeded torch.Generator); icov
+    ones. Returns (prob, numpy truth, coupling terms)."""
+    import torch
+    device = bt.resolve_device(device)
+    T, arr, sky, beam, freqs = build_sky_beam(
+        bt, hexN, nside, nfreq, fmax, 0.5, False, device, dtype,
+        np.random.default_rng(seed), amp=amp, sky_beam_param=False)
+    sim_bls, bl2red, out_bls = coupling_layout(arr)
+    times = 2458168.3 + np.arange(ntime) * 5e-4
+    rime = bt.RIME(sky, T, beam, arr, sim_bls, times, freqs,
+                   pix_chunk=pix_chunk)
+    antpos = arr.to_antpos()
+    terms, cidx = bt.models.coupling.gen_coupling_terms(
+        antpos, max_len=max_len, compress_to_red=True)
+    R = bt.VisModelResponse(LM=bt.CouplingInflate(arr.ants, terms, cidx))
+    coupling = bt.RedVisCoupling(np.zeros((1, 1, len(terms), 1, 1),
+                                          dtype=np.complex128), freqs,
+                                 antpos, sim_bls, bl2red, out_bls, R=R,
+                                 device=device, dtype=dtype)
+    gains = np.zeros((1, 1, len(arr.ants), 1, nfreq, 2))
+    gains[..., 0] = 1.0
+    cal = bt.JonesModel(gains, arr.ants, refant=arr.ants[0],
+                        R=bt.JonesResponse(param_type="com"), device=device,
+                        dtype=dtype)
+    seq = bt.Sequential({"rime": rime, "coupling": coupling, "cal": cal})
+    truth = coupling_truth(arr.ants, len(terms), nfreq)
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    with torch.no_grad():
+        data = seq.updated(bt.ParamDict({
+            k: torch.as_tensor(v, device=device).to(seq[k].dtype)
+            for k, v in truth.items()}))().data
+        for part in (data.real, data.imag):
+            part += np.sqrt(0.5) * torch.randn(
+                data.shape, generator=gen, dtype=dtype, device=device)
+    tgt = bt.VisData()
+    tgt.setup_meta(T, antpos)
+    tgt.setup_data(out_bls, times, freqs, pol="ee", data=data,
+                   icov=torch.ones(data.shape, dtype=dtype, device=device))
+    return bt.LogProb(seq, tgt), truth, terms
+
+
 def hmc_trajectory(bt, torch, prob, start, momenta, eps, nstep):
     """One HMC step of the port's sampler from the numpy start with the
     given numpy momenta (no draw; the Metropolis uniform comes from the
@@ -1632,6 +1753,142 @@ def phase_small(bt, torch, rime_cuda, dev, hera_prod):
         check(all(v <= TOL for v in errs.values()), f"card vs CPU {label}")
     phase_small_hmc(bt, torch, rime_cuda, dev)
     phase_small_hmc(bt, torch, rime_cuda, dev, alm=True)
+    phase_small_img_coupling_hess(bt, torch, rime_cuda, dev)
+
+
+def phase_small_img_coupling_hess(bt, torch, rime_cuda, dev):
+    """Phase 7, end: the hex-2 imaging case (a VisMapper over the hex-2
+    hera-filt cube: maps, the diagonal and row-sum P, compute_Am and
+    compute_Pm), the hex-2 hera-coupling chain at its truth (loss and
+    gradients) and the whole hex-2 hera-cal Hessian (133 x 133), each on
+    the card in float64 against the port on the CPU in float64 (1e-9),
+    and the imaging and coupling in float32 through the kernels against
+    the same (TOL)."""
+    from bayeslim_tpu_torch.inference import hessian
+    from bayeslim_tpu_torch.utils import healpix as hp
+    theta, phi = hp.pix2ang(8, np.arange(hp.nside2npix(8)))
+    ra, dec = np.rad2deg(phi), 90 - np.rad2deg(theta)
+    kw = dict(hexN=2, nside=8, nfreq=16, fmax=200e6, ntime=2, pix_chunk=512)
+    _, _, info = build_filt(bt, device="cpu", dtype=torch.float64, **kw)
+    vd = info["unfiltered"]
+
+    def run(device, dtype, use_kernel):
+        v = vd.copy()
+        v.data = vd.data.to(device=device,
+                            dtype=torch.complex64 if dtype == torch.float32
+                            else torch.complex128)
+        b = bt.PixelBeam(np.ones((1, 1, 1, 1, 2)) * 14.0, vd.freqs,
+                         R=bt.AiryResponse(), pol="e", powerbeam=True,
+                         fov=180.0, parameter=False, device=device,
+                         dtype=dtype)
+        m = bt.VisMapper(v, ra, dec, beam=b, use_kernel=use_kernel,
+                         pix_chunk=64, dtype=dtype)
+        m.set_normalization("A2w")
+        with torch.no_grad():
+            maps, P = m.make_map(contract="diag")
+            _, Pr = m.make_map(contract="rowsum")
+            Am = m.compute_Am(maps)
+            Pm = m.compute_Pm(maps)
+        return m._kernel_route(), [x.cpu().numpy() for x in
+                                   (maps, P, Pr, Am, Pm)]
+    # both cases against the plain version in float64 on the CPU ('A2w';
+    # the mapper evaluates its beam in float64 whatever its type)
+    ref = run("cpu", torch.float64, False)[1]
+    names = ("maps", "P diag", "P rowsum", "compute_Am", "compute_Pm")
+    for dtype, tol in ((torch.float64, 1e-9), (torch.float32, TOL)):
+        rime_cuda.launches = rime_cuda.dtau_launches = 0
+        kern, got = run(dev, dtype, "auto")
+        errs = {n: relerr(g, r) for n, g, r in zip(names, got, ref)}
+        print(f"phase 7 card vs CPU, hex-2 imaging ({dtype}, 'A2w', "
+              f"kernel route {kern}, rime_fwd launches "
+              f"{rime_cuda.launches}): "
+              + ", ".join(f"{k} rel {v:.2e}" for k, v in errs.items())
+              + f" (tol {tol:g})", flush=True)
+        check(kern == (dtype == torch.float32)
+              and (rime_cuda.launches > 0) == kern, "hex-2 imaging route")
+        check(all(v <= tol for v in errs.values()), f"hex-2 imaging {dtype}")
+
+    # the coupling chain in float64 at its truth (nonzero coupling terms)
+    # and at its start; in float32 at its start (at the truth the residual
+    # is the unit noise under visibilities of ~1e2, and float32 rounding
+    # of the model moves the gradient by ~5e-4 at hex-2)
+    kw = dict(hexN=2, nside=8, nfreq=8, fmax=120e6, ntime=2, pix_chunk=512)
+    cpu, truth, _ = build_coupling(bt, device="cpu", dtype=torch.float64,
+                                   **kw)
+    start = {k: v.detach().numpy().copy()
+             for k, v in cpu.collect_main_params().items()}
+    for dtype, where, tol in ((torch.float64, "truth", 1e-9),
+                              (torch.float64, "start", 1e-9),
+                              (torch.float32, "start", TOL)):
+        params = truth if where == "truth" else start
+        bt.load_numpy_pdict(cpu.model, params)
+        vc, gc = cpu.value_and_grad()
+        gpu, _, _ = build_coupling(bt, device=dev, dtype=dtype, **kw)
+        gpu.target[0].data = cpu.target[0].data.to(gpu.target[0].data.dtype
+                                                   ).to(dev)
+        bt.load_numpy_pdict(gpu.model, params)
+        rime_cuda.launches = 0
+        vg, gg = gpu.value_and_grad()
+        errs = {"loss": abs(float(vg) - float(vc)) / abs(float(vc))}
+        errs.update({k: relerr(gg[k].cpu().numpy(), gc[k].numpy())
+                     for k in gc})
+        print(f"phase 7 card vs CPU, hex-2 hera-coupling chain at its "
+              f"{where} ({dtype}, rime_fwd launches {rime_cuda.launches}): "
+              + ", ".join(f"{k} rel {v:.2e}" for k, v in errs.items())
+              + f" (tol {tol:g})", flush=True)
+        check(all(v <= tol for v in errs.values()),
+              f"hex-2 hera-coupling {dtype} at its {where}")
+
+    kw = dict(hexN=2, nside=8, nfreq=8, fmax=120e6, ntime=2, pix_chunk=512,
+              ant_sigma=0.05, gain_sigma=0.1)
+    cpu, _ = build_cal(bt, device="cpu", dtype=torch.float64, **kw)
+    gpu, _ = build_cal(bt, device=dev, dtype=torch.float64, **kw)
+    gpu.target[0].data = cpu.target[0].data.to(dev)
+    rime_cuda.launches = rime_cuda.dtau_launches = 0
+    t0 = time.time()
+    Hg, _ = hessian.compute_hessian(gpu)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n = (rime_cuda.launches, rime_cuda.dtau_launches)
+    Hc, _ = hessian.compute_hessian(cpu)
+    err = relerr(Hg.cpu().numpy(), Hc.numpy())
+    print(f"phase 7 card vs CPU, the whole hex-2 hera-cal Hessian "
+          f"{tuple(Hg.shape)} in float64 ({wall:.1f} s on the card, kernel "
+          f"launches {n}): rel {err:.2e} (tol 1e-9)", flush=True)
+    check(n == (0, 0) and err <= 1e-9, "hex-2 Hessian card vs CPU")
+
+    # FactoredInvHessian.from_lbfgs after 3 L-BFGS steps of the same
+    # chains, each built where it ran: to_dense() and chol() (as
+    # tests/test_hessian.py's test_factored_inv_hessian holds them)
+    fg, tg = small_fih(bt, torch, gpu)
+    fc, tc = small_fih(bt, torch, cpu)
+    errs = {"t_hist": relerr(np.asarray(tg), np.asarray(tc)),
+            "to_dense": relerr(fg.to_dense().cpu().numpy(),
+                               fc.to_dense().numpy()),
+            "chol": relerr(fg.chol().cpu().numpy(), fc.chol().numpy())}
+    L = fg.chol()
+    errs["L L^T - H"] = relerr((L @ L.T).cpu().numpy(),
+                               fg.to_dense().cpu().numpy())
+    print(f"phase 7 card vs CPU, hex-2 hera-cal FactoredInvHessian."
+          f"from_lbfgs in float64 ({len(fg.u)} / {len(fc.u)} factored "
+          f"pairs over {fg.N} parameters, t_hist {tg}): "
+          + ", ".join(f"{k} rel {v:.2e}" for k, v in errs.items())
+          + " (tol 1e-9)", flush=True)
+    check(len(fg.u) == len(fc.u) > 0
+          and all(v <= 1e-9 for v in errs.values()),
+          "hex-2 FactoredInvHessian card vs CPU")
+
+
+def small_fih(bt, torch, prob, steps=3):
+    """FactoredInvHessian.from_lbfgs of prob after `steps` L-BFGS steps
+    from its current parameters (phase 20's first-step H0), and the
+    steps' t_hist."""
+    _, g0 = prob.value_and_grad()
+    opt = bt.LBFGS(prob, H0=first_step_H0(bt, torch, g0,
+                                          {ANTVECS: 1e-3, GAINS: 1e-3}))
+    for _ in range(steps):
+        opt.step()
+    return bt.FactoredInvHessian.from_lbfgs(opt), list(opt.t_hist)
 
 
 def phase_small_hmc(bt, torch, rime_cuda, dev, alm=False):
@@ -3140,6 +3397,429 @@ def phase_hera_filt(bt, torch, rime_cuda, pix_chunks, size=HERA, steps=3):
     return fwd, dtau
 
 
+def img_bound_ms(rime_cuda, nf, nbl, npix, swapped):
+    """The bound of one hera-img rime_fwd call over npix pixels: the
+    role-swapped launch (baselines as K, complex ps, the real plane out,
+    2 FMAs a triple), or the forward one (pixels as K, real ps, complex
+    out, 2 FMAs a triple)."""
+    if swapped:
+        return kernel_bound_ms(rime_cuda, nf, nbl, npix, False, False)
+    return kernel_bound_ms(rime_cuda, nf, npix, nbl, True, True)
+
+
+def phase_img_kernels(torch, rime_cuda, mapper, rng, ncol=64):
+    """Phase 18: rime_fwd at hera-img's two shapes (the first pixel
+    chunk of time 0 and all 54,615 baselines, the delays split into
+    float32 and its residual as the mapper passes them): the kernel
+    against its plain version in float64 on ncol columns of its output
+    (columns are independent), the launch timed beside its bound and
+    its plain version. Returns {label: timing and error}."""
+    sl = mapper._chunks(True)[0]
+    f0, df = mapper._grid()
+    nf, nbl = mapper.Nfreqs, mapper.Nbls
+    out = {}
+    for label, swapped in (("hera-img fwd", False), ("hera-img bwd", True)):
+        tauT, lo = mapper._delays(0, sl, swapped)
+        if swapped:
+            ps = torch.as_tensor(
+                rng.standard_normal((nf, nbl))
+                + 1j * rng.standard_normal((nf, nbl)),
+                dtype=torch.complex64, device=tauT.device)
+        else:
+            ps = torch.as_tensor(rng.standard_normal(
+                (nf, tauT.shape[0])), dtype=torch.float32,
+                device=tauT.device)
+        K, N = tauT.shape
+        cols = np.sort(rng.choice(N, ncol, replace=False))
+        ct = torch.as_tensor(cols, device=tauT.device)
+        kw = dict(conj=swapped, out_imag=not swapped, tauT_lo=lo)
+        a = rime_cuda.rime_fwd(ps, tauT, f0, df, nf, **kw)
+        b = rime_cuda.rime_fwd(ps, tauT, f0, df, nf, **kw)
+        p64 = ps.to(torch.complex128 if swapped else torch.float64)
+        ref = rime_cuda.rime_fwd_plain(p64, tauT[:, ct].double()
+                                       + lo[:, ct].double(), f0, df, nf,
+                                       conj=swapped, out_imag=not swapped)
+        err = relerr(a[:, ct].cpu().numpy(), ref.cpu().numpy())
+        ms = cuda_ms(torch, lambda: rime_cuda.rime_fwd(ps, tauT, f0, df, nf,
+                                                       **kw), 5)
+        kwc = dict(kw, tauT_lo=lo[:, ct])
+        pms = cuda_ms(torch, lambda: rime_cuda.rime_fwd_plain(
+            ps, tauT[:, ct], f0, df, nf, **kwc), 1) * N / ncol
+        bms, by = (kernel_bound_ms(rime_cuda, nf, K, N, not swapped,
+                                   not swapped))
+        out[label] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                          max_abs_err=err)
+        print(f"phase 18 rime_fwd {label} R={nf} K={K} N={N} ps_real="
+              f"{not swapped} conj={swapped} out_imag={not swapped}: vs "
+              f"float64 plain on {ncol} columns rel {err:.2e} (tol {TOL:g}); "
+              f"two launches bit-equal {bool(torch.equal(a, b))}; kernel "
+              f"{ms:.4f} ms, plain {pms:.1f} ms (float32, its {ncol}-column "
+              f"time scaled to N), bound {bms:.4f} ms ({by}), kernel at "
+              f"{bms / ms:.1%} of bound; no single PyTorch call computes "
+              f"this fused function, so no library time", flush=True)
+        check(err <= TOL, f"rime_fwd at {label} vs float64 plain: {err:.2e}")
+        check(bool(torch.equal(a, b)), f"rime_fwd at {label}: launches "
+              f"not bit-equal")
+    return out
+
+
+def phase_hera_img(bt, torch, rime_cuda, pix_chunks, size=HERA, npx=2048,
+                   chans=(0, 341, 682, 1023)):
+    """Phase 18: main path 11, hera-img, config #5's imaging at full
+    width: hera-filt's chain (build_filt) at its truth plus noise, the
+    cube before and after its WedgeFilter, imaged by one VisMapper onto
+    the nside-32 HEALPix grid (unit weights, 'A2w', the chain's Airy
+    power beam) through rime_fwd. Returns (rime_fwd launches, rime_dtau
+    launches, the kernel checks at hera-img's shapes)."""
+    from bayeslim_tpu_torch.utils import healpix as hp
+    t0 = time.time()
+    prob, _, info = build_filt(bt, device=None, dtype=torch.float32, **size)
+    rime = prob.model.rime
+    unf, filt = info["unfiltered"], prob.target[0]
+    nside = size["nside"]
+    theta, phi = hp.pix2ang(nside, np.arange(hp.nside2npix(nside)))
+    ra, dec = np.rad2deg(phi), 90 - np.rad2deg(theta)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    mapper = bt.VisMapper(unf, ra, dec, beam=rime.beam)
+    torch.cuda.synchronize()
+    chunks = mapper._chunks(True)
+    ntime = len(mapper.times)
+    print(f"phase 18 hera-img build: cubes {tuple(unf.data.shape)} "
+          f"{unf.data.dtype} before and after the WedgeFilter (chain "
+          f"{t1 - t0:.1f} s); VisMapper onto {len(ra)} nside-{nside} "
+          f"pixels, {mapper.Npad} FOV pixels a time (padded), "
+          f"{mapper.Nbls} baselines, {mapper.Nfreqs} channels, {ntime} "
+          f"times, {len(chunks)} pixel chunks ({[c.stop - c.start if c.stop else mapper.Npad for c in chunks]}), "
+          f"kernel route {mapper._kernel_route()}; mapper "
+          f"{time.time() - t1:.1f} s", flush=True)
+    check(mapper._kernel_route(), "hera-img mapper not on the kernel route")
+    nb, nf, npad = mapper.Nbls, mapper.Nfreqs, mapper.Npad
+    a_tb = nb * nf * npad * 8 / 1e12
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**30
+    calls = (("make_map unfiltered", lambda: mapper.make_map(
+                 return_P=True, contract="diag"), 1),
+             ("make_map filtered", lambda: mapper.make_map(
+                 vd=filt, return_P=True, contract="diag"), 1))
+    res, total = {}, 0
+    with torch.no_grad():
+        for label, fn, per in calls:
+            rime_cuda.launches = rime_cuda.dtau_launches = 0
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            res[label] = fn()
+            b.record()
+            b.synchronize()
+            n = rime_cuda.launches
+            expect = per * ntime * len(chunks)
+            total += n
+            print(f"phase 18 hera-img {label}: {a.elapsed_time(b):.1f} ms "
+                  f"(CUDA events), rime_fwd launches {n} (expected {ntime} "
+                  f"times x {len(chunks)} chunks = {expect}), rime_dtau "
+                  f"{rime_cuda.dtau_launches}", flush=True)
+            check(n == expect and rime_cuda.dtau_launches == 0,
+                  f"hera-img {label}: launches {n} / "
+                  f"{rime_cuda.dtau_launches}, expected {expect} / 0")
+        maps, P = res["make_map unfiltered"]
+        fmaps, _ = res["make_map filtered"]
+        for label, fn, per in (
+                ("compute_Am", lambda: mapper.compute_Am(maps), 1),
+                ("compute_Pm", lambda: mapper.compute_Pm(maps), 2)):
+            rime_cuda.launches = rime_cuda.dtau_launches = 0
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn()
+            b.record()
+            b.synchronize()
+            n = rime_cuda.launches
+            expect = per * ntime * len(chunks)
+            total += n
+            print(f"phase 18 hera-img {label} of the unfiltered map: "
+                  f"{a.elapsed_time(b):.1f} ms (CUDA events), out "
+                  f"{tuple(out.shape)}, finite "
+                  f"{bool(torch.isfinite(out).all())}, rime_fwd launches "
+                  f"{n} (expected {per} x {ntime} times x {len(chunks)} "
+                  f"chunks = {expect}), rime_dtau {rime_cuda.dtau_launches}",
+                  flush=True)
+            check(n == expect and rime_cuda.dtau_launches == 0,
+                  f"hera-img {label}: launches {n}, expected {expect}")
+            check(bool(torch.isfinite(out).all()), f"hera-img {label} "
+                  f"not finite")
+            del out
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    s_unf, s_filt = float(maps.abs().sum()), float(fmaps.abs().sum())
+    print(f"phase 18 hera-img: peak device memory {peak:.2f} GiB ({base:.2f} "
+          f"GiB held before the calls: the chain and both cubes); one time "
+          f"of A (Nbls x Nfreqs x Npad complex64) would be {a_tb:.2f} TB; "
+          f"maps {tuple(maps.shape)}, P {tuple(P.shape)} finite "
+          f"{bool(torch.isfinite(maps).all() and torch.isfinite(P).all())}; "
+          f"sum |m| unfiltered {s_unf:.6e}, filtered {s_filt:.6e} (ratio "
+          f"{s_filt / s_unf:.3e}, must be < 0.5)", flush=True)
+    check(bool(torch.isfinite(maps).all() and torch.isfinite(fmaps).all()
+               and torch.isfinite(P).all()), "hera-img maps not finite")
+    check(s_filt < 0.5 * s_unf, "hera-img: filtered map not suppressed")
+    check(peak < 24, f"hera-img peak {peak:.1f} GiB")
+
+    # the maps and the diagonal P at npx pixels and 4 channels against
+    # the plain version in float64 (A built per time in pixel chunks) on
+    # the same cubes and geometry (the antenna positions the cubes were
+    # made at), with the chain's Airy beam built anew in float64
+    rng = np.random.default_rng(0)
+    fov = mapper._cut[0][mapper._mask[0]]
+    sel = np.sort(rng.choice(fov, npx, replace=False))
+    chans = list(chans)
+    t2 = time.time()
+    errs = []
+    with torch.no_grad():
+        vd64 = unf.select(freq_inds=chans, inplace=False)
+        vd64.data = vd64.data.to(torch.complex128)
+        beam64 = bt.PixelBeam(rime.beam.params.detach().double().cpu()
+                              .numpy(), rime.freqs, R=bt.AiryResponse(),
+                              pol="e", powerbeam=True, fov=180.0,
+                              parameter=False, dtype=torch.float64)
+        m64 = bt.VisMapper(vd64, ra[sel], dec[sel], beam=beam64,
+                           use_kernel=False, dtype=torch.float64)
+        for label, vd, m32, P32 in (("unfiltered", unf, maps, P),
+                                    ("filtered", filt, fmaps, None)):
+            v = vd64.copy()
+            v.data = vd.data[..., chans].to(torch.complex128)
+            ref, Pref = m64.make_map(vd=v, return_P=True, contract="diag")
+            pairs = [("map", m32, ref)]
+            if P32 is not None:
+                pairs.append(("diagonal P", P32, Pref))
+            for what, got, want in pairs:
+                got = got[chans][:, sel].double()
+                rms = float(torch.sqrt(torch.mean(want ** 2)))
+                err = float((got - want).abs().max()) / rms
+                errs.append(err)
+                print(f"phase 18 hera-img {label} {what} vs the float64 "
+                      f"plain version (beam in float64) at {npx} FOV "
+                      f"pixels and channels {chans}: max |diff| / rms "
+                      f"{err:.2e} (tol {TOL:g}), rms {rms:.4e}", flush=True)
+    print(f"phase 18 hera-img float64 check {time.time() - t2:.1f} s",
+          flush=True)
+    check(max(errs) <= TOL, f"hera-img maps and P vs float64: "
+          f"{max(errs):.2e}")
+    for label, swapped in (("role-swapped (make_map, baselines as K)", True),
+                           ("forward (compute_Am, pixels as K)", False)):
+        bms = sum(img_bound_ms(rime_cuda, nf, nb, c.stop - c.start
+                               if c.stop else npad, swapped)[0]
+                  for c in chunks)
+        print(f"phase 18 hera-img {label} launches: bound {bms:.3f} ms a "
+              f"time (FP32 FMAs at 67 TFLOP/s over all {npad} pixels; "
+              f"{2 * nf * nb * npad:.3e} FMAs)", flush=True)
+    shapes = phase_img_kernels(torch, rime_cuda, mapper, rng)
+    del mapper, unf, filt, maps, fmaps, P, prob
+    torch.cuda.empty_cache()
+    return total, 0, shapes
+
+
+def phase_hera_coupling(bt, torch, rime_cuda, pix_chunks, size=HERA,
+                        steps=3):
+    """Phase 19: main path 12, hera-coupling at full width
+    (build_coupling): the 630 groups simulated, inflated onto all 54,615
+    cross baselines and coupled, then 1-pol gains; coupling terms and
+    gains trainable; 3 Adam steps. Returns the rime_fwd launches."""
+    t0 = time.time()
+    prob, truth, terms = build_coupling(bt, device=None,
+                                        dtype=torch.float32, **size)
+    seq = prob.model
+    rime, coupling = seq.rime, seq.coupling
+    nant = len(rime.array.ants)
+    nparams = {k: v.numel() for k, v in seq.named_parameters()}
+    torch.cuda.synchronize()
+    print(f"phase 19 hera-coupling build: {nant} antennas, "
+          f"{len(rime.sim_bls)} groups simulated, inflated onto "
+          f"{len(coupling.full_bls)} baselines and coupled, "
+          f"{len(coupling.out_bls)} out; {len(terms)} coupling terms "
+          f"(gen_coupling_terms, max_len {COUPLING_MAX_LEN} m, compressed "
+          f"to redundant separations; one complex amplitude each, constant "
+          f"in time and channel); trainable {nparams}; "
+          f"{time.time() - t0:.1f} s", flush=True)
+    trainer = bt.Trainer(prob, lr=1e-3)
+    nchunks = len(pix_chunks(len(rime.sim_bls), rime.Npix_cut))
+    expect = steps * len(rime.sim_times) * nchunks
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rime_cuda.launches = rime_cuda.dtau_launches = 0
+    losses, step_s = [], []
+    for _ in range(steps):
+        t1 = time.time()
+        losses.append(float(trainer.step()))
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t1)
+    fwd, dtau = rime_cuda.launches, rime_cuda.dtau_launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ntf = len(rime.sim_times) * rime.Nfreqs
+    flop = 4 * 8.0 * nant ** 3 * ntf
+    bms = rime_cuda.roofline_ms(flop, 0)[0]
+    print(f"phase 19 hera-coupling main path: Adam lr 1e-3, losses "
+          f"{losses}; step walls {[round(s * 1e3, 1) for s in step_s]} ms; "
+          f"rime_fwd launches {fwd} (expected {steps} steps x "
+          f"{len(rime.sim_times)} times x {nchunks} chunks = {expect}; the "
+          f"sky, beam and array are fixed, so no backward launch), "
+          f"rime_dtau {dtau}; peak device memory {peak:.2f} GiB; the four "
+          f"products of a forward {flop:.3e} FLOP, bound {bms:.2f} ms",
+          flush=True)
+    check(all(np.isfinite(losses)), "non-finite hera-coupling loss")
+    check(losses[-1] < losses[0], "hera-coupling loss did not fall")
+    check(fwd == expect and dtau == 0,
+          f"hera-coupling launches {fwd} / {dtau}, expected {expect} / 0")
+    # the coupling's forward alone, and one step under the profiler
+    with torch.no_grad():
+        vd = rime()
+        ms = cuda_ms(torch, lambda: coupling(vd), 3)
+    print(f"phase 19 hera-coupling RedVisCoupling forward {ms:.1f} ms "
+          f"(CUDA events), {bms / ms:.1%} of the four products' bound",
+          flush=True)
+    del vd
+    busy, gemm = profile(torch, trainer.step,
+                         "phase 19 profile of one step", match="gemm")
+    if busy is not None:
+        print(f"phase 19 hera-coupling step: device {busy:.1f} ms, of it "
+              f"GEMM kernels {gemm:.1f} ms ({gemm / busy:.1%}); the rest "
+              f"{busy - gemm:.1f} ms", flush=True)
+    del prob, trainer
+    torch.cuda.empty_cache()
+    return fwd
+
+
+def hess_fd_rows(torch, prob, key, rows, h):
+    """Central differences of the float64 gradient of key along its
+    first raveled coordinates rows: (len(rows), n) numpy."""
+    pd = prob.collect_main_params()
+    x0 = pd[key].detach().clone()
+    out = []
+    for i in rows:
+        gs = []
+        for sgn in (1.0, -1.0):
+            x = x0.clone().reshape(-1)
+            x[i] += sgn * h
+            pd2 = pd.copy()
+            pd2[key] = x.reshape(x0.shape)
+            gs.append(prob.value_and_grad(pd2)[1][key].reshape(-1))
+        out.append(((gs[0] - gs[1]) / (2 * h)).cpu().numpy())
+    return np.stack(out)
+
+
+def phase_hera_hess(bt, torch, rime_cuda, pix_chunks, size=HERA, nrows=6,
+                    hess_chunk=256, h=1e-4):
+    """Phase 20: main path 13, hera-hess: hera-cal's chain through 3
+    L-BFGS steps, FactoredInvHessian.from_lbfgs over its 678,881
+    parameters (probe vectors only), compute_hessian's first nrows rows
+    over the antenna positions in float64 on the card inside
+    force_chunked (no launch), held against central differences of the
+    float64 gradient and the float32 chain's rows; a double backward
+    outside the context raises its named error. Returns the solve's
+    (rime_fwd, rime_dtau) launches."""
+    from bayeslim_tpu_torch.inference import hessian
+    t0 = time.time()
+    prob, _ = build_cal(bt, device=None, dtype=torch.float32, **size)
+    seq = prob.model
+    loss0, g0 = prob.value_and_grad()
+    opt = bt.LBFGS(prob, H0=first_step_H0(bt, torch, g0,
+                                          {ANTVECS: 1e-3, GAINS: 1e-3}))
+    rime_cuda.launches = rime_cuda.dtau_launches = 0
+    losses = [float(opt.step()) for _ in range(3)]
+    torch.cuda.synchronize()
+    solve = (rime_cuda.launches, rime_cuda.dtau_launches)
+    n = opt.x.numel()
+    print(f"phase 20 hera-hess solve: hera-cal's chain, {n} parameters, "
+          f"3 L-BFGS steps, losses {float(loss0)} -> {losses}, "
+          f"{len(opt.s_hist)} pairs kept, line-search steps t_hist "
+          f"{opt.t_hist}, {opt.func_evals} evaluations, rime_fwd / "
+          f"rime_dtau launches {solve}; {time.time() - t0:.1f} s",
+          flush=True)
+    t1 = time.time()
+    fih = bt.FactoredInvHessian.from_lbfgs(opt)
+    gen = torch.Generator(device=opt.x.device).manual_seed(3)
+    v, w = (torch.randn(n, generator=gen, device=opt.x.device,
+                        dtype=opt.x.dtype) for _ in range(2))
+    hv, hw, lv = fih.hvp(v), fih.hvp(w), fih.lvp(v)
+    torch.cuda.synchronize()
+    a, b = float(w.double() @ hv.double()), float(v.double() @ hw.double())
+    vhv = float(v.double() @ hv.double())
+    sym = abs(a - b) / max(abs(a), abs(b))
+    print(f"phase 20 hera-hess FactoredInvHessian.from_lbfgs on the card: "
+          f"{len(fih.u)} factored pairs over {fih.N} parameters, nothing "
+          f"dense; <w, Hv> {a:.6e}, <v, Hw> {b:.6e} (rel {sym:.2e}), "
+          f"<v, Hv> {vhv:.6e}, lvp finite "
+          f"{bool(torch.isfinite(lv).all())}; {time.time() - t1:.2f} s",
+          flush=True)
+    check(len(fih.u) > 0 and sym <= TOL and vhv > 0
+          and bool(torch.isfinite(lv).all()), "hera-hess factored inverse")
+
+    # outside force_chunked: a double backward through the fused kernels
+    x = seq.rime.array.antvecs.detach().clone().requires_grad_(True)
+    rime_cuda.launches = 0
+    g, = torch.autograd.grad(prob(bt.ParamDict({ANTVECS: x})), x,
+                             create_graph=True)
+    named = False
+    try:
+        torch.autograd.grad(g.sum(), x)
+    except RuntimeError as e:
+        named = "force_chunked" in str(e)
+        print(f"phase 20 hera-hess double backward outside force_chunked "
+              f"(rime_fwd launches {rime_cuda.launches}): {e}", flush=True)
+    check(named and rime_cuda.launches > 0, "hera-hess: a double backward "
+          "through the fused kernels did not raise the named error")
+    del g, x
+
+    # the row block in float64 on the card at the solved parameters
+    solved = {k: v.detach().cpu().double().numpy()
+              for k, v in seq.named_parameters()}
+    sz = dict(size, pix_chunk=hess_chunk)
+    seq.rime.pix_chunk = hess_chunk
+    rime_cuda.launches = rime_cuda.dtau_launches = 0
+    t2 = time.time()
+    rows32, _ = hessian.compute_hessian(prob, keys=[ANTVECS], Nstart=0,
+                                        Nrows=nrows)
+    torch.cuda.synchronize()
+    s32 = time.time() - t2
+    del prob, opt, fih, seq
+    torch.cuda.empty_cache()
+    p64, _ = build_cal(bt, device=None, dtype=torch.float64, **sz)
+    bt.load_numpy_pdict(p64.model, solved)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t3 = time.time()
+    H, idx = hessian.compute_hessian(p64, keys=[ANTVECS], Nstart=0,
+                                     Nrows=nrows)
+    torch.cuda.synchronize()
+    wall = time.time() - t3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = (rime_cuda.launches, rime_cuda.dtau_launches)
+    Hn = H.cpu().numpy()
+    sub = Hn[:, :nrows]
+    asym = float(np.abs(sub - sub.T).max() / np.abs(sub).max())
+    t4 = time.time()
+    fd = hess_fd_rows(torch, p64, ANTVECS, range(nrows), h)
+    fd_err = relerr(Hn, fd)
+    e32 = relerr(rows32.double().cpu().numpy(), Hn)
+    print(f"phase 20 hera-hess compute_hessian(keys=[antenna positions], "
+          f"Nstart=0, Nrows={nrows}) in float64 on the card: H "
+          f"{tuple(H.shape)} over {idx[ANTVECS].stop} positions, "
+          f"{wall:.1f} s ({wall / nrows:.2f} s a row, forward-over-reverse "
+          f"through the chunked RIME path, pixel chunks of {hess_chunk}), "
+          f"peak device memory {peak:.2f} GiB; kernel launches inside "
+          f"force_chunked: rime_fwd {launches[0]}, rime_dtau {launches[1]}; "
+          f"{nrows}x{nrows} block asymmetry {asym:.2e}; against central "
+          f"differences of the float64 gradient (h {h:g} m, "
+          f"{time.time() - t4:.1f} s) rel {fd_err:.2e}; the float32 "
+          f"chain's rows ({s32:.1f} s) against these rel {e32:.2e}",
+          flush=True)
+    check(launches == (0, 0), f"hera-hess launched kernels {launches}")
+    check(np.isfinite(Hn).all() and asym <= 1e-8,
+          f"hera-hess block not symmetric: {asym:.2e}")
+    check(fd_err <= 1e-6, f"hera-hess rows vs finite differences {fd_err:.2e}")
+    del p64, H
+    torch.cuda.empty_cache()
+    return solve
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3297,6 +3977,10 @@ def main():
                                              _pix_chunks, sky_ylm, beam_R)
     del sky_ylm, beam_R
     filt_fwd, filt_dtau = phase_hera_filt(bt, torch, rime_cuda, _pix_chunks)
+    img_fwd, img_dtau, img_t = phase_hera_img(bt, torch, rime_cuda,
+                                              _pix_chunks)
+    coup_fwd = phase_hera_coupling(bt, torch, rime_cuda, _pix_chunks)
+    hess_fwd, hess_dtau = phase_hera_hess(bt, torch, rime_cuda, _pix_chunks)
 
     # rime_fwd: the two shapes are launched equally often on hera-stat:
     # report the mean per launch (hera-prod's and hera-alm's shapes beside
@@ -3307,14 +3991,17 @@ def main():
         "source": "bayeslim_tpu_torch/csrc/rime_fwd.cu",
         "replaces": "bayeslim_tpu/ops/rime_pallas.py:298",
         "launches": stat_launches + cal_fwd + prod_fwd + redcal_fwd
-        + hmc_fwd + alm_fwd + sfb_fwd + hmca_fwd + filt_fwd,
+        + hmc_fwd + alm_fwd + sfb_fwd + hmca_fwd + filt_fwd + img_fwd
+        + coup_fwd + hess_fwd,
         "launches_by_path": {"hera-stat": stat_launches, "hera-cal": cal_fwd,
                              "hera-prod": prod_fwd,
                              "hera-redcal": redcal_fwd,
                              "hera-hmc": hmc_fwd, "hera-alm": alm_fwd,
                              "hera-sfb": sfb_fwd,
                              "hera-hmc-alm": hmca_fwd,
-                             "hera-filt": filt_fwd},
+                             "hera-filt": filt_fwd, "hera-img": img_fwd,
+                             "hera-coupling": coup_fwd,
+                             "hera-hess": hess_fwd},
         "max_abs_err": max(worst_fwd["hera-fwd"], worst_fwd["hera-bwd"]),
         "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[2],
         "bound_by": timing[0][3] if timing[0][3] == timing[1][3]
@@ -3324,18 +4011,20 @@ def main():
             for label, *_ in PROD_SHAPES},
         "hera_alm_shapes": {
             label: dict(alm_t[label], max_abs_err=worst_fwd[label])
-            for label, *_ in ALM_SHAPES}}, {
+            for label, *_ in ALM_SHAPES},
+        "hera_img_shapes": img_t}, {
         "name": "rime_dtau", "route": "cuda",
         "source": "bayeslim_tpu_torch/csrc/rime_dtau.cu",
         "replaces": "bayeslim_tpu/ops/rime_pallas.py:693",
         "launches": cal_dtau + prod_dtau + alm_dtau + sfb_dtau + hmca_dtau
-        + filt_dtau,
+        + filt_dtau + img_dtau + hess_dtau,
         "launches_by_path": {"hera-stat": 0, "hera-cal": cal_dtau,
                              "hera-prod": prod_dtau, "hera-redcal": 0,
                              "hera-hmc": 0, "hera-alm": alm_dtau,
                              "hera-sfb": sfb_dtau,
                              "hera-hmc-alm": hmca_dtau,
-                             "hera-filt": filt_dtau},
+                             "hera-filt": filt_dtau, "hera-img": img_dtau,
+                             "hera-coupling": 0, "hera-hess": hess_dtau},
         "max_abs_err": worst_dtau, "ms": dms, "plain_ms": dpms,
         "bound_ms": dbms, "bound_by": dby, "library_ms": None}]
     kernels += spikes

@@ -948,3 +948,134 @@ def test_hera_filt_small_on_card(cuda):
     assert abs(float(vg) - float(vc)) / abs(float(vc)) <= 1e-4
     for k in gc.keys():
         assert _relerr(gg[k].cpu().numpy(), gc[k].numpy()) <= 1e-4, k
+
+
+def _repo_on_path():
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+
+
+@pytest.mark.cuda
+def test_vismapper_kernel_route_on_card(cuda):
+    """VisMapper on the card (float32, the kernel route) over the hex-2
+    hera-filt cube against its plain version in float64 on the card:
+    the maps, the diagonal and row-sum P, compute_Am and compute_Pm; the
+    launches are times x chunks a launch kind, none of rime_dtau."""
+    _repo_on_path()
+    import bayeslim_tpu_torch as bt
+    from bayeslim_tpu_torch.utils import healpix as hp
+    from chip_smoke import build_filt
+    kw = dict(hexN=2, nside=8, nfreq=16, fmax=200e6, ntime=2, pix_chunk=512)
+    _, _, info = build_filt(bt, device=cuda, dtype=torch.float32, **kw)
+    vd = info["unfiltered"]
+    theta, phi = hp.pix2ang(8, np.arange(hp.nside2npix(8)))
+    ra, dec = np.rad2deg(phi), 90 - np.rad2deg(theta)
+    beam = bt.PixelBeam(np.ones((1, 1, 1, 1, 2)) * 14.0, vd.freqs,
+                        R=bt.AiryResponse(), pol="e", powerbeam=True,
+                        fov=180.0, parameter=False, device=cuda,
+                        dtype=torch.float32)
+    m32 = bt.VisMapper(vd, ra, dec, beam=beam, pix_chunk=64)
+    v64 = vd.copy()
+    v64.data = vd.data.to(torch.complex128)
+    m64 = bt.VisMapper(v64, ra, dec, beam=beam, use_kernel=False)
+    assert m32._kernel_route() and not m64._kernel_route()
+    nchunk = len(m32._chunks(True))
+    with torch.no_grad():
+        for contract in ("diag", "rowsum"):
+            n0 = (rime_cuda.launches, rime_cuda.dtau_launches)
+            a, Pa = m32.make_map(contract=contract)
+            per = 1 if contract == "diag" else 3
+            assert (rime_cuda.launches - n0[0],
+                    rime_cuda.dtau_launches - n0[1]) == (per * 2 * nchunk, 0)
+            b, Pb = m64.make_map(contract=contract)
+            assert _relerr(a.cpu().numpy(), b.cpu().numpy()) <= 1e-4
+            assert _relerr(Pa.cpu().numpy(), Pb.cpu().numpy()) <= 1e-4
+        for fn in ("compute_Am", "compute_Pm"):
+            x = getattr(m32, fn)(a)
+            y = getattr(m64, fn)(b)
+            assert _relerr(x.cpu().numpy(), y.cpu().numpy()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_small_hessian_on_card(cuda):
+    """compute_hessian of the hex-2 hera-cal chain in float64 on the
+    card against the CPU (1e-9), with no kernel launch; a double
+    backward through the float32 chain's fused kernels raises the error
+    naming force_chunked."""
+    _repo_on_path()
+    import bayeslim_tpu_torch as bt
+    from bayeslim_tpu_torch.inference import hessian
+    from chip_smoke import ANTVECS, build_cal
+    kw = dict(hexN=2, nside=8, nfreq=8, fmax=120e6, ntime=2, pix_chunk=512,
+              ant_sigma=0.05, gain_sigma=0.1)
+    cpu, _ = build_cal(bt, device="cpu", dtype=torch.float64, **kw)
+    gpu, _ = build_cal(bt, device=cuda, dtype=torch.float64, **kw)
+    gpu.target[0].data = cpu.target[0].data.to(cuda)
+    n0 = (rime_cuda.launches, rime_cuda.dtau_launches)
+    Hg, _ = hessian.compute_hessian(gpu, keys=[ANTVECS])
+    assert (rime_cuda.launches, rime_cuda.dtau_launches) == n0
+    Hc, _ = hessian.compute_hessian(cpu, keys=[ANTVECS])
+    assert _relerr(Hg.cpu().numpy(), Hc.numpy()) <= 1e-9
+    g32, _ = build_cal(bt, device=cuda, dtype=torch.float32, **kw)
+    x = g32.model.rime.array.antvecs.detach().clone().requires_grad_(True)
+    g, = torch.autograd.grad(g32(bt.ParamDict({ANTVECS: x})), x,
+                             create_graph=True)
+    assert rime_cuda.launches > n0[0]
+    with pytest.raises(RuntimeError, match="force_chunked"):
+        torch.autograd.grad(g.sum(), x)
+
+
+@pytest.mark.cuda
+def test_small_factored_inv_hessian_on_card(cuda):
+    """FactoredInvHessian.from_lbfgs after 3 L-BFGS steps of the hex-2
+    hera-cal chain in float64, built on the card and on the CPU:
+    t_hist, to_dense() and chol() agree (1e-9), and L L^T = H."""
+    _repo_on_path()
+    import bayeslim_tpu_torch as bt
+    from chip_smoke import build_cal, small_fih
+    kw = dict(hexN=2, nside=8, nfreq=8, fmax=120e6, ntime=2, pix_chunk=512,
+              ant_sigma=0.05, gain_sigma=0.1)
+    cpu, _ = build_cal(bt, device="cpu", dtype=torch.float64, **kw)
+    gpu, _ = build_cal(bt, device=cuda, dtype=torch.float64, **kw)
+    gpu.target[0].data = cpu.target[0].data.to(cuda)
+    fg, tg = small_fih(bt, torch, gpu)
+    fc, tc = small_fih(bt, torch, cpu)
+    assert len(fg.u) == len(fc.u) > 0
+    assert _relerr(np.asarray(tg), np.asarray(tc)) <= 1e-9
+    H = fg.to_dense()
+    assert _relerr(H.cpu().numpy(), fc.to_dense().numpy()) <= 1e-9
+    L = fg.chol()
+    assert _relerr(L.cpu().numpy(), fc.chol().numpy()) <= 1e-9
+    assert _relerr((L @ L.T).cpu().numpy(), H.cpu().numpy()) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps_real,conj,out_imag", [(True, False, True),
+                                                   (False, True, False)])
+def test_kernel_delay_residual(cuda, ps_real, conj, out_imag):
+    """rime_fwd with tauT_lo (a float64 delay as float32 plus its
+    rounding's residual) against the plain version in float64 on the
+    float64 delay, at delays up to hex-11's longest and 1024 channels to
+    200 MHz: within 1e-5, where the float32 delay alone is further."""
+    rng = np.random.default_rng(9)
+    nf, K, N = 1024, 700, 96
+    f0, df = 100e6, 100e6 / 1023
+    tau = rng.uniform(-1.1e-6, 1.1e-6, (K, N))
+    ps = rng.standard_normal((nf, K))
+    if not ps_real:
+        ps = ps + 1j * rng.standard_normal((nf, K))
+    hi = torch.as_tensor(tau, dtype=torch.float32, device=cuda)
+    lo = (torch.as_tensor(tau, device=cuda) - hi.double()).float()
+    cps = torch.as_tensor(ps, dtype=torch.float32 if ps_real
+                          else torch.complex64, device=cuda)
+    kw = dict(conj=conj, out_imag=out_imag)
+    a = rime_cuda.rime_fwd(cps, hi, f0, df, nf, tauT_lo=lo, **kw)
+    ref = rime_cuda.rime_fwd_plain(
+        cps.to(torch.float64 if ps_real else torch.complex128),
+        torch.as_tensor(tau, device=cuda), f0, df, nf, **kw)
+    no_lo = rime_cuda.rime_fwd(cps, hi, f0, df, nf, **kw)
+    err = _relerr(a.cpu().numpy(), ref.cpu().numpy())
+    assert err <= 1e-5
+    assert err < _relerr(no_lo.cpu().numpy(), ref.cpu().numpy())

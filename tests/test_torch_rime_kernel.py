@@ -115,9 +115,21 @@ def test_rime_reduce_values_and_grads_f64(kind):
         jnp.asarray(psky), jnp.asarray(blvecs), jnp.asarray(s_c))
     tin = [torch.as_tensor(x).requires_grad_(True)
            for x in (psky, blvecs, s_c)]
-    tv = trk.rime_reduce(tin[0], None, freqs, mp_idx=mp_idx, conj=conj,
-                         chunk=32, blvecs=tin[1], s_c=tin[2])
+    saved = []
+
+    def pack(t):
+        saved.append(tuple(t.shape))
+        return t
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        tv = trk.rime_reduce(tin[0], None, freqs, mp_idx=mp_idx, conj=conj,
+                             chunk=32, blvecs=tin[1], s_c=tin[2])
     tl = torch.sum(torch.abs(tv - torch.as_tensor(d)) ** 2)
+    # the chunks keep psky per model pair, never gathered onto the
+    # baselines: nothing saved for the backward is (..., Nbls, F, C)
+    nb, nf = d.shape[-2:]
+    assert not [s for s in saved if len(s) >= 3 and s[-3:-1] == (nb, nf)]
+    assert any(len(s) >= 3 and s[-3:-1] == psky.shape[-3:-1]
+               for s in saved)
     tl.backward()
     assert _relerr(tv.detach().numpy(), jv) <= 1e-9
     assert abs(tl.item() - float(jl)) / abs(float(jl)) <= 1e-9

@@ -89,7 +89,7 @@ def model_phasors(tau, f0, df, nf, sgn=1.0):
     shape, computed as rime_fwd.cu does, in float32."""
     t = f32(tau)
     sg_ = f32(sgn)
-    # the tile's phase table (rime_fwd.cu :202-214): c0, c1 = c1h + c1l,
+    # the tile's phase table (rime_fwd.cu :211-228): c0, c1 = c1h + c1l,
     # D and D^4 by sincospif
     c0h, c0l = _cycles(phase._split_f32(f0), t)
     c1h, c1l = _cycles(phase._split_f32(df), t)
@@ -103,12 +103,12 @@ def model_phasors(tau, f0, df, nf, sgn=1.0):
     out = np.zeros((nf,) + t.shape, dtype=np.complex128)
     for k0 in range(0, nf, RT):
         e = [_run_seed(c0, c1h, c1l, k0, sg_)]
-        # rows 1 .. 7, three products deep: D, D^2, D^4 (rime_fwd.cu :227-239)
+        # rows 1 .. 7, three products deep: D, D^2, D^4 (rime_fwd.cu :240-252)
         e.append(_cmul(*e[0], cd, sd))
         e.append(_cmul(*e[0], d2c, d2s))
         e.append(_cmul(*e[1], d2c, d2s))
         e += [_cmul(*e[g], c4, s4) for g in range(4)]
-        # 4 chains, two-term recurrence over rows g + 4 j (:241-259)
+        # 4 chains, two-term recurrence over rows g + 4 j (:254-272)
         while len(e) < RT:
             j = len(e)
             e += [(_fma(two_c4, e[j - 4 + g][0], -e[j - 8 + g][0]),
