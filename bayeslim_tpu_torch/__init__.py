@@ -14,7 +14,10 @@ bayeslim_tpu module for module:
                linear algebra (least squares, inversion dispatch),
                special functions, spherical harmonics (Ylm, AlmModel)
                and spherical Fourier-Bessel transforms (SFBModel)
-- data/      : VisData / MapData containers
+- data/      : VisData / MapData / CalData containers, their
+               averaging, rephasing and redundancy reductions, the
+               chain blocks (RedVisAvg, RedVisInflate, Difference) and
+               Dataset
 - models/    : telescope/array, sky (pixel, a_lm and SFB t_lmn), beam
                (pixel and Ylm), RIME, Jones gains, the per-baseline /
                per-group visibility models and the redcal degeneracies,
@@ -43,7 +46,8 @@ __version__ = "0.1.0"
 from . import utils, ops, data, models, inference
 from .utils import (ParamDict, Module, Sequential, model2pdict,
                     load_numpy_pdict, set_default_dtype, resolve_device)
-from .data import VisData, MapData, concat_VisData
+from .data import (VisData, MapData, CalData, Dataset, concat_VisData,
+                   concat_MapData, concat_CalData)
 from .models import (RIME, TelescopeModel, ArrayModel, PixelBeam,
                      AiryResponse, GaussResponse, UniformResponse,
                      PixelResponse, YlmResponse, AlmBeam, Cosmology,

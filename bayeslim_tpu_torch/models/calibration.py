@@ -11,8 +11,8 @@ rephase_to_refant :584, compute_redcal_degen :617, redcal_degen_gains
 redcal_degen_vis :719, vis2JonesModel :744, vis2RedVisModel :775,
 chisq :799). The freq/time modes are 'channel' (a value per channel
 or time) and 'linear' (a LinearModel, freq_LM / time_LM, maps the
-params' coefficients to channels or times); the CalData export waits on
-the data layer (A9).
+params' coefficients to channels or times); JonesModel.to_CalData
+exports the gains as a CalData.
 
 Index maps (data times / baselines onto the params' axes, baselines
 onto antennas or redundant groups) are host numpy, built once per
@@ -27,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..data.containers import VisData
+from ..data.containers import CalData, VisData
 from ..ops.linalg import pinv_rtol
 from ..utils.dtypes import _float, resolve_device, viewcomp, viewreal
 from ..utils.indexing import AntposDict, ants2blnum, blnum2ants, flatten
@@ -452,10 +452,18 @@ class JonesModel(Module, IndexCache):
                                   vis_type=self.vis_type, undo=undo)
         return vout
 
-    def to_CalData(self, *args, **kwargs):
-        raise NotImplementedError(
-            "JonesModel.to_CalData needs CalData (data/containers.py, "
-            "ROADMAP queue A9), which is not ported yet")
+    def to_CalData(self, freqs, times, pol=None, telescope=None,
+                   antpos=None, flags=None, cov=None, cov_axis=None,
+                   icov=None, history="", **kwargs):
+        """The gains as a CalData, detached, on the gains' device."""
+        cd = CalData()
+        cd.setup_meta(telescope=telescope, antpos=antpos)
+        with torch.no_grad():
+            jones = self.get_jones().detach()
+        cd.setup_data(ants=self.ants, times=times, freqs=freqs, pol=pol,
+                      data=jones, flags=flags, cov=cov, cov_axis=cov_axis,
+                      icov=icov, history=history)
+        return cd
 
 
 class VisModelResponse(BaseResponse):

@@ -203,9 +203,14 @@ class PeakDelay(FFT):
 
 
 def vis_wedge(vd, ravg_kwgs=None, **kwargs):
-    """Redundantly average a VisData and delay-transform it into a
-    wedge: needs VisData.bl_average, which is not ported yet (the data
-    layer, ROADMAP queue A9)."""
-    raise NotImplementedError(
-        "vis_wedge needs VisData.bl_average (data/containers.py, ROADMAP "
-        "queue A9), which is not ported yet")
+    """Redundantly average a VisData (VisData.bl_average with
+    ravg_kwgs; the groups built from its antpos unless given) and
+    delay-transform it along frequency. Returns (the wedge VisData, the
+    FFT block); kwargs go to the FFT."""
+    ravg_kwgs = dict(ravg_kwgs or {})
+    vd = vd.bl_average(inplace=False, **ravg_kwgs)
+    dfreq = vd.freqs[1] - vd.freqs[0]
+    kwargs.setdefault("device", vd.data.device)
+    kwargs.setdefault("dtype", vd.data.real.dtype)
+    FT = FFT(dim=4, ndim=5, dx=dfreq, N=vd.Nfreqs, **kwargs)
+    return FT(vd), FT

@@ -2,7 +2,9 @@
 Telescope location, ephemeris, redundant groups and the antenna array.
 
 Counterpart of bayeslim_tpu/models/telescope.py (ephemeris :44-277,
-TelescopeModel :377, build_reds :441, ArrayModel :615). The ephemeris
+top2eq :280, JD2LST / JD2RA :315-327, eq2top_m / top2eq_m :328-353,
+vis_rephase :354, TelescopeModel :377, build_reds :441, ArrayModel
+:615 with get_bls :750, match_red_blvec :788). The ephemeris
 (sidereal time, IAU 1976 precession, IAU 1980 nutation, annual
 aberration) is host numpy, copied from the JAX package so the port
 needs no astropy and gives the same angles: it is a precompute stage
@@ -17,12 +19,13 @@ import itertools
 import numpy as np
 import torch
 
-from ..utils.dtypes import D2R, R2D, _float, resolve_device
+from ..utils.dtypes import C_MS, D2R, R2D, _float, resolve_device
 from ..utils.indexing import AntposDict
 from ..utils.module import Module
 
 __all__ = ["TelescopeModel", "ArrayModel", "build_reds", "eq2top",
-           "gmst_rad"]
+           "top2eq", "JD2LST", "JD2RA", "gmst_rad", "vis_rephase",
+           "eq2top_m", "top2eq_m", "match_red_blvec"]
 
 
 # ---------------------------------------------------------------------------
@@ -261,6 +264,112 @@ def eq2top(location, time, ra, dec, apparent=True):
     return zen, az
 
 
+def top2eq(location, time, zen, az, apparent=True):
+    """Topocentric zen/az [deg] -> ICRS RA/Dec [deg] (inverse of eq2top)."""
+    lon, lat = location[0], location[1]
+    zen_r = np.atleast_1d(np.asarray(zen, dtype=np.float64)) * D2R
+    az_r = np.atleast_1d(np.asarray(az, dtype=np.float64)) * D2R
+    lat_r = lat * D2R
+    # ENU -> (H, dec)
+    e = np.sin(zen_r) * np.sin(az_r)
+    n = np.sin(zen_r) * np.cos(az_r)
+    u = np.cos(zen_r)
+    sd = u * np.sin(lat_r) + n * np.cos(lat_r)
+    dec_date = np.arcsin(np.clip(sd, -1, 1))
+    # cd*cosH = u*cos(lat) - n*sin(lat); cd*sinH = -e
+    H = np.arctan2(-e, u * np.cos(lat_r) - n * np.sin(lat_r))
+
+    if apparent:
+        dpsi, _ = _nutation(time)
+        last = gmst_rad(time) + dpsi * np.cos(_obliquity(time)) + lon * D2R
+    else:
+        last = gmst_rad(time) + lon * D2R
+    ra_date = np.mod(last - H, 2 * np.pi)
+
+    cd = np.cos(dec_date)
+    v = np.stack([cd * np.cos(ra_date), cd * np.sin(ra_date),
+                  np.sin(dec_date)])
+    if apparent:
+        M = _nutation_matrix(time) @ _precession_matrix(time) @ _frame_bias()
+        v = M.T @ v
+        vel = _earth_velocity(time)
+        v = v - vel[:, None]
+        v /= np.linalg.norm(v, axis=0, keepdims=True)
+    ra = np.mod(np.arctan2(v[1], v[0]), 2 * np.pi) * R2D
+    dec = np.arcsin(np.clip(v[2], -1, 1)) * R2D
+    return ra, dec
+
+
+def JD2LST(jd, longitude):
+    """JD -> local apparent sidereal time [rad]."""
+    dpsi, _ = _nutation(jd)
+    return np.mod(gmst_rad(jd) + dpsi * np.cos(_obliquity(jd))
+                  + longitude * D2R, 2 * np.pi)
+
+
+def JD2RA(location, jd):
+    """JD -> ICRS RA [deg] of the zenith at the telescope."""
+    ra, _ = top2eq(location, jd, 0.0, 0.0)
+    return float(np.atleast_1d(ra)[0])
+
+
+def _as64(x, device=None):
+    return torch.as_tensor(x, dtype=torch.float64, device=device)
+
+
+def eq2top_m(ha, dec):
+    """(Nha, 3, 3) equatorial -> topocentric rotations of the hour
+    angles ha [rad] at declination dec [rad] (float64 tensors on ha's
+    device)."""
+    ha = torch.atleast_1d(_as64(ha, getattr(ha, "device", None)))
+    dec = torch.ones_like(ha) * dec
+    sH, cH = torch.sin(ha), torch.cos(ha)
+    sd, cd = torch.sin(dec), torch.cos(dec)
+    zero = torch.zeros_like(ha)
+    m = torch.stack([sH, cH, zero,
+                     -sd * cH, sd * sH, cd,
+                     cd * cH, -cd * sH, sd])
+    return torch.movedim(m.reshape(3, 3, -1), 2, 0)
+
+
+def top2eq_m(ha, dec):
+    """(Nha, 3, 3) topocentric -> equatorial rotations (the inverse of
+    eq2top_m)."""
+    ha = torch.atleast_1d(_as64(ha, getattr(ha, "device", None)))
+    dec = torch.ones_like(ha) * dec
+    sH, cH = torch.sin(ha), torch.cos(ha)
+    sd, cd = torch.sin(dec), torch.cos(dec)
+    zero = torch.zeros_like(ha)
+    m = torch.stack([sH, -cH * sd, cd * cH,
+                     cH, sd * sH, -cd * sH,
+                     zero, cd, sd])
+    return torch.movedim(m.reshape(3, 3, -1), 2, 0)
+
+
+def vis_rephase(dlst, lat, blvecs, freqs, device=None, dtype=None):
+    """Drift-scan rephasing phasor (Nbls, Nlst, Nfreqs) of a zenith
+    pointing moved by dlst [rad] at latitude lat [deg] (Zhang et al.
+    2018 Eq 22). The phase 2 pi f b.ds / c is formed in float64 on the
+    device (of blvecs if a tensor, else ``device``); the phasor is cast
+    to ``dtype`` (complex; default complex128)."""
+    if device is None:
+        device = blvecs.device if isinstance(blvecs, torch.Tensor) \
+            else torch.device("cpu")
+    dlst = torch.atleast_1d(_as64(dlst, device))
+    lat_r = lat * D2R
+    t2e = top2eq_m(torch.zeros(1, dtype=torch.float64, device=device),
+                   lat_r)                                     # (1, 3, 3)
+    e2t = eq2top_m(-dlst, lat_r)                               # (Nlst, 3, 3)
+    rot = e2t @ t2e
+    s_zen = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float64, device=device)
+    s_diff_over_c = (rot @ s_zen - s_zen) / C_MS                # (Nlst, 3)
+    tau = _as64(blvecs, device) @ s_diff_over_c.T               # (Nbls, Nlst)
+    ang = (2 * np.pi) * tau[..., None] * _as64(freqs, device)
+    dtype = torch.complex128 if dtype is None else dtype
+    rdt = torch.float32 if dtype == torch.complex64 else torch.float64
+    return torch.complex(torch.cos(ang).to(rdt), torch.sin(ang).to(rdt))
+
+
 # ---------------------------------------------------------------------------
 # TelescopeModel
 # ---------------------------------------------------------------------------
@@ -278,15 +387,28 @@ class TelescopeModel(Module):
         """RA/Dec [deg] -> zen/az [deg] (host numpy)."""
         return eq2top(self.location, time, ra, dec, apparent=self.apparent)
 
+    def top2eq(self, time, zen, az):
+        """zen/az [deg] -> RA/Dec [deg] (host numpy)."""
+        return top2eq(self.location, time, zen, az, apparent=self.apparent)
+
+    def JD2RA(self, jd):
+        return JD2RA(self.location, jd)
+
+    def JD2LST(self, jd):
+        return JD2LST(jd, self.location[0])
+
 
 # ---------------------------------------------------------------------------
 # redundancy
 # ---------------------------------------------------------------------------
 
-def build_reds(antpos, bls=None, redtol=1.0, min_len=None, max_len=None,
-               skip_reds=False):
+def build_reds(antpos, bls=None, red_bls=None, redtol=1.0, min_len=None,
+               max_len=None, skip_reds=False):
     """Redundant baseline groups by quantizing baseline vectors onto a
-    redtol lattice and merging neighbouring cells within redtol.
+    redtol lattice and merging neighbouring cells within redtol. The
+    groups are sorted by length (angle breaking ties), or, with red_bls,
+    in the order of the groups holding those baselines (either
+    orientation).
 
     Returns (reds, redvecs, bl2red, bls, redlens, redangs, redtags),
     as the JAX package's build_reds does for these options.
@@ -369,8 +491,17 @@ def build_reds(antpos, bls=None, redtol=1.0, min_len=None, max_len=None,
         angs.append(float(ang))
         tags.append("{:03.0f}_{:03.0f}".format(ln, ang))
 
-    # sort groups by length (+ angle tiebreak)
-    s = np.argsort(np.asarray(lens) + np.asarray(angs) * redtol / 180)
+    # sort groups: by red_bls, else by length (+ angle tiebreak)
+    if red_bls is not None:
+        s = []
+        for rbl in red_bls:
+            rbl = tuple(rbl)
+            for i, red in enumerate(reds):
+                if rbl in red or (rbl[1], rbl[0]) in red:
+                    s.append(i)
+                    break
+    else:
+        s = np.argsort(np.asarray(lens) + np.asarray(angs) * redtol / 180)
     reds = [reds[i] for i in s]
     rvec = [rvec[i] for i in s]
     lens = [lens[i] for i in s]
@@ -457,8 +588,11 @@ class ArrayModel(Module):
                          np.cos(zr)])
 
     def get_bls(self, uniq_bls=False, keep_autos=True, min_len=None,
-                max_len=None):
-        """Baselines, optionally one per redundant group, with cuts."""
+                max_len=None, min_EW=None, max_EW=None, min_NS=None,
+                max_NS=None, min_deg=None, max_deg=None, xants=None):
+        """Baselines, optionally one per redundant group, with cuts on
+        length, |E| and |N| extent [m], angle [deg, 0-180) and excluded
+        antennas."""
         source = [r[0] for r in self.reds] if uniq_bls else list(self.bls)
         a1, a2 = self.bl_index(source)
         v = self._antvecs_np[a2] - self._antvecs_np[a1]
@@ -466,8 +600,41 @@ class ArrayModel(Module):
         keep = np.ones(len(source), dtype=bool)
         if not keep_autos:
             keep &= a1 != a2
-        if min_len is not None:
-            keep &= ln >= min_len
-        if max_len is not None:
-            keep &= ln <= max_len
+        if xants is not None:
+            xs = set(xants)
+            keep &= np.asarray([bl[0] not in xs and bl[1] not in xs
+                                for bl in source])
+        for lo, hi, val in ((min_len, max_len, ln),
+                            (min_EW, max_EW, np.abs(v[:, 0])),
+                            (min_NS, max_NS, np.abs(v[:, 1]))):
+            if lo is not None:
+                keep &= val >= lo
+            if hi is not None:
+                keep &= val <= hi
+        if min_deg is not None or max_deg is not None:
+            ang = np.arctan2(v[:, 1], v[:, 0]) * R2D
+            ang = np.where(v[:, 1] < 0, ang + 180.0, ang)
+            if min_deg is not None:
+                keep &= ang >= min_deg
+            if max_deg is not None:
+                keep &= ang <= max_deg
         return [bl for bl, k in zip(source, keep) if k]
+
+
+def match_red_blvec(red_vecs, bl_vec, redtol=1.0, return_conj=False):
+    """Index of the redundant group whose vector is within redtol of
+    bl_vec, else None. return_conj=True also tries the negated vector
+    and returns (index, conjugated), index -1 when neither matches."""
+    red_vecs = np.asarray([np.asarray(v) for v in red_vecs])
+    bl_vec = np.asarray(bl_vec)
+    d = np.linalg.norm(red_vecs - bl_vec, axis=-1)
+    i = int(np.argmin(d))
+    if not return_conj:
+        return i if d[i] <= redtol else None
+    if d[i] <= redtol:
+        return i, False
+    d2 = np.linalg.norm(red_vecs + bl_vec, axis=-1)
+    j = int(np.argmin(d2))
+    if d2[j] <= redtol:
+        return j, True
+    return -1, False

@@ -3,7 +3,8 @@ Antenna/baseline bookkeeping and small host-side index utilities.
 
 Counterpart of bayeslim_tpu/utils/indexing.py (AntposDict :36,
 ants2blnum :115, blnum2ants :137, make_hex :158, flatten :208,
-gauss_taper :248). Everything here but gauss_taper is host numpy.
+gauss_taper :248, inflate_bls :317). Everything here but gauss_taper is
+host numpy.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import numpy as np
 import torch
 
 __all__ = ["AntposDict", "blnum2ants", "ants2blnum", "make_hex",
-           "flatten", "gauss_taper"]
+           "flatten", "gauss_taper", "inflate_bls"]
 
 
 class AntposDict:
@@ -136,3 +137,19 @@ def flatten(nested, Nelem=None):
 def gauss_taper(x, scale):
     """Gaussian edge taper exp(-0.5 (x/scale)^2)."""
     return torch.exp(-0.5 * (torch.as_tensor(x) / scale) ** 2)
+
+
+def inflate_bls(red_bls, bl2red, all_bls=None):
+    """The baselines of all_bls (default: every key of bl2red) whose
+    redundant group holds one of red_bls, and each one's group index:
+    (new_bls, red_inds)."""
+    if all_bls is None:
+        all_bls = list(bl2red.keys())
+    red_indices = set(bl2red.get(bl, None) for bl in red_bls)
+    new_bls, red_inds = [], []
+    for bl in all_bls:
+        ridx = bl2red.get(bl, -1)
+        if ridx in red_indices:
+            new_bls.append(bl)
+            red_inds.append(ridx)
+    return new_bls, red_inds

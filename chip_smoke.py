@@ -62,7 +62,12 @@ Phases, one line each; any failure exits non-zero:
    compute_Am and compute_Pm), the hex-2 hera-coupling chain (at its
    truth and its start) and the whole hex-2 hera-cal Hessian, each on
    the card in float64 against the CPU in float64 at 1e-9, the imaging
-   and the coupling also in float32 through the kernels at TOL;
+   and the coupling also in float32 through the kernels at TOL; then the
+   hex-2 hera-avg cases, card float32 (TOL) and float64 (1e-9) against
+   the CPU float64: the chain RIME -> RedVisInflate -> JonesModel ->
+   RedVisAvg (loss and gradients through the segment sums), Difference
+   of two time selections, apply_cal(undo=True) of a 4-pol CalData from
+   inflate_to_4pol;
 8. kernel and plain-version times at the main paths' shapes (rime_fwd
    also at hera-prod's two and hera-alm's two), each kernel's bound, rime_fwd with its K split against one slice,
    rime_dtau beside the previous design's time, with real and complex
@@ -224,7 +229,27 @@ Phases, one line each; any failure exits non-zero:
    Nrows=6) in float64 on the card inside force_chunked (no launch),
    its 6 x 6 block symmetric, its rows within 1e-6 of central
    differences of the float64 gradient, beside the float32 chain's rows;
-   wall time and peak memory.
+   wall time and peak memory;
+21. main path 14, hera-avg, HERA's reduction before a sky fit
+   (build_avg): hera-cal's array, sky (trainable) and 1-pol gains at 4
+   times, Sequential(RIME over the 630 groups -> RedVisInflate onto all
+   54,615 cross baselines -> JonesModel) at its truth plus unit noise
+   (icov ones); JonesModel.to_CalData and VisData.apply_cal(undo=True),
+   the noise-free calibrated cube within TOL of its rms of the group
+   output inflated; time_average of the bins [[0, 1], [2, 3]] with LST
+   rephasing; reduce_by_redundancy onto the 630 groups (icov = 2 x the
+   member counts); bl_average and time_average on 2,048 baselines x 4
+   channels card vs CPU float64 at TOL; the sufficient-statistics
+   identity in float64 on the card (chi^2 and the sky / beam gradients
+   within 1e-9) and the float32 route's (chi^2 within its bar, the
+   gradients within AVG_G32_TOL); a Dataset of the two averaged times
+   fitted by 3 Adam steps (losses fall, rime_fwd exactly 2 x times x
+   chunks a step, times x chunks for the simulation, no rime_dtau); the
+   fitted parameters written into the model, RedVisInflate of its output
+   and its chi^2 against the averaged cube, below the start's by at least
+   the losses' fall and equal within the bar to the statistics' chi^2
+   plus const; each data operation by CUDA events beside
+   its bytes bound; build seconds, step walls, peak memory.
    Then the JSON line of all nine kernels.
 
 Each torch.profiler run launches PROFILE_MARKS spin kernels before the
@@ -285,6 +310,18 @@ FILT_NDEG, FILT_BINS, FILT_BUFFER = 16, 8, 100e-9
 # hera-coupling (phase 19): the longest antenna separation [m] that
 # couples (three hex spacings of 15 m, plus a margin)
 COUPLING_MAX_LEN = 46.0
+# hera-avg (phase 21): hera-cal's size at 4 times (hera-stat's spacing),
+# the time bins averaged, the baselines and channels on which bl_average
+# and time_average are held against the CPU in float64, and float32's
+# unit roundoff (the bar of the float32 sufficient-statistics identity)
+AVG = dict(HERA, ntime=4)
+AVG_BINS = [[0, 1], [2, 3]]
+AVG_SUB_BLS, AVG_SUB_FREQS = 2048, (0, 341, 682, 1023)
+AVG_F64_CHUNK = 256
+EPS32 = 2.0 ** -24
+# hera-avg's float32 sufficient-statistics gradients against the full
+# per-baseline ones (rel of their largest; 2.25e-8 measured on an H100)
+AVG_G32_TOL = 1e-6
 # the redesigned spikes' previous designs at the script's sizes, ms a
 # launch (the same card): k_nn's, k_nt's and k_bd's 64 x 64 SGEMM tile,
 # k_vt's serial column walk per output, k_lr's one row a block with a
@@ -1144,6 +1181,84 @@ def build_coupling(bt, hexN, nside, nfreq, fmax, ntime, pix_chunk, device,
     return bt.LogProb(seq, tgt), truth, terms
 
 
+def build_avg(bt, hexN, nside, nfreq, fmax, ntime, pix_chunk, device,
+              dtype, gain_sigma=0.05, amp=1e4, seed=0, avg=False):
+    """hera-avg's chain through the port's public API: hera-cal's array
+    (the antennas at their layout positions, so the baselines of a group
+    see one sky), its sky (amp x hera-stat's) and Airy beam, both
+    trainable, and its 1-pol gains (cal_truth; refant the first antenna)
+    as Sequential(RIME over the redundant groups -> RedVisInflate onto
+    every cross baseline -> JonesModel): hera-cal's chain with the
+    groups' expansion as its own block, so that the group output is at
+    hand; avg=True ends it with RedVisAvg back onto the groups. Returns
+    (seq, info): info has the telescope, the array, the cross-baseline
+    groups (reds), the data baselines, times, freqs and the host antpos."""
+    from bayeslim_tpu_torch.data.containers import RedVisAvg, RedVisInflate
+    from bayeslim_tpu_torch.utils import AntposDict
+    device = bt.resolve_device(device)
+    T, arr, sky, beam, freqs = build_sky_beam(
+        bt, hexN, nside, nfreq, fmax, 0.5, False, device, dtype,
+        np.random.default_rng(seed), amp=amp)
+    reds = [r for r in arr.reds if r[0][0] != r[0][1]]
+    data_bls = arr.get_bls(keep_autos=False)
+    times = 2458168.3 + np.arange(ntime) * 5e-4
+    rime = bt.RIME(sky, T, beam, arr, [r[0] for r in reds], times, freqs,
+                   pix_chunk=pix_chunk)
+    truth = cal_truth(arr.ants, arr.to_antpos().asnumpy(), nfreq, 0.0,
+                      gain_sigma)
+    cal = bt.JonesModel(truth[GAINS], arr.ants, refant=arr.ants[0],
+                        R=bt.JonesResponse(param_type="com"), device=device,
+                        dtype=dtype)
+    blocks = {"rime": rime, "inflate": RedVisInflate(
+        data_bls, bl2red={b: i for i, r in enumerate(reds) for b in r}),
+        "cal": cal}
+    if avg:
+        blocks["avg"] = RedVisAvg(reds=reds)
+    info = dict(T=T, arr=arr, reds=reds, data_bls=data_bls, times=times,
+                freqs=freqs, antpos=AntposDict(arr.ants, arr._antvecs_np))
+    return bt.Sequential(blocks), info
+
+
+def simulate_avg(bt, torch, seq, info, seed=0):
+    """The per-baseline cube of build_avg's chain: the groups simulated
+    (one rime_fwd a time and pixel chunk on the card), inflated, the
+    gains applied, plus complex noise of unit variance (E|n|^2 = 1, a
+    seeded torch.Generator) as a VisData with icov ones. Returns (the
+    group VisData, the noise-free cube, the noisy VisData)."""
+    dtype = seq.cal.params.dtype
+    device = seq.cal.params.device
+    with torch.no_grad():
+        groups = seq.rime()
+        clean = seq.cal(seq.inflate(groups)).data
+        gen = torch.Generator(device=device).manual_seed(seed + 2)
+        noise = torch.complex(*(np.sqrt(0.5) * torch.randn(
+            clean.shape, generator=gen, dtype=dtype, device=device)
+            for _ in range(2)))
+    vd = bt.VisData()
+    vd.setup_meta(info["T"], info["antpos"])
+    vd.setup_data(info["data_bls"], info["times"], info["freqs"], pol="ee",
+                  data=clean + noise,
+                  icov=torch.ones(clean.shape, dtype=dtype, device=device))
+    return groups, clean, vd
+
+
+def build_avg_chain(bt, torch, device, dtype, hexN=2, nside=8, nfreq=8,
+                    fmax=120e6, ntime=2, pix_chunk=512, seed=0):
+    """build_avg's chain ended by RedVisAvg, against its simulated cube
+    averaged over the groups (icov = the member counts), started from
+    unit gains: Sequential(RIME -> RedVisInflate -> JonesModel ->
+    RedVisAvg) with the sky, the beam and the gains trainable. Returns
+    the LogProb."""
+    seq, info = build_avg(bt, hexN, nside, nfreq, fmax, ntime, pix_chunk,
+                          device, dtype, seed=seed, avg=True)
+    _, _, vd = simulate_avg(bt, torch, seq, info, seed)
+    tgt = vd.bl_average(reds=info["reds"])
+    with torch.no_grad():
+        seq.cal.params.zero_()
+        seq.cal.params[..., 0] = 1.0
+    return bt.LogProb(seq, tgt)
+
+
 def hmc_trajectory(bt, torch, prob, start, momenta, eps, nstep):
     """One HMC step of the port's sampler from the numpy start with the
     given numpy momenta (no draw; the Metropolis uniform comes from the
@@ -1754,6 +1869,7 @@ def phase_small(bt, torch, rime_cuda, dev, hera_prod):
     phase_small_hmc(bt, torch, rime_cuda, dev)
     phase_small_hmc(bt, torch, rime_cuda, dev, alm=True)
     phase_small_img_coupling_hess(bt, torch, rime_cuda, dev)
+    phase_small_avg(bt, torch, rime_cuda, dev)
 
 
 def phase_small_img_coupling_hess(bt, torch, rime_cuda, dev):
@@ -3687,6 +3803,331 @@ def phase_hera_coupling(bt, torch, rime_cuda, pix_chunks, size=HERA,
     return fwd
 
 
+def avg_identity(torch, fit, bl2red, vd, avg, const):
+    """The sufficient-statistics identity at the fit's current sky and
+    beam: the full per-baseline chi^2 of the group model inflated onto
+    vd's baselines (bl2red: baseline -> the fit's group row) against
+    chi^2 of the model against the statistics avg plus const, over the
+    fit's time batches, each model output cast to avg's dtype. Returns
+    (full, stats + const, their sky / beam gradients as lists of numpy
+    arrays, empty under torch.no_grad)."""
+    from bayeslim_tpu_torch.inference.prob import _sum_chisq
+    params = [p for p in fit.parameters() if p.requires_grad] \
+        if torch.is_grad_enabled() else []
+    gf = gs = [torch.zeros_like(p) for p in params]
+    full = stats = 0.0
+    for i in range(fit.Nbatch):
+        fit.batch_idx = i
+        out = fit()
+        out.data = out.data.to(avg.data.dtype)
+        sel = dict(time_inds=[i], inplace=False)
+        a, d = avg.select(**sel), vd.select(**sel)
+        infl = out.inflate_by_redundancy(bls=d.bls, bl2red=bl2red)
+        cf = _sum_chisq(torch.abs(infl.data - d.data) ** 2 * d.icov)
+        cs = _sum_chisq(torch.abs(out.data - a.data) ** 2 * a.icov)
+        if params:
+            gf = [x + y for x, y in zip(gf, torch.autograd.grad(
+                cf, params, retain_graph=True))]
+            gs = [x + y for x, y in zip(gs, torch.autograd.grad(cs, params))]
+        full, stats = full + float(cf.detach()), stats + float(cs.detach())
+        del out, infl, cf, cs
+    fit.batch_idx = 0
+    return full, stats + const, [g.cpu().numpy() for g in gf], \
+        [g.cpu().numpy() for g in gs]
+
+
+def phase_small_avg(bt, torch, rime_cuda, dev):
+    """Phase 7, end: the hex-2 hera-avg cases on the card in float32
+    (kernels, at TOL) and in float64 (plain path, at 1e-9) against the
+    CPU in float64: the chain Sequential(RIME -> RedVisInflate ->
+    JonesModel -> RedVisAvg) (loss and gradients through the segment
+    sums), Difference of two time selections, and apply_cal(undo=True)
+    of a 4-pol CalData from inflate_to_4pol."""
+    from bayeslim_tpu_torch.data.containers import CalData, Difference
+    cpu = build_avg_chain(bt, torch, "cpu", torch.float64)
+    start = {k: v.detach().numpy() for k, v in
+             cpu.collect_main_params().items()}
+    vc, gc = cpu.value_and_grad()
+    rng = np.random.default_rng(7)
+    ants = cpu.model.cal.ants
+    shp = (2, 2, len(cpu.target[0].bls), 4, 8)
+    x = rng.standard_normal(shp) + 1j * rng.standard_normal(shp)
+    g = 1 + 0.1 * (rng.standard_normal((1, 1, len(ants), 4, 8))
+                   + 1j * rng.standard_normal((1, 1, len(ants), 4, 8)))
+
+    def data_ops(device, cdt):
+        vd = bt.VisData()
+        vd.setup_meta(cpu.target[0].telescope, cpu.target[0].antpos)
+        vd.setup_data(cpu.target[0].bls, 2458168.3 + np.arange(4) * 5e-4,
+                      np.linspace(100e6, 120e6, 8),
+                      data=torch.as_tensor(x, dtype=cdt, device=device))
+        diff = Difference(dict(time_inds=[0, 1]),
+                          dict(time_inds=[2, 3]))(vd).data
+        cd = CalData()
+        cd.setup_data(ants, vd.times, vd.freqs, pol="ee",
+                      data=torch.as_tensor(g, dtype=cdt, device=device))
+        return diff, vd.apply_cal(cd.inflate_to_4pol(), undo=True).data
+
+    want = data_ops("cpu", torch.complex128)
+    for dtype, cdt, tol in ((torch.float32, torch.complex64, TOL),
+                            (torch.float64, torch.complex128, 1e-9)):
+        card = build_avg_chain(bt, torch, dev, dtype)
+        card.target[0].data = cpu.target[0].data.to(cdt).to(dev)
+        card.target[0].icov = cpu.target[0].icov.to(dtype).to(dev)
+        bt.load_numpy_pdict(card.model, start)
+        rime_cuda.launches = rime_cuda.dtau_launches = 0
+        vg, gg = card.value_and_grad()
+        n = (rime_cuda.launches, rime_cuda.dtau_launches)
+        errs = {"loss": abs(float(vg) - float(vc)) / abs(float(vc))}
+        errs.update({k: relerr(gg[k].cpu().numpy(), gc[k].numpy())
+                     for k in gc})
+        got = data_ops(dev, cdt)
+        errs.update({"Difference": relerr(got[0].cpu().numpy(),
+                                          want[0].numpy()),
+                     "apply_cal 4-pol undo": relerr(got[1].cpu().numpy(),
+                                                    want[1].numpy())})
+        print(f"phase 7 card ({dtype}) vs CPU, hex-2 hera-avg chain "
+              f"RIME -> RedVisInflate -> JonesModel -> RedVisAvg (launches "
+              f"rime_fwd {n[0]}, rime_dtau {n[1]}), Difference of two time "
+              f"selections, apply_cal(undo=True) of an inflate_to_4pol "
+              f"CalData: " + ", ".join(f"{k} rel {v:.2e}"
+                                       for k, v in errs.items())
+              + f" (tol {tol:g})", flush=True)
+        check(all(v <= tol for v in errs.values()),
+              f"card vs CPU hera-avg ({dtype})")
+        check((n[0] > 0) == (dtype == torch.float32) and n[1] == 0,
+              f"hex-2 hera-avg launches {n}")
+
+
+def phase_hera_avg(bt, torch, rime_cuda, pix_chunks, size=AVG, steps=3):
+    """Phase 21: main path 14, hera-avg, HERA's reduction before a sky
+    fit at full width: build_avg's chain simulated at 4 times with unit
+    noise; the gains exported (JonesModel.to_CalData) and divided out
+    (VisData.apply_cal(undo=True)); the time bins AVG_BINS averaged with
+    LST rephasing; reduce_by_redundancy onto the 630 groups; a Dataset
+    of the two averaged times fitted by Adam (sky and beam, over both
+    batches); the fitted model inflated back (RedVisInflate) and its
+    chi^2 against the averaged per-baseline cube. Gates: the noise-free
+    calibrated cube against the inflated group output; bl_average and
+    time_average on the card against the CPU in float64; the float64
+    sufficient-statistics identity (value and gradients, 1e-9) and the
+    float32 route's (value at its bar, gradients at AVG_G32_TOL); the
+    losses fall; the launch counts; the fitted chi^2 below the start's
+    by at least the losses' fall and equal to the statistics' plus
+    const. Returns rime_fwd's launches on the path."""
+    from bayeslim_tpu_torch.data.containers import RedVisInflate
+    from bayeslim_tpu_torch.data.dataset import Dataset
+    from bayeslim_tpu_torch.models.telescope import build_reds
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    seq, info = build_avg(bt, device=None, dtype=torch.float32, **size)
+    rime, reds = seq.rime, info["reds"]
+    nchunks = len(pix_chunks(len(reds), rime.Npix_cut))
+    ntime = len(info["times"])
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    rime_cuda.launches = rime_cuda.dtau_launches = 0
+    t1 = time.time()
+    groups, clean, vd = simulate_avg(bt, torch, seq, info)
+    torch.cuda.synchronize()
+    sim = (rime_cuda.launches, rime_cuda.dtau_launches)
+    sim_s = time.time() - t1
+    nbl, nf = vd.Nbls, vd.Nfreqs
+    print(f"phase 21 hera-avg build: {len(info['arr'].ants)} antennas, "
+          f"{len(reds)} redundant groups simulated at {ntime} times, "
+          f"inflated to {nbl} baselines, {nf} freqs, {rime.Npix_cut} FOV "
+          f"pixels; cube {tuple(vd.data.shape)} {vd.data.dtype}; build "
+          f"{build_s:.1f} s, simulation {sim_s:.2f} s; rime_fwd / rime_dtau "
+          f"launches {sim} (expected {ntime} times x {nchunks} chunks = "
+          f"{ntime * nchunks}, 0)", flush=True)
+    check(sim == (ntime * nchunks, 0), f"hera-avg simulation launches {sim}")
+
+    # 2. the gains out and divided out
+    cd = seq.cal.to_CalData(info["freqs"], info["times"], pol="ee",
+                            telescope=info["T"], antpos=info["antpos"])
+    check(cd.data.device == vd.data.device and not cd.data.requires_grad,
+          "to_CalData: gains not detached on the card")
+    cal = vd.apply_cal(cd, undo=True)
+    ccl = vd.copy()
+    ccl.data = clean
+    ccl = ccl.apply_cal(cd, undo=True)
+    infl = groups.inflate_by_redundancy(bls=info["data_bls"], bl2red={
+        b: i for i, r in enumerate(reds) for b in r})
+    rms = float(torch.sqrt(torch.mean(torch.abs(infl.data) ** 2)))
+    cal_err = float(torch.abs(ccl.data - infl.data).max()) / rms
+    del ccl, clean, infl
+    print(f"phase 21 hera-avg calibration: to_CalData {tuple(cd.data.shape)} "
+          f"on {cd.data.device}; the noise-free calibrated cube against the "
+          f"RIME's group output inflated onto {nbl} baselines: max abs "
+          f"{cal_err:.2e} of its rms {rms:.4e} (tol {TOL:g})", flush=True)
+    check(cal_err <= TOL, f"hera-avg calibrated cube {cal_err:.2e}")
+
+    # 3-4. time average with rephasing, then the redundant reduction
+    tav = cal.time_average(time_inds=AVG_BINS, rephase=True)
+    avg, const = tav.reduce_by_redundancy()
+    # the groups it built (from antpos at its redtol), in its rows' order
+    avg_reds = build_reds(info["antpos"], bls=tav.bls)[0]
+    bl2row = {b: i for i, r in enumerate(avg_reds) for b in r}
+    counts = np.asarray([len(r) for r in avg_reds], dtype=np.float32)
+    icov_ok = bool(torch.equal(avg.icov[0, 0].cpu(), torch.as_tensor(
+        2 * counts)[:, None, None].expand(-1, len(AVG_BINS), nf)))
+    same = sorted(map(sorted, avg_reds)) == sorted(map(sorted, reds))
+    print(f"phase 21 hera-avg reduction: time_average({AVG_BINS}, "
+          f"rephase=True) -> {tuple(tav.data.shape)}; reduce_by_redundancy "
+          f"-> {avg.Nbls} groups {tuple(avg.data.shape)} (the array's "
+          f"groups: {same}), icov = 2 x member counts {icov_ok}, const "
+          f"{const!r}", flush=True)
+    check(same and icov_ok, "hera-avg reduce_by_redundancy groups / icov")
+
+    # bl_average and time_average on a subset, card vs CPU float64
+    sub_bls = np.sort(np.random.default_rng(3).choice(
+        nbl, AVG_SUB_BLS, replace=False))
+    sub = cal.select(bl_inds=sub_bls, freq_inds=list(AVG_SUB_FREQS),
+                     inplace=False)
+    s64 = sub.copy()
+    s64.data = sub.data.cpu().to(torch.complex128)
+    s64.icov = sub.icov.cpu().double()
+    sub_err = {}
+    for name, fn in (("bl_average", lambda v: v.bl_average()),
+                     ("time_average(rephase=True)", lambda v: v.time_average(
+                         time_inds=AVG_BINS, rephase=True))):
+        a, b = fn(sub), fn(s64)
+        sub_err[name] = relerr(a.data.cpu().numpy(), b.data.numpy())
+        check(np.array_equal(a.blnums, b.blnums), f"{name} groups differ")
+    print(f"phase 21 hera-avg on {AVG_SUB_BLS} baselines x "
+          f"{len(AVG_SUB_FREQS)} channels, card (float32) vs CPU (float64): "
+          + ", ".join(f"{k} rel {v:.2e}" for k, v in sub_err.items())
+          + f" (tol {TOL:g})", flush=True)
+    check(all(v <= TOL for v in sub_err.values()), "hera-avg ops vs CPU")
+
+    # 5. the fit: a Dataset of the two averaged times
+    fit = bt.RIME(rime.sky, info["T"], rime.beam, info["arr"], avg.bls,
+                  [avg.times[:1], avg.times[1:]], info["freqs"],
+                  pix_chunk=rime.pix_chunk)
+    with torch.no_grad():
+        rime.sky.params[0, 0, 0] *= 0.9
+    ds = Dataset([avg.select(time_inds=[i], inplace=False)
+                  for i in range(len(AVG_BINS))])
+    prob = bt.LogProb(fit, ds)
+    # the sufficient-statistics identity: the cube cast to float64 and
+    # a float64 copy of the fit's model (the chunked plain path: a
+    # float32 model would round the two routes' cotangents apart)
+    tav64 = tav.copy()
+    tav64.data = tav.data.to(torch.complex128)
+    tav64.icov = tav.icov.double()
+    avg64, const64 = tav64.reduce_by_redundancy()
+    T, arr64, sky64, beam64, _ = build_sky_beam(
+        bt, size["hexN"], size["nside"], size["nfreq"], size["fmax"], 0.5,
+        False, None, torch.float64, np.random.default_rng(0), amp=1e4)
+    with torch.no_grad():
+        sky64.params.copy_(rime.sky.params)
+        beam64.params.copy_(rime.beam.params)
+    fit64 = bt.RIME(sky64, T, beam64, arr64, avg.bls,
+                    [avg.times[:1], avg.times[1:]], info["freqs"],
+                    pix_chunk=AVG_F64_CHUNK)
+    t3 = time.time()
+    f64, s64v, gf, gs = avg_identity(torch, fit64, bl2row, tav64, avg64,
+                                     const64)
+    id_s = time.time() - t3
+    id_err = abs(s64v - f64) / abs(f64)
+    g_err = max(relerr(b, a) for a, b in zip(gf, gs))
+    del tav64, avg64, fit64, sky64, beam64
+    # the route the fit runs: float32 through rime_fwd
+    f32, s32v, gf32, gs32 = avg_identity(torch, fit, bl2row, tav, avg, const)
+    id32 = abs(s32v - f32) / abs(f32)
+    g32 = max(relerr(b, a) for a, b in zip(gf32, gs32))
+    del gf32, gs32
+    dbar = float(torch.abs(avg.data).max())
+    bar = 4 * EPS32 * dbar ** 2 * float(torch.sum(avg.icov.double())) / f32
+    print(f"phase 21 hera-avg sufficient statistics (model at the fit's "
+          f"start; {id_s:.1f} s in float64, pixel chunks of "
+          f"{AVG_F64_CHUNK}): float64: full chi^2 {f64!r}, statistics + const "
+          f"{s64v!r}, rel {id_err:.2e} (tol 1e-9); sky / beam gradients rel "
+          f"{g_err:.2e} of their largest (tol 1e-9); float32 route: full "
+          f"{f32!r}, statistics + const {s32v!r}, rel {id32:.2e} against the "
+          f"bar 4 eps32 max|dbar|^2 sum(W) / chi^2 = {bar:.2e} (max |dbar| "
+          f"{dbar:.4e}); its gradients rel {g32:.2e} (tol {AVG_G32_TOL:g})",
+          flush=True)
+    check(id_err <= 1e-9 and g_err <= 1e-9,
+          f"hera-avg identity {id_err:.2e}, gradients {g_err:.2e}")
+    check(id32 <= bar and g32 <= AVG_G32_TOL,
+          f"hera-avg float32 identity {id32:.2e}, gradients {g32:.2e}")
+
+    trainer = bt.Trainer(prob, lr=1e-3)
+    n0 = rime_cuda.launches, rime_cuda.dtau_launches
+    torch.cuda.synchronize()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t2 = time.time()
+        losses.append(float(trainer.step()))
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t2)
+    fit_n = (rime_cuda.launches - n0[0], rime_cuda.dtau_launches - n0[1])
+    expect = steps * 2 * len(AVG_BINS) * nchunks
+    prob.update(trainer.pdict)
+    print(f"phase 21 hera-avg fit: Adam (lr 1e-3) on sky and beam from "
+          f"0.9 x the truth's amplitudes over a Dataset of {len(ds)} "
+          f"one-time targets, losses {losses}; step walls {step_s} s; "
+          f"rime_fwd / rime_dtau launches {fit_n} (expected {steps} steps x "
+          f"2 x {len(AVG_BINS)} times x {nchunks} chunks = {expect}, 0)",
+          flush=True)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0]
+          and all(b < a for a, b in zip(losses, losses[1:])),
+          "hera-avg losses did not fall")
+    check(fit_n == (expect, 0), f"hera-avg fit launches {fit_n}")
+
+    # 6. the fitted model inflated back, chi^2 against the averaged cube
+    with torch.no_grad():
+        model = bt.concat_VisData(fit.run_batches(concat=False), "time")
+    back = RedVisInflate(tav.bls, bl2red=bl2row)(model)
+    chi2 = float(torch.sum(tav.chisq(back).double()))
+    fit_s = float(torch.sum(avg.chisq(model).double())) + const
+    fit_id = abs(fit_s - chi2) / abs(chi2)
+    dof = tav.data.numel()
+    path = rime_cuda.launches
+    print(f"phase 21 hera-avg fitted model inflated onto {back.Nbls} "
+          f"baselines: chi^2 {chi2!r} over {dof} visibilities "
+          f"(chi^2/dof {chi2 / dof:.4f}), at the start {f32!r} (fell by "
+          f"{f32 - chi2!r}); statistics + const at the fit {fit_s!r}, rel "
+          f"{fit_id:.2e} (bar {bar:.2e}); rime_fwd launches on the path "
+          f"{path}", flush=True)
+    # the loss is chi^2 / 2 plus a constant, and the fitted parameters
+    # are a step past the last loss: the full chi^2 falls by more than
+    # twice the losses' fall (held at once, for room over rounding)
+    check(np.isfinite(chi2) and f32 - chi2 >= losses[0] - losses[-1],
+          f"hera-avg fitted chi^2 {chi2!r} fell by {f32 - chi2!r} from the "
+          f"start's, less than the losses' {losses[0] - losses[-1]!r}")
+    check(fit_id <= bar, f"hera-avg identity at the fit {fit_id:.2e}")
+
+    # each operation by CUDA events beside its bytes bound
+    N4, N2, NG = vd.data.numel(), tav.data.numel(), avg.data.numel()
+    ops = (("apply_cal(undo=True)", lambda: vd.apply_cal(cd, undo=True),
+            16 * N4 + 8 * cd.data.numel()),
+           ("time_average(rephase=True)", lambda: cal.time_average(
+               time_inds=AVG_BINS, rephase=True), 12 * N4 + 12 * N2),
+           ("bl_average", lambda: tav.bl_average(reds=avg_reds),
+            12 * N2 + 12 * NG),
+           ("reduce_by_redundancy", lambda: tav.reduce_by_redundancy(
+               reds=avg_reds), 12 * N2 + 12 * NG),
+           ("inflate_by_redundancy", lambda: model.inflate_by_redundancy(
+               bls=tav.bls, bl2red=bl2row), 8 * NG + 8 * N2))
+    times = {}
+    with torch.no_grad():
+        for name, fn, nbytes in ops:
+            ms = cuda_ms(torch, fn, 3)
+            bms = rime_cuda.roofline_ms(0.0, nbytes)[0]
+            times[name] = ms
+            print(f"phase 21 hera-avg time: {name} {ms:.3f} ms, bytes bound "
+                  f"{bms:.3f} ms ({nbytes / 1e9:.3f} GB at "
+                  f"{rime_cuda.PEAK_BYTES / 1e12:.2f} TB/s), at "
+                  f"{bms / ms:.1%} of bound", flush=True)
+    print(f"phase 21 hera-avg peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del seq, vd, cal, tav, avg, prob, trainer, fit, model, back, groups
+    torch.cuda.empty_cache()
+    return path
+
+
 def hess_fd_rows(torch, prob, key, rows, h):
     """Central differences of the float64 gradient of key along its
     first raveled coordinates rows: (len(rows), n) numpy."""
@@ -3981,6 +4422,7 @@ def main():
                                               _pix_chunks)
     coup_fwd = phase_hera_coupling(bt, torch, rime_cuda, _pix_chunks)
     hess_fwd, hess_dtau = phase_hera_hess(bt, torch, rime_cuda, _pix_chunks)
+    avg_fwd = phase_hera_avg(bt, torch, rime_cuda, _pix_chunks)
 
     # rime_fwd: the two shapes are launched equally often on hera-stat:
     # report the mean per launch (hera-prod's and hera-alm's shapes beside
@@ -3992,7 +4434,7 @@ def main():
         "replaces": "bayeslim_tpu/ops/rime_pallas.py:298",
         "launches": stat_launches + cal_fwd + prod_fwd + redcal_fwd
         + hmc_fwd + alm_fwd + sfb_fwd + hmca_fwd + filt_fwd + img_fwd
-        + coup_fwd + hess_fwd,
+        + coup_fwd + hess_fwd + avg_fwd,
         "launches_by_path": {"hera-stat": stat_launches, "hera-cal": cal_fwd,
                              "hera-prod": prod_fwd,
                              "hera-redcal": redcal_fwd,
@@ -4001,7 +4443,7 @@ def main():
                              "hera-hmc-alm": hmca_fwd,
                              "hera-filt": filt_fwd, "hera-img": img_fwd,
                              "hera-coupling": coup_fwd,
-                             "hera-hess": hess_fwd},
+                             "hera-hess": hess_fwd, "hera-avg": avg_fwd},
         "max_abs_err": max(worst_fwd["hera-fwd"], worst_fwd["hera-bwd"]),
         "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[2],
         "bound_by": timing[0][3] if timing[0][3] == timing[1][3]
@@ -4024,7 +4466,8 @@ def main():
                              "hera-sfb": sfb_dtau,
                              "hera-hmc-alm": hmca_dtau,
                              "hera-filt": filt_dtau, "hera-img": img_dtau,
-                             "hera-coupling": 0, "hera-hess": hess_dtau},
+                             "hera-coupling": 0, "hera-hess": hess_dtau,
+                             "hera-avg": 0},
         "max_abs_err": worst_dtau, "ms": dms, "plain_ms": dpms,
         "bound_ms": dbms, "bound_by": dby, "library_ms": None}]
     kernels += spikes

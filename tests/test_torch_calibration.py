@@ -152,17 +152,24 @@ def test_jones_model_forward_and_grad_vs_jax(polmode, slope):
 
 
 def test_jones_model_rejects_what_is_not_ported():
-    """What waits on later queue items raises and names the item; the
-    redcal degeneracy projections and the 'linear' modes are ported."""
+    """The redcal degeneracy projections, the 'linear' modes and the
+    CalData export are ported: to_CalData's gains match the JAX
+    package's, detached."""
     LM = bt.LinearModel("poly", dim=4, x=np.linspace(1e8, 2e8, 4), Ndeg=2,
                         device="cpu")
     R = tcal.JonesResponse(freq_mode="linear", freq_LM=LM)
     assert R.freq_LM is LM and dict(R.named_buffers())["freq_LM.A"] is LM.A
     R = tcal.JonesResponse(abs_amp_gain=True)
     assert R._proj_abs_amp and R._projection
-    J = tcal.JonesModel(np.ones((1, 1, 2, 1, 2, 2)), [0, 1], device="cpu")
-    with pytest.raises(NotImplementedError, match="CalData.*A9"):
-        J.to_CalData(np.ones(2), np.ones(1))
+    p = np.random.default_rng(0).standard_normal((1, 1, 2, 1, 2, 2))
+    J = tcal.JonesModel(p, [0, 1], refant=0, device="cpu",
+                        dtype=torch.float64)
+    cd = J.to_CalData(np.ones(2), np.ones(1), pol="ee")
+    jcd = jcal.JonesModel(jnp.asarray(p), [0, 1], refant=0).to_CalData(
+        np.ones(2), np.ones(1), pol="ee")
+    assert cd.ants == jcd.ants and cd.pol == jcd.pol == "ee"
+    assert not cd.data.requires_grad and J.params.requires_grad
+    assert _relerr(cd.data.numpy(), jcd.data) <= 1e-9
 
 
 def _linear_LMs(pkg, freq, time, ntime):

@@ -1079,3 +1079,48 @@ def test_kernel_delay_residual(cuda, ps_real, conj, out_imag):
     err = _relerr(a.cpu().numpy(), ref.cpu().numpy())
     assert err <= 1e-5
     assert err < _relerr(no_lo.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_hera_avg_small_on_card(cuda):
+    """hera-avg's hex-2 chain (chip_smoke.build_avg_chain:
+    Sequential(RIME -> RedVisInflate -> JonesModel -> RedVisAvg) from
+    unit gains against its group-averaged cube): card float32 against
+    CPU float64, the loss and the sky, beam and gain gradients through
+    the segment sums; one rime_fwd a time forward and one backward, no
+    rime_dtau. Then the data layer's operations on the card's cube
+    against the CPU in float64."""
+    _repo_on_path()
+    import bayeslim_tpu_torch as bt
+    from chip_smoke import build_avg_chain
+    cpu = build_avg_chain(bt, torch, "cpu", torch.float64)
+    gpu = build_avg_chain(bt, torch, cuda, torch.float32)
+    gpu.target[0].data = cpu.target[0].data.to(torch.complex64).to(cuda)
+    bt.load_numpy_pdict(gpu.model, {k: v.detach().numpy() for k, v in
+                                    cpu.collect_main_params().items()})
+    n0 = (rime_cuda.launches, rime_cuda.dtau_launches)
+    vg, gg = gpu.value_and_grad()
+    assert (rime_cuda.launches - n0[0],
+            rime_cuda.dtau_launches - n0[1]) == (4, 0)
+    vc, gc = cpu.value_and_grad()
+    assert abs(float(vg) - float(vc)) / abs(float(vc)) <= 1e-4
+    for k in gc.keys():
+        assert _relerr(gg[k].cpu().numpy(), gc[k].numpy()) <= 1e-4, k
+    vd = cpu.target[0]
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((1, 1, vd.Nbls, 4, vd.Nfreqs)) * (1 + 1j)
+    v64 = bt.VisData()
+    v64.setup_meta(vd.telescope, vd.antpos)
+    v64.setup_data(vd.bls, 2458168.3 + np.arange(4) * 5e-4, vd.freqs,
+                   pol="ee", data=torch.as_tensor(x),
+                   icov=torch.as_tensor(rng.uniform(1, 2, x.shape)))
+    v32 = v64.copy()
+    v32.data = v64.data.to(torch.complex64).to(cuda)
+    v32.icov = v64.icov.float().to(cuda)
+    for fn in (lambda v: v.time_average([[0, 1], [2, 3]], rephase=True),
+               lambda v: v.bl_average(),
+               lambda v: v.reduce_by_redundancy()[0],
+               lambda v: v.lst_rephase(dLST=0.01)):
+        a, b = fn(v32), fn(v64)
+        assert a.data.is_cuda
+        assert _relerr(a.data.cpu().numpy(), b.data.numpy()) <= 1e-5

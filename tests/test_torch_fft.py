@@ -152,6 +152,24 @@ def test_peak_delay_vs_jax(kw):
 
 
 def test_vis_wedge_names_what_it_waits_for():
-    vd = bt.VisData()
-    with pytest.raises(NotImplementedError, match="bl_average.*A9"):
-        tfft.vis_wedge(vd)
+    """vis_wedge, once waiting on VisData.bl_average, averages over the
+    redundant groups of the data's antpos and delay-transforms them as
+    the JAX one does."""
+    rng = np.random.default_rng(3)
+    ants, antvecs = bt.utils.make_hex(2, D=15.0)
+    bls = [(a, b) for i, a in enumerate(ants) for b in ants[i + 1:]]
+    f = np.linspace(100e6, 120e6, 16)
+    shape = (1, 1, len(bls), 2, len(f))
+    x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    out = []
+    for pkg, conv in ((bl, jnp.asarray), (bt, torch.as_tensor)):
+        vd = pkg.VisData()
+        vd.setup_meta(antpos=pkg.utils.AntposDict(ants, antvecs))
+        vd.setup_data(bls, np.arange(2.0), f, pol="ee", data=conv(x))
+        mod = jfft if pkg is bl else tfft
+        out.append(mod.vis_wedge(vd, window="bh"))
+    (jw, jft), (tw, tft) = out
+    assert tw.Nbls == jw.Nbls < len(bls)
+    np.testing.assert_array_equal(tw.blnums, jw.blnums)
+    assert _relerr(tw.data.numpy(), jw.data) <= 1e-9
+    np.testing.assert_allclose(tft.freqs, jft.freqs, rtol=1e-12)

@@ -317,7 +317,7 @@ def _point_chain(pkg, times, batched, target=None):
     jT = setup_Telescope()
     rng = np.random.default_rng(0)
     freqs = np.linspace(100e6, 120e6, 4)
-    ra0 = jT.JD2RA(JD0)
+    ra0 = bt.TelescopeModel(jT.location).JD2RA(JD0)
     angs = np.stack([ra0 + rng.uniform(-20, 20, 2),
                      -30.72152777 + rng.uniform(-20, 20, 2)])
     params = np.zeros((1, 1, 2, 2))

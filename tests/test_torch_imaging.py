@@ -79,7 +79,7 @@ def _random_case(seed=0, nfreq=6, ntime=2, hexN=2, weights=False):
 
 def _grid(n=9, width=12.0):
     """RA / Dec [deg] of a grid around the zenith at JD0."""
-    ra0 = bl.TelescopeModel(LOC).JD2RA(JD0)
+    ra0 = bt.TelescopeModel(LOC).JD2RA(JD0)
     g = np.linspace(-width, width, n)
     rr, dd = np.meshgrid(ra0 + g, LOC[1] + g)
     return rr.ravel(), dd.ravel()
@@ -119,7 +119,7 @@ def test_point_source_images_to_its_location_vs_jax(route):
     T = setup_Telescope()
     freqs = np.linspace(130e6, 150e6, 8)
     arr = setup_Array(N=3, freqs=freqs)
-    ra0 = T.JD2RA(JD0)
+    ra0 = bt.TelescopeModel(T.location).JD2RA(JD0)
     sky = PointSky(jnp.asarray(np.ones((1, 1, 8, 1)) * 5.0),
                    jnp.asarray([[ra0], [-30.72]]),
                    R=PointSkyResponse(freqs, freq_mode="channel"))

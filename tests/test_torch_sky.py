@@ -132,7 +132,7 @@ def _point_sky_params(Nsource, Nfreqs, seed=0):
     around zenith at JD0, amplitudes U(1, 10), index -2.2."""
     rng = np.random.default_rng(seed)
     freqs = np.linspace(100e6, 120e6, Nfreqs)
-    ra0 = bl.TelescopeModel(LOC).JD2RA(JD0)
+    ra0 = bt.TelescopeModel(LOC).JD2RA(JD0)
     angs = np.stack([ra0 + rng.uniform(-20, 20, Nsource),
                      LOC[1] + rng.uniform(-20, 20, Nsource)])
     params = np.zeros((1, 1, 2, Nsource))
