@@ -9,15 +9,18 @@ bayeslim_tpu module for module:
 
 - utils/     : dtype/device policy, ParamDict, nn.Module base and
                Sequential, indexing, HEALPix (and multi-resolution
-               HEALPix), pixel interpolation
+               HEALPix), pixel interpolation, training-state
+               checkpoints and structured logging
 - ops/       : fringe phase math, the RIME reduction, its CUDA kernels,
                linear algebra (least squares, inversion dispatch),
                special functions, spherical harmonics (Ylm, AlmModel)
                and spherical Fourier-Bessel transforms (SFBModel)
 - data/      : VisData / MapData / CalData containers, their
                averaging, rephasing and redundancy reductions, the
-               chain blocks (RedVisAvg, RedVisInflate, Difference) and
-               Dataset
+               chain blocks (RedVisAvg, RedVisInflate, Difference),
+               Dataset, and the file layer: HDF5 files and lazy HDF5
+               tensors, UVH5 and calfits files, the builders of models
+               and posteriors from configs, and pickles (data/io.py)
 - models/    : telescope/array, sky (pixel, a_lm and SFB t_lmn), beam
                (pixel and Ylm), RIME, Jones gains, the per-baseline /
                per-group visibility models and the redcal degeneracies,
@@ -38,7 +41,8 @@ bayeslim_tpu module for module:
 Device rule: constructors and entry points take device=None, meaning
 "cuda", and raise when no GPU is present; pass device="cpu" to run on
 the CPU (where the kernel's plain PyTorch version runs). The default
-dtype is float32.
+dtype is float32. h5py, yaml and pyuvdata are optional: they are
+imported by the calls that read or write their files.
 """
 
 __version__ = "0.1.0"
@@ -47,7 +51,7 @@ from . import utils, ops, data, models, inference
 from .utils import (ParamDict, Module, Sequential, model2pdict,
                     load_numpy_pdict, set_default_dtype, resolve_device)
 from .data import (VisData, MapData, CalData, Dataset, concat_VisData,
-                   concat_MapData, concat_CalData)
+                   concat_MapData, concat_CalData, load_data)
 from .models import (RIME, TelescopeModel, ArrayModel, PixelBeam,
                      AiryResponse, GaussResponse, UniformResponse,
                      PixelResponse, YlmResponse, AlmBeam, Cosmology,

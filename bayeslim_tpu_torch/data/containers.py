@@ -6,9 +6,11 @@ Counterpart of bayeslim_tpu/data/containers.py (TensorData :138, VisData
 :306, MapData :1048, CalData :1227, the concatenations :1508-1600,
 average_data :1626, CatTensor :1660, Difference / RedVisAvg /
 RedVisInflate :1727-1777, average_TensorData :1778, caldata_from_visdata
-:1798, pass_data :1813). The HDF5 file layer (read_hdf5 / write_hdf5,
-HDF5Tensor, load_data, CalData.read_uvcal) is not here. Shapes follow
-the JAX package:
+:1798, pass_data :1813) with its HDF5 file layer (VisData.from_hdf5
+:565, write_hdf5 / read_hdf5 :959-1047, :1176-1223, :1384-1458,
+CalData.read_uvcal :1410, HDF5Tensor :1461, load_data :1601,
+SelectedHDF5Tensor :1691, make_HDF5Tensor :1819). Shapes follow the
+JAX package:
 
 - visibilities (Npol, Npol, Nbls, Ntimes, Nfreqs), complex
 - sky maps     (Npol, 1, Nfreqs, Npix) with angs (2, Npix) [RA, Dec deg]
@@ -27,6 +29,13 @@ and index bins (average_data) sum their segments in a fixed order
 each run of equal-length segments is viewed as (n, L) and summed over
 L, and the sums are put back in segment order. No atomics are used, so a card
 gives the same bits on every call.
+
+Files: the HDF5 layout is the JAX package's, so each package reads the
+other's files. h5py is imported in the functions that read or write a
+file (the module imports without it); a read puts the data, cov and
+icov on the device asked for (None: CUDA) and keeps flags and metadata
+on the host. read_hdf5 works on the class (a new object) or on an
+instance (filled in place and returned), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -36,13 +45,15 @@ import numpy as np
 import torch
 
 from ..ops.linalg import invert_matrix
+from ..utils.dtypes import resolve_device
 from ..utils.indexing import AntposDict, ants2blnum, blnum2ants, inflate_bls
 from ..utils.module import Module
 
 __all__ = ["TensorData", "VisData", "MapData", "CalData", "concat_VisData",
            "concat_MapData", "concat_CalData", "average_data", "CatTensor",
            "Difference", "RedVisAvg", "RedVisInflate", "average_TensorData",
-           "caldata_from_visdata", "pass_data"]
+           "caldata_from_visdata", "pass_data", "load_data", "HDF5Tensor",
+           "SelectedHDF5Tensor", "make_HDF5Tensor"]
 
 _LEAF_FIELDS = ("data", "flags", "cov", "icov")
 # rows of a float64 sum of squares cast at a time (reduce_by_redundancy)
@@ -76,6 +87,41 @@ def _take(arr, idx, axis):
     if isinstance(arr, torch.Tensor):
         return arr.index_select(axis, _idx(idx, arr.device))
     return np.take(arr, idx, axis=axis)
+
+
+def _dev(x, device):
+    """A host array read from a file as a tensor on device."""
+    return torch.as_tensor(np.asarray(x), device=device)
+
+
+def _exists(fname, overwrite):
+    import os
+    if os.path.exists(fname) and not overwrite:
+        raise FileExistsError(fname)
+
+
+def _telescope(attrs):
+    if "tloc" not in attrs:
+        return None
+    from ..models.telescope import TelescopeModel
+    return TelescopeModel(tuple(attrs["tloc"]))
+
+
+def _cov_axis(attrs):
+    cov_axis = attrs.get("cov_axis", None)
+    return None if cov_axis in (None, "none") else str(cov_axis)
+
+
+class _hybridmethod:
+    """A method usable on the class (a new object is made and returned)
+    or on an instance (filled in place and returned)."""
+
+    def __init__(self, f):
+        self.f = f
+
+    def __get__(self, obj, cls):
+        import functools
+        return functools.partial(self.f, obj if obj is not None else cls())
 
 
 def _wgts(wgts, like):
@@ -897,6 +943,101 @@ class VisData(TensorData):
             bls, idx = inflate_bls(self.bls, bl2red, bls)
         return self._inflate_by_redundancy(bls, idx)
 
+    # --- files ---------------------------------------------------------
+    @classmethod
+    def from_hdf5(cls, fname, axis=None, lazy_cat=False, interleave=False,
+                  **kwargs):
+        """A VisData from one HDF5 file, or from several: concatenated
+        along axis ('bl', 'time', 'freq'), lazily (CatTensor of
+        HDF5Tensors) with lazy_cat, round-robin with interleave; a list
+        of VisData when axis is None."""
+        if isinstance(fname, (list, tuple)):
+            vds = [cls.read_hdf5(f, lazy=lazy_cat, **kwargs) for f in fname]
+            return concat_VisData(vds, axis, interleave=interleave,
+                                  lazy=lazy_cat) \
+                if axis is not None else vds
+        return cls.read_hdf5(fname, **kwargs)
+
+    def write_hdf5(self, fname, overwrite=False):
+        """Write to an HDF5 file in the JAX package's layout."""
+        import h5py
+        _exists(fname, overwrite)
+        with h5py.File(fname, "w") as f:
+            f.attrs["obj"] = "VisData"
+            f.attrs["history"] = self.history or ""
+            if self.pol is not None:
+                f.attrs["pol"] = self.pol
+            f.create_dataset("data", data=_host(self.data))
+            if self.flags is not None:
+                f.create_dataset("flags", data=_host(self.flags))
+            if self.cov is not None:
+                f.create_dataset("cov", data=_host(self.cov))
+                f.attrs["cov_axis"] = self.cov_axis or "none"
+            if self.icov is not None:
+                f.create_dataset("icov", data=_host(self.icov))
+            f.create_dataset("blnums", data=self.blnums)
+            f.create_dataset("times", data=self.times)
+            f.create_dataset("freqs", data=self.freqs)
+            if self.antpos is not None:
+                f.create_dataset("ants", data=np.asarray(self.antpos.ants))
+                f.create_dataset("antvecs", data=self.antpos.asnumpy())
+            if self.telescope is not None:
+                f.attrs["tloc"] = np.asarray(self.telescope.location)
+
+    @_hybridmethod
+    def read_hdf5(obj, fname, read_data=True, bl=None, times=None,
+                  freqs=None, pol=None, lazy=False, lazy_load=False,
+                  bl_inds=None, time_inds=None, freq_inds=None,
+                  suppress_nonessential=False, device=None):
+        """Read an HDF5 file, whole or a selection (bl / times / freqs /
+        pol or their *_inds), its tensors on device. lazy (lazy_load)
+        leaves the data in the file as an HDF5Tensor; lazy,
+        suppress_nonessential and read_data=False skip flags, cov and
+        icov."""
+        import h5py
+        dev = resolve_device(device)
+        lazy = lazy or lazy_load
+        with h5py.File(fname, "r") as f:
+            antpos = None
+            if "ants" in f:
+                antpos = AntposDict([int(a) for a in f["ants"][:]],
+                                    f["antvecs"][:])
+            elif "ants" in f.attrs:
+                antpos = AntposDict([int(a) for a in f.attrs["ants"]],
+                                    np.asarray(f.attrs["antvecs"]))
+            obj.setup_meta(telescope=_telescope(f.attrs), antpos=antpos)
+            data = None
+            if lazy:
+                data = HDF5Tensor(fname, "data", device=dev)
+            elif read_data:
+                data = _dev(f["data"][:], dev)
+            aux = read_data and not lazy and not suppress_nonessential
+            flags = np.asarray(f["flags"][:]) if "flags" in f and aux \
+                else None
+            cov = _dev(f["cov"][:], dev) if "cov" in f and aux else None
+            icov = _dev(f["icov"][:], dev) if "icov" in f and aux else None
+            obj.setup_data(f["blnums"][:], f["times"][:], f["freqs"][:],
+                           pol=f.attrs.get("pol", None), data=data,
+                           flags=flags, cov=cov, cov_axis=_cov_axis(f.attrs),
+                           icov=icov,
+                           history=str(f.attrs.get("history", "")))
+        if bl_inds is not None:
+            if bl is not None:
+                raise ValueError("give bl or bl_inds, not both")
+            bl = [obj.bls[int(i)] for i in np.atleast_1d(bl_inds)]
+        if time_inds is not None:
+            if times is not None:
+                raise ValueError("give times or time_inds, not both")
+            times = np.asarray(obj.times)[np.atleast_1d(time_inds)]
+        if freq_inds is not None:
+            if freqs is not None:
+                raise ValueError("give freqs or freq_inds, not both")
+            freqs = np.asarray(obj.freqs)[np.atleast_1d(freq_inds)]
+        if any(x is not None for x in (bl, times, freqs, pol)):
+            obj.select(bl=bl, times=times, freqs=freqs, pol=pol,
+                       inplace=True)
+        return obj
+
 
 def _abs2_64(x):
     """|x|^2 in float64."""
@@ -1037,6 +1178,54 @@ class MapData(TensorData):
             obj.angs = _take(self.angs, a, 1)
         if pols is not None:
             obj.pols = list(np.atleast_1d(pols))
+        return obj
+
+    def write_hdf5(self, fname, overwrite=False):
+        """Write to an HDF5 file in the JAX package's layout."""
+        import h5py
+        _exists(fname, overwrite)
+        with h5py.File(fname, "w") as f:
+            f.attrs["obj"] = "MapData"
+            f.attrs["history"] = self.history or ""
+            if self.name:
+                f.attrs["name"] = self.name
+            f.create_dataset("data", data=_host(self.data))
+            f.create_dataset("freqs", data=self.freqs)
+            if self.df is not None:
+                f.create_dataset("df", data=_host(self.df))
+            if self.pols is not None:
+                f.attrs["pols"] = [str(p) for p in self.pols]
+            if self.angs is not None:
+                f.create_dataset("angs", data=_host(self.angs))
+            for k in ("flags", "norm", "cov"):
+                if getattr(self, k) is not None:
+                    f.create_dataset(k, data=_host(getattr(self, k)))
+            if self.cov is not None:
+                f.attrs["cov_axis"] = self.cov_axis or "none"
+            if self.icov is not None:
+                f.create_dataset("icov", data=_host(self.icov))
+
+    @_hybridmethod
+    def read_hdf5(obj, fname, read_data=True, device=None, **kwargs):
+        """Read an HDF5 file, its data, cov, icov and norm on device
+        (flags, freqs, df and angs on the host)."""
+        import h5py
+        dev = resolve_device(device)
+
+        def ds(f, k):
+            return _dev(f[k][:], dev) if k in f and read_data else None
+        with h5py.File(fname, "r") as f:
+            obj.setup_meta(name=f.attrs.get("name", None))
+            obj.setup_data(
+                f["freqs"][:], df=f["df"][:] if "df" in f else None,
+                pols=list(f.attrs["pols"]) if "pols" in f.attrs else None,
+                data=ds(f, "data"),
+                angs=np.asarray(f["angs"][:]) if "angs" in f else None,
+                flags=np.asarray(f["flags"][:])
+                if "flags" in f and read_data else None,
+                cov=ds(f, "cov"), cov_axis=_cov_axis(f.attrs),
+                icov=ds(f, "icov"), norm=ds(f, "norm"),
+                history=str(f.attrs.get("history", "")))
         return obj
 
 
@@ -1198,6 +1387,80 @@ class CalData(TensorData):
         obj.pol = None
         return obj
 
+    def write_hdf5(self, fname, overwrite=False):
+        """Write to an HDF5 file in the JAX package's layout."""
+        import h5py
+        _exists(fname, overwrite)
+        with h5py.File(fname, "w") as f:
+            f.attrs["obj"] = "CalData"
+            f.attrs["history"] = self.history or ""
+            if self.pol is not None:
+                f.attrs["pol"] = self.pol
+            f.create_dataset("data", data=_host(self.data))
+            f.create_dataset("ants", data=np.asarray(self.ants))
+            f.create_dataset("times", data=self.times)
+            f.create_dataset("freqs", data=self.freqs)
+            for k in ("flags", "cov"):
+                if getattr(self, k) is not None:
+                    f.create_dataset(k, data=_host(getattr(self, k)))
+            if self.cov is not None:
+                f.attrs["cov_axis"] = self.cov_axis or "none"
+            if self.icov is not None:
+                f.create_dataset("icov", data=_host(self.icov))
+            if self.antpos is not None:
+                f.create_dataset("antvecs", data=self.antpos.asnumpy())
+            if self.telescope is not None:
+                f.attrs["tloc"] = np.asarray(self.telescope.location)
+
+    @classmethod
+    def read_uvcal(cls, fname, device=None, **kwargs):
+        """Read a calfits / UVCal file through pyuvdata (imported here;
+        ImportError without it). data/uvdata_interface.read_calfits
+        reads calfits without pyuvdata."""
+        try:
+            from pyuvdata import UVCal
+        except ImportError as e:
+            raise ImportError("read_uvcal requires pyuvdata") from e
+        uvc = UVCal()
+        uvc.read_calfits(fname, **kwargs)
+        obj = cls()
+        gains = np.asarray(uvc.gain_array)
+        if gains.ndim == 4:
+            gains = np.moveaxis(gains, (0, 1, 2), (0, 2, 1))[None, None, ...,
+                                                             0]
+        obj.setup_data([int(a) for a in uvc.ant_array],
+                       np.asarray(uvc.time_array),
+                       np.asarray(uvc.freq_array).ravel(), pol="ee",
+                       data=_dev(gains, resolve_device(device)))
+        return obj
+
+    @_hybridmethod
+    def read_hdf5(obj, fname, read_data=True, ants=None, times=None,
+                  freqs=None, pol=None, device=None, **kwargs):
+        """Read an HDF5 file, whole or a selection, its data, cov and
+        icov on device (flags on the host)."""
+        import h5py
+        dev = resolve_device(device)
+
+        def ds(f, k):
+            return _dev(f[k][:], dev) if k in f and read_data else None
+        with h5py.File(fname, "r") as f:
+            ant_list = [int(a) for a in f["ants"][:]]
+            antpos = AntposDict(ant_list, np.asarray(f["antvecs"][:])) \
+                if "antvecs" in f else None
+            obj.setup_meta(telescope=_telescope(f.attrs), antpos=antpos)
+            obj.setup_data(ant_list, f["times"][:], f["freqs"][:],
+                           pol=f.attrs.get("pol", None), data=ds(f, "data"),
+                           flags=np.asarray(f["flags"][:])
+                           if "flags" in f and read_data else None,
+                           cov=ds(f, "cov"), cov_axis=_cov_axis(f.attrs),
+                           icov=ds(f, "icov"),
+                           history=str(f.attrs.get("history", "")))
+        if (ants, times, freqs, pol) != (None, None, None, None):
+            obj.select(ants=ants, times=times, freqs=freqs, pol=pol,
+                       inplace=True)
+        return obj
+
 
 # ---------------------------------------------------------------------------
 # concatenation
@@ -1327,6 +1590,131 @@ class CatTensor:
 
     def size(self, dim=None):
         return self.shape if dim is None else self.shape[dim]
+
+
+class HDF5Tensor:
+    """A dataset of an HDF5 file, read when indexed: the slice is read
+    on the host (h5py indexing) and moved to device (None: CUDA), as
+    dtype if given."""
+
+    def __init__(self, fname, dset, dtype=None, device=None):
+        import h5py
+        self.fname = fname
+        self.dset = dset
+        self._dtype = dtype
+        self.device = resolve_device(device)
+        with h5py.File(fname, "r") as f:
+            self._shape = f[dset].shape
+            self._file_dtype = f[dset].dtype
+
+    @property
+    def shape(self):
+        return self._shape
+
+    @property
+    def ndim(self):
+        return len(self._shape)
+
+    def __len__(self):
+        return self._shape[0]
+
+    def _read(self, idx):
+        import h5py
+        with h5py.File(self.fname, "r") as f:
+            return f[self.dset][idx]
+
+    def _tensor(self, arr):
+        t = torch.as_tensor(np.asarray(arr), device=self.device)
+        return t if self._dtype is None else t.to(self._dtype)
+
+    def __getitem__(self, idx):
+        return self._tensor(self._read(idx))
+
+    def load(self):
+        return self[...]
+
+    def numel(self):
+        return int(np.prod(self.shape))
+
+    def size(self, dim=None):
+        return self.shape if dim is None else self.shape[dim]
+
+    def __repr__(self):
+        return f"HDF5Tensor({self.fname}:{self.dset}, shape={self._shape})"
+
+
+class SelectedHDF5Tensor:
+    """An HDF5Tensor with a fixed selection sel applied before each
+    index: both are applied on the host, in that order, and the result
+    moved to the device."""
+
+    def __init__(self, fname, dset, sel=None, dtype=None, device=None):
+        self.base = HDF5Tensor(fname, dset, dtype=dtype, device=device)
+        self.sel = sel
+
+    @property
+    def shape(self):
+        """The selected shape, from index arithmetic (nothing read)."""
+        if self.sel is None:
+            return self.base.shape
+        sel = self.sel if isinstance(self.sel, tuple) else (self.sel,)
+        out = []
+        for ax, n in enumerate(self.base.shape):
+            if ax >= len(sel):
+                out.append(n)
+                continue
+            s = sel[ax]
+            if isinstance(s, slice):
+                out.append(len(range(*s.indices(n))))
+            elif np.isscalar(s) or np.ndim(s) == 0:
+                continue
+            else:
+                s = np.asarray(s)
+                out.append(int(s.sum()) if s.dtype == bool else len(s))
+        return tuple(out)
+
+    def __getitem__(self, idx):
+        full = self.base._read(self.sel if self.sel is not None
+                               else slice(None))
+        return self.base._tensor(np.asarray(full)[idx])
+
+
+def make_HDF5Tensor(fname, dset="data", sel=None, idx=None, dtype=None,
+                    device=None):
+    """An HDF5Tensor, or a SelectedHDF5Tensor when sel (or its alias
+    idx) is given."""
+    sel = idx if sel is None else sel
+    if sel is not None:
+        return SelectedHDF5Tensor(fname, dset, sel=sel, dtype=dtype,
+                                  device=device)
+    return HDF5Tensor(fname, dset, dtype=dtype, device=device)
+
+
+def load_data(fname, concat_ax=None, copy=False, device=None, **kwargs):
+    """A VisData, MapData or CalData from an HDF5 file (the class from
+    its 'obj' attribute), its tensors on device; a container is passed
+    through. A list of files is concatenated along concat_ax (or
+    returned as a list); copy deep-copies the result."""
+    if isinstance(fname, (VisData, MapData, CalData)):
+        out = fname
+    elif isinstance(fname, (list, tuple)):
+        dlist = [load_data(f, device=device, **kwargs) for f in fname]
+        if concat_ax is not None:
+            concat = {VisData: concat_VisData, MapData: concat_MapData,
+                      CalData: concat_CalData}[type(dlist[0])]
+            out = concat(dlist, concat_ax)
+        else:
+            out = dlist
+    else:
+        import h5py
+        with h5py.File(fname, "r") as f:
+            obj = f.attrs.get("obj", "VisData")
+        cls = {"VisData": VisData, "MapData": MapData,
+               "CalData": CalData}[obj]
+        out = cls.read_hdf5(fname, device=device, **kwargs)
+    if copy:
+        out = _copy.deepcopy(out)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..data.containers import TensorData
+from ..data.dataset import Dataset
 from ..ops.linalg import pinv
 from ..utils.module import Module, model2pdict
 from ..utils.paramdict import ParamDict
@@ -418,20 +419,25 @@ class LogProb(Module):
     restricts the solved parameters to sub-slices (MainParams); the
     pdict then holds one flat 'main' vector.
 
-    target: one TensorData or a list of them, batch i using entry
-    i mod len(target). grad_type 'accumulate': value_and_grad returns
+    target: one TensorData, a list of them or a Dataset, batch i using
+    entry i mod len(target). start_inp, if given, is indexed the same
+    way, and its entry is the model's input (the first block's, in a
+    Sequential). grad_type 'accumulate': value_and_grad returns
     the mean loss over the model's batches and the sum of their
     gradients, as the JAX package does; any other value: the active
     batch's alone. The prior enters with batch 0 only.
     """
 
-    def __init__(self, model, target, prior_dict=None, compute="post",
-                 negate=True, grad_type="accumulate", complex_circular=True,
-                 LM=None, name=None):
+    def __init__(self, model, target, start_inp=None, prior_dict=None,
+                 compute="post", negate=True, grad_type="accumulate",
+                 complex_circular=True, LM=None, name=None):
         super().__init__(name=name)
         self.model = model
-        self.target = [target] if isinstance(target, TensorData) \
+        if isinstance(target, TensorData):
+            target = [target]
+        self.target = target if isinstance(target, Dataset) \
             else list(target)
+        self.start_inp = start_inp
         self.prior_dict = prior_dict
         self.compute = compute
         self.negate = negate
@@ -464,6 +470,13 @@ class LogProb(Module):
         if idx is not None:
             self.batch_idx = idx
         return self.target[self.batch_idx % len(self.target)]
+
+    def get_batch_inp(self):
+        """The model input of the active batch (None without
+        start_inp)."""
+        if self.start_inp is None:
+            return None
+        return self.start_inp[self.batch_idx % len(self.start_inp)]
 
     # --- parameter plumbing ---------------------------------------------
     def set_main_params(self, spec=None):
@@ -542,7 +555,9 @@ class LogProb(Module):
         tgt = self.get_batch_data(idx)
         data, icov = tgt.get_data(), tgt.get_icov()
         prior_cache = {}
-        out = self._model_at(pdict)(prior_cache=prior_cache)
+        inp = self.get_batch_inp()
+        out = self._model_at(pdict)(*(() if inp is None else (inp,)),
+                                    prior_cache=prior_cache)
         if isinstance(out, TensorData):
             out = out.data
         res = out - data

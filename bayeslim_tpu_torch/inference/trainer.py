@@ -3,7 +3,11 @@ Training loop over a LogProb with torch.optim: epochs, loss and time
 history, chain tracking and rollback.
 
 Counterpart of bayeslim_tpu/inference/trainer.py (Trainer :22, set_opt
-:68, init_chain :77, get_chain :86, train :97, revert_chain :133). The
+:68, init_chain :77, get_chain :86, train :97, revert_chain :133), with
+its reporting: every Nreport epochs a structured event to logger
+(utils.logging.log_event) or, without one, a printed line when verbose;
+each epoch's loss and time into metrics (utils.logging.Metrics); a
+torch.profiler trace of train into profile_dir. The
 JAX Trainer keeps a ParamDict and an optax state; here the ParamDict's
 tensors are the leaves that a torch.optim optimizer steps in place. The
 optimizer is a factory params -> torch.optim.Optimizer (the default:
@@ -24,12 +28,20 @@ class Trainer:
     """Epoch loop: step the optimizer against prob.value_and_grad.
 
     track keeps each epoch's parameters (track_norm: their norms) in
-    ``chain``; revert_chain rolls back to an earlier epoch.
+    ``chain``; revert_chain rolls back to an earlier epoch. Nreport,
+    verbose, metrics, logger and profile_dir: the reporting (module
+    docstring).
     """
 
     def __init__(self, prob, optimizer=None, track=False, track_norm=False,
-                 lr=1e-2):
+                 Nreport=None, verbose=True, metrics=None, logger=None,
+                 profile_dir=None, lr=1e-2):
         self.prob = prob
+        self.Nreport = Nreport
+        self.verbose = verbose
+        self.metrics = metrics
+        self.logger = logger
+        self.profile_dir = profile_dir
         self.pdict = prob.collect_main_params().operator(
             lambda v: v.detach().clone().requires_grad_(True))
         if optimizer is None:
@@ -90,18 +102,37 @@ class Trainer:
         self.opt.step()
         return loss
 
-    def train(self, Nepochs=1):
-        """Run Nepochs steps, recording losses, times and (if tracking)
-        the chain, then write the parameters into the model."""
+    def train(self, Nepochs=1, Nreport=None):
+        """Run Nepochs steps, recording losses, times, metrics and (if
+        tracking) the chain and reporting every Nreport epochs (default:
+        the constructor's), then write the parameters into the model."""
+        from ..utils.logging import log_event, trace_profile
+        if Nreport is None:
+            Nreport = self.Nreport
         start = time.time()
-        for _ in range(Nepochs):
-            self.loss_history.append(float(self.step()))
-            self.time_history.append(time.time() - start)
-            if self.track:
-                for k in self.chain:
-                    v = self.pdict[k].detach().cpu().numpy()
-                    self.chain[k].append(np.linalg.norm(v) if self.track_norm
-                                         else v.copy())
+        with trace_profile(self.profile_dir,
+                           enabled=self.profile_dir is not None):
+            for epoch in range(Nepochs):
+                loss = float(self.step())
+                self.loss_history.append(loss)
+                self.time_history.append(time.time() - start)
+                if self.metrics is not None:
+                    self.metrics.log("loss", loss, step=epoch)
+                    self.metrics.log("epoch_time", self.time_history[-1],
+                                     step=epoch)
+                if self.track:
+                    for k in self.chain:
+                        v = self.pdict[k].detach().cpu().numpy()
+                        self.chain[k].append(np.linalg.norm(v)
+                                             if self.track_norm else v.copy())
+                if Nreport and epoch % Nreport == 0:
+                    if self.logger is not None:
+                        log_event("train_epoch", logger=self.logger,
+                                  epoch=epoch, loss=loss,
+                                  elapsed=self.time_history[-1])
+                    elif self.verbose:
+                        print(f"epoch {epoch:5d} | loss {loss:.6e} | "
+                              f"{self.time_history[-1]:.1f}s")
         self.prob.update(self.pdict)
         return self.loss_history
 

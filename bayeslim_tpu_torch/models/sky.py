@@ -5,7 +5,8 @@ several components, and the Stokes -> coherency conversion.
 Counterpart of bayeslim_tpu/models/sky.py (DefaultResponse :33, SkyBase
 :49, PointSky :108, PointSkyResponse :115, PixelSky :158,
 PixelSkyResponse :178, CompositeModel :275, stokes2coherency :328,
-Stokes2Coherency :363, SphHarmSky :499, pixelsky_Ylm_cut :559).
+Stokes2Coherency :363, read_catalogue :375, write_catalogue :434,
+SphHarmSky :499, pixelsky_Ylm_cut :559).
 Conventions kept: sky data (Nstokes, 1, Nfreqs, Npix) or a (2, 2,
 Nfreqs, Npix) coherency; angs (2, Npix) equatorial [RA, Dec] in
 degrees; PixelSky multiplies by the pixel solid angle so the output is
@@ -34,7 +35,8 @@ from ..ops.sph_harm import SFBModel
 __all__ = ["SkyBase", "DefaultResponse", "PointSky", "PointSkyResponse",
            "PixelSky", "PixelSkyResponse", "CompositeModel",
            "Stokes2Coherency", "CoherencySky", "stokes2coherency",
-           "SphHarmSky", "pixelsky_Ylm_cut"]
+           "SphHarmSky", "pixelsky_Ylm_cut", "read_catalogue",
+           "write_catalogue"]
 
 
 class DefaultResponse(Module):
@@ -360,6 +362,119 @@ class Stokes2Coherency(Module):
         md = sky_comp.copy()
         md.data = stokes2coherency(sky_comp.data)
         return md
+
+
+def read_catalogue(catfile, freqs=None, device=None, parameter=False,
+                   freq_interp="linear", dtype=None):
+    """Read a YAML point-source catalogue in the columnar schema
+    (``sources`` holds parallel lists ``name``, ``ra``, ``dec``, plus
+    ``amp`` / ``alpha`` for 'powerlaw' or ``freq{i}`` rows for 'channel',
+    with ``mode_kwargs: {f0: ...}``), as the JAX package reads it.
+
+    Returns (params, angs, meta): params a tensor on device, (1, 1, 2,
+    Nsource) [amp, alpha] for a power law (for a PointSkyResponse of
+    freq_mode 'powerlaw' and f0 meta['f0']) or (1, 1, Nfreqs, Nsource)
+    for channel fluxes, interpolated onto freqs when given (scipy
+    interp1d of kind freq_interp, extrapolating); angs (2, Nsource)
+    [RA, Dec deg] as host float64 numpy (the port keeps angles on the
+    host). yaml is imported here.
+    """
+    import yaml
+    with open(catfile) as f:
+        cat = yaml.safe_load(f)
+    sources = cat["sources"]
+    mode = cat.get("freq_mode", "powerlaw")
+    mode_kwargs = dict(cat.get("mode_kwargs") or {})
+    ra = np.asarray(sources["ra"], dtype=np.float64)
+    dec = np.asarray(sources["dec"], dtype=np.float64)
+    names = (list(sources["name"]) if "name" in sources
+             else [f"src{i}" for i in range(len(ra))])
+    angs = np.stack([ra, dec])
+    if mode == "powerlaw":
+        f0 = mode_kwargs.get("f0", cat.get("f0", 150e6))
+        f0 = float(f0) if f0 is not None else None
+        amp = np.asarray(sources["amp"], dtype=np.float64)
+        alpha = np.asarray(sources.get("alpha", sources.get("spix", 0.0)),
+                           dtype=np.float64)
+        alpha = np.broadcast_to(np.atleast_1d(alpha), amp.shape)
+        params = np.stack([amp, alpha])[None, None]
+        meta = dict(f0=f0, freq_mode="powerlaw", names=names)
+    elif mode == "channel":
+        cat_freqs = np.asarray(cat["freqs"], dtype=np.float64)
+        S = np.asarray([sources[f"freq{i}"] for i in range(len(cat_freqs))],
+                       dtype=np.float64)
+        if freqs is not None:
+            from scipy import interpolate
+            S = interpolate.interp1d(cat_freqs, S, kind=freq_interp, axis=0,
+                                     fill_value="extrapolate")(
+                np.asarray(freqs))
+            out_freqs = np.asarray(freqs, dtype=np.float64)
+        else:
+            out_freqs = cat_freqs
+        params = S[None, None]
+        meta = dict(freq_mode="channel", names=names, freqs=out_freqs,
+                    f0=None)
+    else:
+        raise NotImplementedError(f"freq_mode {mode}")
+    return (torch.as_tensor(params, dtype=dtype or _float(),
+                            device=resolve_device(device)), angs, meta)
+
+
+def write_catalogue(catfile, params, angs=None, names=None,
+                    freq_mode="powerlaw", f0=150e6, freqs=None,
+                    overwrite=False, sky=None):
+    """Write a YAML point-source catalogue in the columnar schema that
+    read_catalogue (either package's) reads. A PointSky may be given
+    as params (the form write_catalogue(catfile, sky, names)) or as
+    sky=: its params, angles and response mode are written. yaml is
+    imported here."""
+    import os
+
+    import yaml
+    if sky is None and hasattr(params, "angs_np") and \
+            hasattr(params, "params"):
+        sky = params
+    if sky is not None:
+        if names is None and angs is not None and not hasattr(angs, "ndim"):
+            names = angs
+        params, angs = sky.params, sky.angs_np
+        R = getattr(sky, "R", None)
+        if R is not None:
+            freq_mode = getattr(R, "freq_mode", freq_mode)
+            f0 = getattr(R, "f0", f0)
+        if freq_mode == "channel":
+            freqs = getattr(sky, "freqs", freqs)
+    if os.path.exists(catfile) and not overwrite:
+        raise FileExistsError(catfile)
+    params = params.detach().cpu().numpy() \
+        if isinstance(params, torch.Tensor) else np.asarray(params)
+    angs = angs.detach().cpu().numpy() \
+        if isinstance(angs, torch.Tensor) else np.asarray(angs)
+    n = angs.shape[1]
+    names = names if names is not None else [f"src{i}" for i in range(n)]
+    sources = dict(name=list(names), ra=angs[0].tolist(),
+                   dec=angs[1].tolist())
+    d = dict(freq_mode=freq_mode, sources=sources)
+    if freq_mode == "powerlaw":
+        if params.shape[0] != 1:
+            raise ValueError(
+                "the columnar catalogue schema holds Stokes-I only; got "
+                f"Nstokes={params.shape[0]}")
+        sources["amp"] = params[0, 0, 0].tolist()
+        sources["alpha"] = params[0, 0, 1].tolist()
+        d["mode_kwargs"] = dict(f0=float(f0))
+    elif freq_mode == "channel":
+        if freqs is None:
+            raise ValueError("a channel catalogue needs freqs")
+        freqs = np.asarray(freqs, dtype=np.float64)
+        for i in range(len(freqs)):
+            sources[f"freq{i}"] = params[0, 0, i].tolist()
+        d["freqs"] = freqs.tolist()
+        d["mode_kwargs"] = dict(f0=None)
+    else:
+        raise NotImplementedError(f"freq_mode {freq_mode}")
+    with open(catfile, "w") as f:
+        yaml.safe_dump(d, f)
 
 
 class CoherencySky(Module):

@@ -2,7 +2,8 @@
 Module base class on torch.nn.Module.
 
 Counterpart of bayeslim_tpu/utils/module.py (Module :136, the prior
-hooks set_priors / eval_prior :246-279, model2pdict :354). The JAX
+hooks set_priors / eval_prior :246-279, update / unset_param / push /
+copy / clone :205-301, model2pdict :354). The JAX
 Module is a pytree whose trainable leaves are marked by name; here
 trainable leaves are ``nn.Parameter``s, so
 ``model.named_parameters()`` gives the same dotted keys as the JAX
@@ -16,7 +17,11 @@ named ``models``, so its parameter keys read "models.rime.array.antvecs",
 returns a copy of the module tree whose leaves at pdict's paths are the
 given tensors (gradients then flow into those tensors), sharing every
 other submodule and tensor with the original. ``model[path]`` reads the
-leaf at a dotted path.
+leaf at a dotted path. ``update(pdict)`` is the in-place update: it
+copies values into the leaves' own tensors, so a Parameter stays the
+object an optimizer holds. ``copy()`` gives the copy its own top-level
+tensors, so an update of the copy's top-level leaves leaves the
+original as it was; submodules stay shared, as in the JAX package.
 
 Priors: ``set_priors`` attaches log-prior callables evaluated on a
 module's input params and / or its response output; ``eval_prior``
@@ -29,6 +34,7 @@ from __future__ import annotations
 
 import copy as _copy
 
+import torch
 from torch import nn
 
 from .paramdict import ParamDict
@@ -69,6 +75,85 @@ class Module(nn.Module):
         self._buffers.pop(name, None)
         self.__dict__.pop(name, None)
         self.register_parameter(name, nn.Parameter(t.detach()))
+
+    def unset_param(self, name):
+        """Make the trainable attribute(s) name plain (non-trainable)
+        buffers holding the same values."""
+        for n in [name] if isinstance(name, str) else list(name):
+            t = self._parameters.pop(n, None)
+            if t is not None:
+                self.register_buffer(n, t.detach())
+
+    def _resolve(self, path):
+        """(the module owning the leaf at a dotted path, its name)."""
+        parts = path.split(".")
+        obj = self
+        for p in parts[:-1]:
+            obj = getattr(obj, p)
+        return obj, parts[-1]
+
+    def update(self, pdict, clobber_param=False):
+        """Write pdict's values into the leaves at its dotted paths, in
+        place: a tensor leaf of the same shape gets the values copied in
+        (cast to its dtype and device), anything else is replaced.
+        clobber_param makes each written leaf non-trainable."""
+        items = pdict.items() if hasattr(pdict, "items") else pdict
+        for path, v in items:
+            obj, last = self._resolve(path)
+            cur = getattr(obj, last, None)
+            if isinstance(cur, torch.Tensor):
+                t = torch.as_tensor(v, device=cur.device)
+                if t.shape == cur.shape:
+                    with torch.no_grad():
+                        cur.copy_(t.to(cur.dtype))
+                elif last in obj._parameters:
+                    obj._parameters[last] = nn.Parameter(t.detach())
+                elif last in obj._buffers:
+                    obj._buffers[last] = t
+                else:
+                    setattr(obj, last, t)
+            else:
+                setattr(obj, last, v)
+            if clobber_param and isinstance(obj, Module):
+                obj.unset_param(last)
+
+    def push(self, device):
+        """Move every tensor of the tree to device, in place: parameters
+        and buffers (Parameters stay the same objects), and tensors held
+        in plain attributes, lists, tuples and dicts (precomputed
+        indices and constants). Returns self."""
+        dev = torch.device(device)
+        self.to(dev)
+        for mod in self.modules():
+            for k, v in list(mod.__dict__.items()):
+                if k in ("_parameters", "_buffers", "_modules"):
+                    continue
+                moved = _move(v, dev)
+                if moved is not v:
+                    mod.__dict__[k] = moved
+        return self
+
+    def copy(self):
+        """Shallow copy: the same submodules, but its own registries and
+        its own copies of its top-level tensors, so that update() on the
+        copy leaves the original as it was (as a copy of a JAX Module
+        gets its own leaves)."""
+        new = _shallow(self)
+        for k, v in new._parameters.items():
+            if v is not None:
+                new._parameters[k] = nn.Parameter(
+                    v.detach().clone(), requires_grad=v.requires_grad)
+        for k, v in new._buffers.items():
+            if v is not None:
+                new._buffers[k] = v.clone()
+        for k, v in list(new.__dict__.items()):
+            if isinstance(v, torch.Tensor):
+                new.__dict__[k] = v.clone()
+        return new
+
+    def clone(self):
+        """Deep copy: every tensor copied."""
+        return _copy.deepcopy(self)
 
     def set_priors(self, priors_inp_params=None, priors_out_params=None):
         """Attach priors on the input params and / or the response
@@ -119,6 +204,24 @@ class Module(nn.Module):
             obj._buffers.pop(last, None)
             obj.__dict__[last] = value
         return new
+
+
+def _move(v, dev):
+    """v with its tensors (inside lists, tuples and dicts too) on dev;
+    v itself when nothing moved."""
+    if isinstance(v, torch.Tensor):
+        return v if v.device == dev else v.to(dev)
+    if isinstance(v, (list, tuple)):
+        out = [_move(x, dev) for x in v]
+        if all(a is b for a, b in zip(out, v)):
+            return v
+        return type(v)(out) if isinstance(v, list) else tuple(out)
+    if isinstance(v, dict):
+        out = {k: _move(x, dev) for k, x in v.items()}
+        if all(out[k] is v[k] for k in v):
+            return v
+        return out
+    return v
 
 
 class Sequential(Module):

@@ -2,16 +2,23 @@
 ParamDict: a dict of named parameter tensors with elementwise algebra.
 
 Counterpart of bayeslim_tpu/utils/paramdict.py (ParamDict :34, its
-convenience surface :84-165). Keys are the dotted parameter paths of a
-model ("sky.params", "beam.params", ...) and iterate in sorted order,
-as in the JAX package.
+convenience surface :84-172, write_pdict / read_pdict :186-195). Keys
+are the dotted parameter paths of a model ("sky.params", "beam.params",
+...) and iterate in sorted order, as in the JAX package. A ParamDict's
+pickle is the JAX package's: a plain dict of numpy arrays, so either
+package reads the other's.
 """
 from __future__ import annotations
+
+import os
+import pickle
 
 import numpy as np
 import torch
 
-__all__ = ["ParamDict", "load_numpy_pdict"]
+from .dtypes import resolve_device
+
+__all__ = ["ParamDict", "load_numpy_pdict", "write_pdict", "read_pdict"]
 
 
 def _binary(op):
@@ -130,9 +137,37 @@ class ParamDict:
             i += n
         return ParamDict(out)
 
+    def write_pkl(self, fname, overwrite=False):
+        write_pdict(fname, self, overwrite=overwrite)
+
+    @staticmethod
+    def read_pkl(fname, device=None):
+        """A ParamDict pickled by write_pkl (or by the JAX package), on
+        device."""
+        return read_pdict(fname, device=device)
+
     def __repr__(self):
         body = ", ".join(f"{k}: {tuple(v.shape)}" for k, v in self.items())
         return f"ParamDict({body})"
+
+
+def write_pdict(fname, pdict, overwrite=False):
+    """Pickle a ParamDict as a dict of numpy arrays."""
+    if os.path.exists(fname) and not overwrite:
+        raise FileExistsError(fname)
+    with open(fname, "wb") as f:
+        pickle.dump({k: v.detach().cpu().numpy()
+                     if isinstance(v, torch.Tensor) else np.asarray(v)
+                     for k, v in pdict.items()}, f)
+
+
+def read_pdict(fname, device=None):
+    """A ParamDict pickled by write_pdict, its tensors on device."""
+    with open(fname, "rb") as f:
+        d = pickle.load(f)
+    dev = resolve_device(device)
+    return ParamDict({k: torch.as_tensor(np.asarray(v), device=dev)
+                      for k, v in d.items()})
 
 
 def load_numpy_pdict(model, arrays):

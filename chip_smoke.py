@@ -249,7 +249,32 @@ Phases, one line each; any failure exits non-zero:
    and its chi^2 against the averaged cube, below the start's by at least
    the losses' fall and equal within the bar to the statistics' chi^2
    plus const; each data operation by CUDA events beside
-   its bytes bound; build seconds, step walls, peak memory.
+   its bytes bound; build seconds, step walls, peak memory;
+22. main path 15, hera-io, the file layer at hera-cal's width
+   (io_seq_dict): the pixel sky saved by data/io.write_pkl, the chain
+   built by build_prob(seq_dict=...) from that pickle path and kwargs
+   dicts of the beam, telescope, array, RIME and JonesModel, against a
+   simulated VisData target (the chain at cal_truth plus unit noise);
+   one evaluation's rime_fwd / rime_dtau launches equal to phase 6's
+   (times x chunks each); whether two evaluations give the same bits
+   with PyTorch's default algorithms; then, under
+   torch.use_deterministic_algorithms, IO_STEPS Adam steps by a Trainer
+   with Metrics, a JSON-lines logger and CheckpointManager(every=1,
+   max_to_keep=2) (the kept steps checked), and the same fit
+   interrupted after IO_SPLIT steps, rebuilt from the same dicts,
+   restore_latest into the fresh build and resumed: losses and final
+   parameters bit-equal to the uninterrupted run's; the fitted chain
+   through write_pkl / read_pkl(device='cuda'): the same loss bit for
+   bit; the fitted gains as a CalData (to_CalData, complex128, both
+   times) through write_calfits / read_calfits on the card, exact; the
+   bundled demo_hex7_gains.calfits read onto the card equal to the CPU
+   read; where yaml is present, the chain from a YAML config
+   (io_yaml_chains: the bundled demo_powerlaw_cat.yaml as a PointSky,
+   the gains a pickle) by load_yaml and build_prob on the card, its
+   loss bit-equal to the kwargs build's; an HDF5 write raising
+   ImportError naming h5py where h5py is absent; step walls (CUDA events), the checkpoint and pickle write /
+   read times and sizes, the calfits round trip's time, peak memory and
+   the card's name and power limit.
    Then the JSON line of all nine kernels.
 
 Each torch.profiler run launches PROFILE_MARKS spin kernels before the
@@ -276,6 +301,9 @@ REDVIS = "models.redvis.params"
 SKY = "models.rime.sky.params"
 BEAM = "models.rime.beam.params"
 COUPLING = "models.coupling.coupling.params"
+# hera-io (phase 22): Adam steps of the fit, the step after which the
+# second run is interrupted and resumed, and Adam's learning rate
+IO_STEPS, IO_SPLIT, IO_LR = 4, 2, 1e-3
 # phase 7's hex-2 HMC trajectory: leapfrog steps and step size
 HMC_STEPS, HMC_EPS = 5, 1e-5
 # phase 13: the largest first trial step of lbfgs_approx_cov's probe in
@@ -4261,6 +4289,366 @@ def phase_hera_hess(bt, torch, rime_cuda, pix_chunks, size=HERA, nrows=6,
     return solve
 
 
+def io_seq_dict(sky_pkl, hexN, nfreq, fmax, ntime, pix_chunk):
+    """hera-cal's chain (build_cal) as build_prob's seq_dict: the sky a
+    pickle path; the Airy beam (fixed), the telescope, the array (redtol
+    0.5, antenna positions trainable), the RIME (the redundant groups'
+    first baselines simulated, expanded to every cross baseline) and
+    the JonesModel (1-pol unit gains as real pairs, refant the first
+    antenna) as kwargs dicts."""
+    from bayeslim_tpu_torch.utils import make_hex
+    ants, antvecs = make_hex(hexN, D=15.0)
+    freqs = np.linspace(100e6, fmax, nfreq)
+    gains = np.zeros((1, 1, len(ants), 1, nfreq, 2))
+    gains[..., 0] = 1.0
+    rime = dict(
+        sky=sky_pkl, telescope=dict(location=LOC),
+        beam=dict(kind="airy", params=np.ones((1, 1, 1, 1, 2)) * 14.0,
+                  freqs=freqs, pol="e", powerbeam=True, fov=180.0,
+                  parameter=False),
+        array=dict(ants=ants, antvecs=antvecs, freqs=freqs, redtol=0.5,
+                   parameter=True),
+        sim_bls=dict(uniq_bls=True, keep_autos=False),
+        data_bls=dict(keep_autos=False),
+        times=2458168.3 + np.arange(ntime) * 5e-4, freqs=freqs,
+        pix_chunk=pix_chunk)
+    cal = dict(kind="jones", params=gains, ants=ants, refant=ants[0])
+    return dict(order=["rime", "cal"], kind=["rime", "calibration"],
+                mdict=dict(rime=rime, cal=cal))
+
+
+def io_target(bt, torch, io, seq_dict, device, dtype, seed=0):
+    """hera-io's target: the chain (built from seq_dict) at cal_truth
+    plus complex noise of unit variance (a seeded torch.Generator), icov
+    ones, as a VisData."""
+    sim = io.build_sequential(**seq_dict, device=device, dtype=dtype)
+    rime = sim.rime
+    truth = cal_truth(rime.array.ants, rime.array.to_antpos().asnumpy(),
+                      rime.Nfreqs, 0.01, 0.05)
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    with torch.no_grad():
+        data = sim.updated(bt.ParamDict({
+            k: torch.as_tensor(v, dtype=dtype, device=device)
+            for k, v in truth.items()}))().data
+        for part in (data.real, data.imag):
+            part += np.sqrt(0.5) * torch.randn(
+                data.shape, generator=gen, dtype=dtype, device=device)
+    tgt = bt.VisData()
+    tgt.setup_meta(rime.telescope, rime.array.to_antpos())
+    tgt.setup_data(rime.data_bls, rime.all_sim_times, rime.freqs, pol="ee",
+                   data=data, icov=torch.ones(data.shape, dtype=dtype,
+                                              device=device))
+    return tgt
+
+
+def _yaml_plain(x):
+    """x with numpy arrays and scalars as lists and Python numbers, for
+    yaml.safe_dump (floats keep every bit through YAML)."""
+    if isinstance(x, dict):
+        return {k: _yaml_plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_yaml_plain(v) for v in x]
+    if isinstance(x, np.ndarray):
+        return x.tolist()
+    return x.item() if isinstance(x, np.generic) else x
+
+
+def io_yaml_chains(io, seq_dict, target, work, device, dtype):
+    """The path a user takes from a YAML config: seq_dict with its sky
+    the bundled demo_powerlaw_cat.yaml (build_sky(catfile=), a PointSky)
+    and its JonesModel a write_pkl pickle (build_calibration(modfile=)),
+    the rest as in seq_dict, dumped to a YAML file; load_yaml then
+    build_prob(**config), beside build_prob(seq_dict=...) of the same
+    chain from the kwargs dicts. Returns (the YAML build, the kwargs
+    build, the YAML file's path); needs yaml."""
+    import copy
+
+    import yaml
+
+    from bayeslim_tpu_torch.data import CONFIG_PATH
+    kw = copy.deepcopy(seq_dict)
+    rime = kw["mdict"]["rime"]
+    rime["sky"] = dict(catfile=os.path.join(CONFIG_PATH,
+                                            "demo_powerlaw_cat.yaml"),
+                       freqs=rime["freqs"])
+    cal_pkl = os.path.join(work, "cal.pkl")
+    io.write_pkl(cal_pkl, io.build_calibration(
+        **kw["mdict"]["cal"], device=device, dtype=dtype), overwrite=True)
+    cfg = copy.deepcopy(kw)
+    cfg["mdict"]["cal"] = dict(modfile=cal_pkl)
+    cfg_path = os.path.join(work, "config.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(dict(seq_dict=_yaml_plain(cfg)), f)
+    from_yaml = io.build_prob(**io.load_yaml(cfg_path), data=target,
+                              device=device, dtype=dtype)
+    from_kwargs = io.build_prob(seq_dict=kw, data=target, device=device,
+                                dtype=dtype)
+    return from_yaml, from_kwargs, cfg_path
+
+
+def _event_ms(torch, fn):
+    """fn's result and its time in ms by CUDA events."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def phase_hera_io(bt, torch, rime_cuda, pix_chunks, size=HERA, device=None):
+    """Phase 22: main path 15, hera-io, the file layer at full width
+    (see the module docstring). Returns rime_fwd's and rime_dtau's
+    launches on the path."""
+    import importlib.util
+    import shutil
+
+    from bayeslim_tpu_torch.data import DATA_PATH, io
+    from bayeslim_tpu_torch.data import uvdata_interface as uv
+    from bayeslim_tpu_torch.utils import checkpoint as ck
+    from bayeslim_tpu_torch.utils import logging as blog
+    dev = bt.resolve_device(device)
+    work = os.path.join(ROOT, "build", "hera_io")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    torch.cuda.reset_peak_memory_stats()
+    dt = torch.float32
+    size = dict(size)
+    nside = size.pop("nside")
+    t0 = time.time()
+    _, _, sky, _, _ = build_sky_beam(
+        bt, size["hexN"], nside, size["nfreq"], size["fmax"], 0.5, True, dev,
+        dt, np.random.default_rng(0), amp=1e4)
+    sky_pkl = os.path.join(work, "sky.pkl")
+    io.write_pkl(sky_pkl, sky)
+    del sky
+    sd = io_seq_dict(sky_pkl, **size)
+    tgt = io_target(bt, torch, io, sd, dev, dt)
+
+    def build():
+        return io.build_prob(seq_dict=sd, data=tgt, device=dev, dtype=dt)
+    prob = build()
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    rime = prob.model.rime
+    nsim = len(rime.sim_bls)
+    ntime = len(rime.all_sim_times)
+    per_eval = ntime * len(pix_chunks(nsim, rime.Npix_cut))
+    nparams = sum(p.numel() for p in prob.model.parameters())
+    print(f"phase 22 hera-io build: sky pickle {os.path.getsize(sky_pkl)} "
+          f"bytes, chain by build_prob(seq_dict=...) from it and kwargs "
+          f"dicts: {len(rime.array.ants)} antennas, {nsim} groups "
+          f"simulated, {len(rime.data_bls)} data baselines, {rime.Nfreqs} "
+          f"freqs, {ntime} times, {rime.Npix_cut} FOV pixels, {nparams} "
+          f"trainable parameters; target {tuple(tgt.data.shape)} "
+          f"{tgt.data.dtype} as a VisData; {build_s:.1f} s", flush=True)
+
+    # 2. one evaluation's launches, as phase 6's; the same bits twice?
+    rime_cuda.launches = rime_cuda.dtau_launches = 0
+    l1, g1 = prob.value_and_grad()
+    one = (rime_cuda.launches, rime_cuda.dtau_launches)
+    check(one == (per_eval, per_eval),
+          f"hera-io evaluation launches {one} != phase 6's "
+          f"({per_eval}, {per_eval})")
+    (l2, g2), eval_ms = _event_ms(torch, prob.value_and_grad)
+    same = float(l1) == float(l2) and all(torch.equal(g1[k], g2[k])
+                                          for k in g1.keys())
+    print(f"phase 22 hera-io evaluation: loss {float(l1)}; rime_fwd / "
+          f"rime_dtau launches {one} (phase 6: {per_eval} each an "
+          f"evaluation); a second evaluation {eval_ms:.3f} ms (CUDA "
+          f"events), bit-equal to the first with PyTorch's default "
+          f"algorithms: {same}", flush=True)
+    del g1, g2
+    evals = 2
+
+    def adam(params):
+        return torch.optim.Adam(params, lr=IO_LR)
+    log_path = os.path.join(work, "train.jsonl")
+    logger = blog.get_logger("hera_io", jsonl_path=log_path)
+    metrics = blog.Metrics()
+
+    def fit(trainer, steps, mgr, walls, saves):
+        for _ in range(steps):
+            _, ms = _event_ms(torch, lambda: trainer.train(1))
+            walls.append(ms)
+            step = len(trainer.loss_history) - 1
+            t = time.perf_counter()
+            mgr.maybe_save(step, trainer.pdict, trainer.opt, every=1,
+                           extra={"losses": list(trainer.loss_history)})
+            saves.append(time.perf_counter() - t)
+
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    # 3. the uninterrupted fit
+    mgr_a = ck.CheckpointManager(os.path.join(work, "run_a"), max_to_keep=2)
+    ta = bt.Trainer(prob, optimizer=adam, Nreport=1, metrics=metrics,
+                    logger=logger, verbose=False)
+    walls, saves = [], []
+    fit(ta, IO_STEPS, mgr_a, walls, saves)
+    evals += IO_STEPS
+    kept = mgr_a.all_steps()
+    ck_bytes = os.path.getsize(os.path.join(mgr_a.directory,
+                                            f"{kept[-1]}.pt"))
+    ref_losses = list(ta.loss_history)
+    ref_params = {k: v.detach().clone() for k, v in ta.pdict.items()}
+    # 4. interrupted after IO_SPLIT steps, rebuilt, restored, resumed
+    mgr_b = ck.CheckpointManager(os.path.join(work, "run_b"), max_to_keep=2)
+    tb = bt.Trainer(build(), optimizer=adam, verbose=False)
+    walls_b, saves_b = [], []
+    fit(tb, IO_SPLIT, mgr_b, walls_b, saves_b)
+    del tb
+    tc = bt.Trainer(build(), optimizer=adam, verbose=False)
+    t = time.perf_counter()
+    st = mgr_b.restore_latest(like={"params": tc.pdict, "opt_state": tc.opt})
+    restore_s = time.perf_counter() - t
+    tc.loss_history = list(st["extra"]["losses"])
+    walls_c, saves_c = [], []
+    fit(tc, IO_STEPS - IO_SPLIT, mgr_b, walls_c, saves_c)
+    evals += IO_STEPS
+    torch.use_deterministic_algorithms(det)
+    resumed = tc.loss_history == ref_losses and all(
+        torch.equal(tc.pdict[k], ref_params[k]) for k in ref_params)
+    for h in list(logger.handlers):
+        h.flush()
+    events = [json.loads(ln) for ln in open(log_path)]
+    print(f"phase 22 hera-io fit: Adam (lr {IO_LR}) under "
+          f"torch.use_deterministic_algorithms, losses {ref_losses}; step "
+          f"walls {walls} ms (CUDA events); Metrics {metrics.summary()}; "
+          f"{len(events)} JSON-lines events; checkpoints kept "
+          f"{kept} (max_to_keep 2), {ck_bytes} bytes each, written in "
+          f"{[round(x * 1e3, 3) for x in saves]} ms (atomic: a temporary "
+          f"file, fsync, os.replace)", flush=True)
+    print(f"phase 22 hera-io resume: {IO_SPLIT} steps (walls {walls_b} ms), "
+          f"a fresh build restored from step {st['step']}'s "
+          f"checkpoint in {restore_s * 1e3:.3f} ms, {IO_STEPS - IO_SPLIT} "
+          f"more (walls {walls_c} ms): losses {tc.loss_history}; losses and "
+          f"final parameters bit-equal to the uninterrupted run's: "
+          f"{resumed}", flush=True)
+    check(all(np.isfinite(ref_losses)) and ref_losses[-1] < ref_losses[0],
+          f"hera-io losses do not fall: {ref_losses}")
+    check(kept == list(range(IO_STEPS - 2, IO_STEPS)),
+          f"hera-io checkpoints kept {kept}")
+    check(len(events) == IO_STEPS and metrics.summary()["loss"]["n"]
+          == IO_STEPS, "hera-io logger / metrics records")
+    check(resumed, "hera-io resumed fit differs from the uninterrupted one")
+    del tc, st
+
+    # 5. the fitted chain through a pickle
+    model_pkl = os.path.join(work, "chain.pkl")
+    t = time.perf_counter()
+    io.write_pkl(model_pkl, prob.model)
+    w_s = time.perf_counter() - t
+    t = time.perf_counter()
+    chain = io.read_pkl(model_pkl, device=dev)
+    torch.cuda.synchronize()
+    r_s = time.perf_counter() - t
+    with torch.no_grad():
+        la = float(prob())
+        lb = float(bt.LogProb(chain, prob.target)())
+    evals += 2
+    print(f"phase 22 hera-io pickle: the fitted chain {os.path.getsize(model_pkl)} "
+          f"bytes, write_pkl {w_s * 1e3:.1f} ms, read_pkl(device='cuda') "
+          f"{r_s * 1e3:.1f} ms; loss {la} against {lb}, bit-equal "
+          f"{la == lb}", flush=True)
+    check(la == lb, "hera-io pickled chain's loss differs")
+
+    # 6. the fitted gains through calfits, on the card; the bundled file
+    arr = chain.rime.array
+    cd = chain.cal.to_CalData(rime.freqs, rime.all_sim_times, pol="ee",
+                              telescope=rime.telescope,
+                              antpos=arr.to_antpos())
+    cd.data = cd.data.to(torch.complex128).expand(
+        -1, -1, -1, ntime, -1).contiguous()
+    cd.flags = np.zeros(tuple(cd.data.shape), bool)
+    cal_path = os.path.join(work, "gains.calfits")
+    t = time.perf_counter()
+    uv.write_calfits(cd, cal_path)
+    cw_s = time.perf_counter() - t
+    t = time.perf_counter()
+    back = uv.read_calfits(cal_path, device=dev)
+    torch.cuda.synchronize()
+    cr_s = time.perf_counter() - t
+    exact = (back.data.device == cd.data.device
+             and torch.equal(back.data, cd.data)
+             and np.array_equal(back.flags, cd.flags)
+             and back.ants == cd.ants
+             and np.allclose(back.times, cd.times, rtol=0, atol=1e-9)
+             and np.allclose(back.freqs, cd.freqs, rtol=1e-12))
+    bundled = os.path.join(DATA_PATH, "demo_hex7_gains.calfits")
+    bc, bh = (uv.read_calfits(bundled, device=d) for d in (dev, "cpu"))
+    same_b = bc.data.device == cd.data.device and torch.equal(
+        bc.data.cpu(), bh.data)
+    print(f"phase 22 hera-io calfits: gains {tuple(cd.data.shape[2:])} "
+          f"{cd.data.dtype}, {os.path.getsize(cal_path)} bytes, "
+          f"write_calfits {cw_s * 1e3:.1f} ms, read_calfits onto the card "
+          f"{cr_s * 1e3:.1f} ms, exact {exact}; the bundled "
+          f"demo_hex7_gains.calfits {tuple(bc.data.shape)} on the card "
+          f"equal to the CPU read: {same_b}", flush=True)
+    check(exact, "hera-io calfits round trip not exact")
+    check(same_b, "hera-io bundled calfits: card read != CPU read")
+
+    # 7. a YAML config with a bundled catalogue sky, where yaml is present
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("h5py", "yaml", "pyuvdata")}
+    yaml_fwd = 0
+    if have["yaml"]:
+        f0 = rime_cuda.launches
+        t = time.time()
+        py, pk, cfg_path = io_yaml_chains(io, sd, tgt, work, dev, dt)
+        torch.cuda.synchronize()
+        yb_s = time.time() - t
+        with torch.no_grad():
+            ly, lk = float(py()), float(pk())
+        prt = py.model.rime
+        yaml_fwd = 2 * ntime * len(pix_chunks(nsim, prt.Npix_cut))
+        got = rime_cuda.launches - f0
+        print(f"phase 22 hera-io YAML: load_yaml + build_prob of a "
+              f"{os.path.getsize(cfg_path)}-byte config (the sky "
+              f"demo_powerlaw_cat.yaml, {prt.Npix_cut} sources in the FOV; "
+              f"the gains a pickle), beside the kwargs build, both on the "
+              f"card: {yb_s:.1f} s; loss {ly} against {lk}, bit-equal "
+              f"{ly == lk}; rime_fwd launches {got} (expected {yaml_fwd})",
+              flush=True)
+        check(np.isfinite(ly) and ly == lk,
+              f"hera-io YAML build's loss {ly} != kwargs build's {lk}")
+        check(prt.Npix_cut > 0 and got == yaml_fwd,
+              f"hera-io YAML builds' launches {got} != {yaml_fwd}")
+        del py, pk
+    else:
+        print("phase 22 hera-io YAML: yaml absent, the config path not run",
+              flush=True)
+
+    # 8. HDF5 where h5py is absent
+    h5_path = os.path.join(work, "target.h5")
+    if have["h5py"]:
+        small = tgt.select(bl_inds=[0, 1], inplace=False)
+        small.write_hdf5(h5_path)
+        note = "h5py present: a 2-baseline VisData written to HDF5"
+    else:
+        try:
+            tgt.write_hdf5(h5_path)
+        except ImportError as e:
+            check("h5py" in str(e), f"ImportError not naming h5py: {e}")
+            note = f"VisData.write_hdf5 raised ImportError: {e}"
+        else:
+            check(False, "write_hdf5 ran without h5py")
+    fwd, dtau = rime_cuda.launches, rime_cuda.dtau_launches
+    expect = (per_eval * evals + yaml_fwd, per_eval * (evals - 2))
+    print(f"phase 22 hera-io packages present {have}; {note}; rime_fwd / "
+          f"rime_dtau launches on the path {(fwd, dtau)} (expected "
+          f"{expect}: {evals} evaluations of the pixel-sky chain, the "
+          f"last 2 forward only, and {yaml_fwd} of the YAML step); peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB; {smi()}", flush=True)
+    check((fwd, dtau) == expect, f"hera-io launches {(fwd, dtau)} != {expect}")
+    for h in list(logger.handlers):
+        logger.removeHandler(h)
+        h.close()
+    shutil.rmtree(work, ignore_errors=True)
+    return fwd, dtau
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4423,6 +4811,7 @@ def main():
     coup_fwd = phase_hera_coupling(bt, torch, rime_cuda, _pix_chunks)
     hess_fwd, hess_dtau = phase_hera_hess(bt, torch, rime_cuda, _pix_chunks)
     avg_fwd = phase_hera_avg(bt, torch, rime_cuda, _pix_chunks)
+    io_fwd, io_dtau = phase_hera_io(bt, torch, rime_cuda, _pix_chunks)
 
     # rime_fwd: the two shapes are launched equally often on hera-stat:
     # report the mean per launch (hera-prod's and hera-alm's shapes beside
@@ -4434,7 +4823,7 @@ def main():
         "replaces": "bayeslim_tpu/ops/rime_pallas.py:298",
         "launches": stat_launches + cal_fwd + prod_fwd + redcal_fwd
         + hmc_fwd + alm_fwd + sfb_fwd + hmca_fwd + filt_fwd + img_fwd
-        + coup_fwd + hess_fwd + avg_fwd,
+        + coup_fwd + hess_fwd + avg_fwd + io_fwd,
         "launches_by_path": {"hera-stat": stat_launches, "hera-cal": cal_fwd,
                              "hera-prod": prod_fwd,
                              "hera-redcal": redcal_fwd,
@@ -4443,7 +4832,8 @@ def main():
                              "hera-hmc-alm": hmca_fwd,
                              "hera-filt": filt_fwd, "hera-img": img_fwd,
                              "hera-coupling": coup_fwd,
-                             "hera-hess": hess_fwd, "hera-avg": avg_fwd},
+                             "hera-hess": hess_fwd, "hera-avg": avg_fwd,
+                             "hera-io": io_fwd},
         "max_abs_err": max(worst_fwd["hera-fwd"], worst_fwd["hera-bwd"]),
         "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[2],
         "bound_by": timing[0][3] if timing[0][3] == timing[1][3]
@@ -4459,7 +4849,7 @@ def main():
         "source": "bayeslim_tpu_torch/csrc/rime_dtau.cu",
         "replaces": "bayeslim_tpu/ops/rime_pallas.py:693",
         "launches": cal_dtau + prod_dtau + alm_dtau + sfb_dtau + hmca_dtau
-        + filt_dtau + img_dtau + hess_dtau,
+        + filt_dtau + img_dtau + hess_dtau + io_dtau,
         "launches_by_path": {"hera-stat": 0, "hera-cal": cal_dtau,
                              "hera-prod": prod_dtau, "hera-redcal": 0,
                              "hera-hmc": 0, "hera-alm": alm_dtau,
@@ -4467,7 +4857,7 @@ def main():
                              "hera-hmc-alm": hmca_dtau,
                              "hera-filt": filt_dtau, "hera-img": img_dtau,
                              "hera-coupling": 0, "hera-hess": hess_dtau,
-                             "hera-avg": 0},
+                             "hera-avg": 0, "hera-io": io_dtau},
         "max_abs_err": worst_dtau, "ms": dms, "plain_ms": dpms,
         "bound_ms": dbms, "bound_by": dby, "library_ms": None}]
     kernels += spikes

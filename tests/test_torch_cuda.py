@@ -1124,3 +1124,76 @@ def test_hera_avg_small_on_card(cuda):
         a, b = fn(v32), fn(v64)
         assert a.data.is_cuda
         assert _relerr(a.data.cpu().numpy(), b.data.numpy()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_hera_io_small_on_card(cuda, tmp_path):
+    """hera-io's hex-2 chain on the card through the file layer
+    (chip_smoke.io_seq_dict: the sky a pickle, the rest kwargs dicts,
+    build_prob against io_target): Adam steps checkpointed, a fresh
+    build restored and resumed bit-equal to the uninterrupted run (under
+    torch.use_deterministic_algorithms); the optimizer's moments restored
+    on the card and Adam's step counts on the CPU; the chain pickled on
+    the card and read onto the CPU (its float32 loss within 1e-4 of the
+    card's); the gains through write_calfits / read_calfits on the card,
+    exact."""
+    _repo_on_path()
+    import bayeslim_tpu_torch as bt
+    from bayeslim_tpu_torch.data import io
+    from bayeslim_tpu_torch.data import uvdata_interface as uv
+    from bayeslim_tpu_torch.utils import checkpoint as ck
+    from chip_smoke import build_sky_beam, io_seq_dict, io_target
+    dt = torch.float32
+    _, _, sky, _, _ = build_sky_beam(bt, 2, 8, 16, 120e6, 0.5, True, cuda,
+                                     dt, np.random.default_rng(0), amp=1e4)
+    sky_pkl = str(tmp_path / "sky.pkl")
+    io.write_pkl(sky_pkl, sky)
+    sd = io_seq_dict(sky_pkl, hexN=2, nfreq=16, fmax=120e6, ntime=2,
+                     pix_chunk=512)
+    tgt = io_target(bt, torch, io, sd, cuda, dt)
+
+    def trainer():
+        prob = io.build_prob(seq_dict=sd, data=tgt, device=cuda, dtype=dt)
+        return bt.Trainer(prob, optimizer=lambda p: torch.optim.Adam(
+            p, lr=1e-3), verbose=False)
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ref = trainer()
+        ref.train(3)
+        mgr = ck.CheckpointManager(str(tmp_path / "ck"), max_to_keep=2)
+        first = trainer()
+        for step in range(2):
+            first.train(1)
+            mgr.maybe_save(step, first.pdict, first.opt,
+                           extra={"losses": list(first.loss_history)})
+        again = trainer()
+        st = mgr.restore_latest(like={"params": again.pdict,
+                                      "opt_state": again.opt})
+        again.loss_history = st["extra"]["losses"]
+        again.train(1)
+    finally:
+        torch.use_deterministic_algorithms(det)
+    assert again.loss_history == ref.loss_history
+    for k, v in ref.pdict.items():
+        assert torch.equal(again.pdict[k], v), k
+    for s in again.opt.state.values():
+        assert s["exp_avg"].is_cuda and s["step"].device.type == "cpu"
+    chain_pkl = str(tmp_path / "chain.pkl")
+    io.write_pkl(chain_pkl, ref.prob.model)
+    cpu_chain = io.read_pkl(chain_pkl, device="cpu")
+    tc = tgt.copy()
+    tc.push("cpu")
+    with torch.no_grad():
+        lg = float(ref.prob())
+        lc = float(bt.LogProb(cpu_chain, tc)())
+    assert abs(lg - lc) <= 1e-4 * abs(lg)
+    rime = ref.prob.model.rime
+    cd = ref.prob.model.cal.to_CalData(rime.freqs, rime.all_sim_times[:1],
+                                       pol="ee",
+                                       antpos=rime.array.to_antpos())
+    cd.data = cd.data.to(torch.complex128)
+    f = str(tmp_path / "gains.calfits")
+    uv.write_calfits(cd, f)
+    back = uv.read_calfits(f, device=cuda)
+    assert back.data.is_cuda and torch.equal(back.data, cd.data)

@@ -668,7 +668,7 @@ def test_average_tensordata_and_caldata_from_visdata_vs_jax(icov):
     assert tc.pass_data(tp[0], copy=True) is not tp[0]
 
 
-def test_difference_blocks_and_dataset_vs_jax():
+def test_difference_blocks_and_dataset_vs_jax(tmp_path):
     jv, tv = _vis(2, 1, icov=True, flags=True, seed=70)
     i1, i2 = dict(time_inds=[0, 1]), dict(time_inds=[2, 3])
     _same(tc.Difference(i1, i2)(tv), jc.Difference(i1, i2)(jv))
@@ -688,8 +688,10 @@ def test_difference_blocks_and_dataset_vs_jax():
         _same(a, b)
     assert tds.Dataset(tv)[0] is tv
     assert tds.Dataset(["f"], read_fn=lambda f: tv)[0] is tv
-    with pytest.raises(NotImplementedError, match="A9b"):
-        tds.Dataset(["f"])[0]
+    # a path without a read_fn is read by load_data (the file layer)
+    fname = str(tmp_path / "vis.h5")
+    tv.write_hdf5(fname)
+    _same(tds.Dataset([fname], device="cpu")[0], jv)
 
 
 def test_logprob_takes_a_dataset_of_batches():
