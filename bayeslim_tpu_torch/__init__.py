@@ -34,6 +34,9 @@ bayeslim_tpu module for module:
                approximate covariance, Hessians (compute_hessian,
                FactoredInvHessian), the hmat operators and the
                samplers (HMC, RecycledHMC, NUTS)
+- parallel/  : the posterior sharded over the ranks of
+               torch.distributed (ShardedLogProb over a mesh's time and
+               baseline axes, shard_pixels, multi-process start-up)
 - scripts/   : the microbenchmark spikes of scripts/mosaic_spike.py
                (not imported here; run python -m
                bayeslim_tpu_torch.scripts.mosaic_spike on the card)
@@ -47,7 +50,7 @@ imported by the calls that read or write their files.
 
 __version__ = "0.1.0"
 
-from . import utils, ops, data, models, inference
+from . import utils, ops, data, models, inference, parallel
 from .utils import (ParamDict, Module, Sequential, model2pdict,
                     load_numpy_pdict, set_default_dtype, resolve_device)
 from .data import (VisData, MapData, CalData, Dataset, concat_VisData,

@@ -9,7 +9,9 @@ compute_icov :257, implicit_to_dense :264, factor_pairs :284,
 factored_hvp / factored_lvp :326-342, FactoredInvHessian :355 with
 from_lbfgs :391).
 
-compute_hessian takes rows by forward-over-reverse, as the JAX package
+compute_hessian (of a LogProb, or of a parallel.ShardedLogProb: each
+rank's local Hessian summed over the ranks) takes rows by
+forward-over-reverse, as the JAX package
 does (jax.jacfwd of jax.grad): the raveled parameters become a dual
 tensor (torch.autograd.forward_ad) whose tangent is a unit vector e_i,
 the loss's gradient is taken by torch.autograd.grad, and its tangent is
@@ -140,15 +142,40 @@ def _hessian_one(prob, batch_idx, pdict, keys, row0=0, nrows=None,
     return torch.stack(rows), main_params_index(pdict)
 
 
+class _Local:
+    """A ShardedLogProb as _hessian_one sees it: its forward is the
+    rank's local objective (its likelihood shard, and the prior on one
+    rank of the data group), its parameters the rank's model's."""
+
+    def __init__(self, sprob):
+        if sprob.param_shardings:
+            raise NotImplementedError(
+                "compute_hessian of a ShardedLogProb with param_shardings: "
+                "its rows would be the local slice's")
+        self.sprob = sprob
+
+    def forward(self, pdict, idx=None):
+        return self.sprob.local_objective(pdict, idx)
+
+    def collect_main_params(self):
+        return self.sprob.collect_main_params()
+
+    def parameters(self):
+        return self.sprob.prob.parameters()
+
+
 def compute_hessian(prob, pdict=None, rows_chunk=None, keys=None,
                     batches="all", Nstart=None, Nrows=None,
                     rm_offdiag=False, out_ftype=None, grad_real=True):
     """Dense Hessian of the (negative log) posterior with respect to the
     raveled ParamDict (default the main params).
 
-    prob: a LogProb or a list of them (their Hessians sum). With
-    batches='all' each prob's batches are summed (the prior enters once,
-    with batch 0). keys restricts the parameters (a block of H);
+    prob: a LogProb or a ShardedLogProb, or a list of them (their
+    Hessians sum). With batches='all' each prob's batches are summed
+    (the prior enters once, with batch 0). A ShardedLogProb's rows are
+    each rank's Hessian of its local likelihood shard (the prior added
+    on one rank of the data group), summed over that group: every rank
+    gets the single-process Hessian. keys restricts the parameters (a block of H);
     Nstart / Nrows compute only that contiguous row block; rm_offdiag
     keeps the diagonal; out_ftype casts the result. rows_chunk None takes
     one row a pass by forward-over-reverse (the memory of one gradient
@@ -165,17 +192,17 @@ def compute_hessian(prob, pdict=None, rows_chunk=None, keys=None,
             "complex trainables are real pairs (a trailing dim of 2): "
             "there is no imaginary-gradient plane of the Hessian")
     probs = list(prob) if isinstance(prob, (list, tuple)) else [prob]
-    for p in probs:
-        if type(p).__name__ == "ShardedLogProb" or not hasattr(p, "forward"):
-            raise NotImplementedError(
-                "compute_hessian of a sharded posterior waits for the "
-                "multi-device port (ROADMAP queue A10); pass the LogProb")
     H = index = None
     for p in probs:
         nb = getattr(p, "Nbatch", 1) if batches == "all" else 1
+        sharded = hasattr(p, "local_objective")
         for i in range(nb):
-            Hb, index = _hessian_one(p, i, pdict, keys, row0=Nstart or 0,
-                                     nrows=Nrows, rows_chunk=rows_chunk)
+            Hb, index = _hessian_one(_Local(p) if sharded else p, i, pdict,
+                                     keys, row0=Nstart or 0, nrows=Nrows,
+                                     rows_chunk=rows_chunk)
+            if sharded:
+                from ..parallel.collectives import sum_over
+                Hb = sum_over(Hb, p.group)
             H = Hb if H is None else H + Hb
     if rm_offdiag and H.shape[0] == H.shape[1]:
         H = torch.diag(torch.diagonal(H))

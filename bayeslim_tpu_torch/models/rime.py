@@ -25,6 +25,15 @@ run_batches :405).
   pair when Nmp > 1). ``remat`` checkpoints each whole time step
   instead. The simulated baselines expand to the data baselines through
   a host index.
+- Sharding (parallel/sharding.py, the JAX package's vis_sharding :46,
+  :361-363 and ``_mp_idx_dev`` :379-383): ``shard_rime`` and
+  ``shard_pixels`` give a rank's copy its local times, baselines or
+  pixels and set the hooks ``forward`` reads: ``_sim_gather`` gathers
+  the simulated cube across baseline shards before the expansion,
+  ``_pix_comm`` sums the pixel shards' partial visibilities (and the
+  gradients of the replicated inputs), ``_mp_idx_dev`` (a device
+  baseline -> pair map by baseline group) takes the kernel dispatch's
+  device branch.
 """
 from __future__ import annotations
 
@@ -44,6 +53,21 @@ from .sky import CompositeModel
 __all__ = ["RIME"]
 
 
+def _grad_leaves(mod):
+    """{dotted path: tensor} of a module tree's tensors that carry
+    gradients: its Parameters, and the leaves a functional update
+    (Module.updated) put in their place."""
+    out = {}
+    for prefix, m in mod.named_modules():
+        items = list(m._parameters.items()) + [
+            (k, v) for k, v in m.__dict__.items()
+            if isinstance(v, torch.Tensor)]
+        for k, v in items:
+            if v is not None and v.requires_grad:
+                out[f"{prefix}.{k}" if prefix else k] = v
+    return out
+
+
 def _ckpt(fn, *args):
     return checkpoint(fn, *args, use_reentrant=False,
                       preserve_rng_state=False)
@@ -57,11 +81,18 @@ class RIME(Module):
     fused kernel on CUDA for eligible problems). remat: checkpoint each
     time step (psky and the reduction), trading the forward's reduction
     again in the backward for the step's saved tensors.
+
+    vis_sharding: which axes of the visibilities (Npol, Npol, Nbls,
+    Ntimes, Nfreqs) are partitioned over which mesh axes, a 5-tuple of
+    axis names or None. ``parallel.shard_rime`` sets it on a rank's copy
+    (times over the time axis, baselines over the baseline axis), and
+    ``parallel.ShardedLogProb`` reads it to cut the targets the same
+    way. None on an unsharded RIME.
     """
 
     def __init__(self, sky, telescope, beam, array, sim_bls, times, freqs,
                  data_bls=None, name=None, pix_chunk=1024, remat=False,
-                 time_mode="scan", use_kernel="auto"):
+                 time_mode="scan", use_kernel="auto", vis_sharding=None):
         super().__init__(name=name)
         if time_mode not in ("scan", "vmap"):
             raise ValueError(f"unknown time_mode {time_mode!r}")
@@ -73,6 +104,7 @@ class RIME(Module):
         self.remat = remat
         self.time_mode = time_mode
         self.use_kernel = use_kernel
+        self.vis_sharding = vis_sharding
         self.freqs = np.asarray(freqs, dtype=np.float64)
         self.Nfreqs = len(self.freqs)
         self.array.set_freqs(self.freqs)
@@ -235,7 +267,7 @@ class RIME(Module):
                                   mp_idx)
 
     # ---------------------------------------------------------- forward
-    def _sim_component(self, sky, pres, blvecs, mp1, mp2, mp_idx):
+    def _sim_component(self, sky, pres, blvecs, mp1, mp2, mp_idx, beam):
         """Simulate one sky component (Nvec, Nvec, Nfreqs, Npix) over the
         active time group: (Npol, Npol, Nsim_bls, Ntimes, Nfreqs)."""
         # the checkpoints hold memory down for a backward; forward-mode AD
@@ -246,9 +278,8 @@ class RIME(Module):
 
         def make_psky(sky, zen, az, cut, mask, *ctx):
             csky = cut_sky_fov(sky, cut) * mask
-            beam = self.beam.gen_beam(zen, az, ctx=ctx or None,
-                                      angles_offset=True)
-            return self.beam.apply_beam_mp(beam, mp1, mp2, csky)
+            b = beam.gen_beam(zen, az, ctx=ctx or None, angles_offset=True)
+            return beam.apply_beam_mp(b, mp1, mp2, csky)
 
         def one_time(sky, blvecs, pre, nested):
             args = (sky, pre["zen"], pre["az"], pre["cut"], pre["mask"]) \
@@ -284,13 +315,29 @@ class RIME(Module):
         a1, a2 = self._blidx_groups[bg]
         blvecs = self.array.antvecs[a2] - self.array.antvecs[a1]
         mp1, mp2, mp_idx = self._mp_groups[bg]
+        mpdev = getattr(self, "_mp_idx_dev", None)
+        if mpdev is not None and bg in mpdev:
+            mp_idx = mpdev[bg]
+        # pixel shards: each rank reduces its own pixels of replicated
+        # inputs; their gradients are summed over the pixel group
+        pix = getattr(self, "_pix_comm", None)
+        beam = self.beam
+        if pix is not None:
+            blvecs = pix.copy_in(blvecs)
+            beam = beam.updated({k: pix.copy_in(v)
+                                 for k, v in _grad_leaves(beam).items()})
         vis = None
         for ci, comp in enumerate(comps):
-            v = self._sim_component(comp.data,
-                                    self._pre[(self.time_group_id, ci)],
-                                    blvecs, mp1, mp2, mp_idx)
+            sky = comp.data if pix is None else pix.copy_in(comp.data)
+            v = self._sim_component(sky, self._pre[(self.time_group_id, ci)],
+                                    blvecs, mp1, mp2, mp_idx, beam)
             vis = v if vis is None else vis + v
+        if pix is not None:
+            vis = pix.sum_in(vis)
         if self._sim2data[bg] is not None:
+            gather = getattr(self, "_sim_gather", None)
+            if gather is not None:
+                vis = gather(vis)
             vis = vis.index_select(2, self._sim2data[bg])
         self.beam.eval_prior(prior_cache, inp_params=self.beam.params)
         pol = None

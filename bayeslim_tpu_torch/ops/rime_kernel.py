@@ -18,7 +18,8 @@ Counterpart of bayeslim_tpu/ops/rime_kernel.py (`_pallas_eligible` :59,
   Leading (polarization) blocks stack as rows of one launch; with
   Nmp > 1 model pairs and a host baseline -> pair map the baselines are
   grouped by pair, one fused call a pair, and the result
-  inverse-permuted. Delays factored as blvecs @ s_c go through
+  inverse-permuted; with a device map (a tensor) every pair runs over
+  all the baselines and a mask selects each baseline's. Delays factored as blvecs @ s_c go through
   ``RimeFusedBS``, a given delay matrix tau through ``RimeFused``.
 - ``force_chunked`` (the JAX package's ``force_xla`` :45-56) turns the
   fused dispatch off inside its block: the fused Functions' backward
@@ -88,15 +89,14 @@ def _kernel_eligible(psky, mp_idx, freqs, use_kernel, blvecs, tau=None):
 def _rime_fused_dispatch(psky, freqs, conj, mp_idx, blvecs, s_c, tau):
     """Map the (..., Nmp, Nfreqs, Npix) contract onto the 2D stacked-row
     fused kernel: leading (polarization) blocks stack as rows; with
-    Nmp > 1 the baselines are grouped by model pair (mp_idx is host
-    metadata), one fused call a pair on that pair's baselines, and the
-    concatenated result is inverse-permuted."""
-    if isinstance(mp_idx, torch.Tensor):
-        raise NotImplementedError(
-            "a device mp_idx (baseline sharding: every pair over all "
-            "baselines, mask-selected) waits for the multi-device port "
-            "(parallel/sharding.py, ROADMAP queue A10); pass the baseline "
-            "-> pair map as a host array")
+    Nmp > 1 and a host mp_idx the baselines are grouped by model pair,
+    one fused call a pair on that pair's baselines, and the concatenated
+    result is inverse-permuted. A device mp_idx (a tensor: the JAX
+    package's branch :118-135) runs every pair over all the baselines,
+    one fused call a pair, and selects each baseline's pair by a mask:
+    Nmp x the kernel's triples, where the host grouping does 1x (the
+    per-process sharding regroups its local baselines on the host
+    instead, parallel/sharding.shard_rime)."""
     lead = psky.shape[:-3]
     nmp, nf, npx = psky.shape[-3:]
     nb = blvecs.shape[0] if blvecs is not None else tau.shape[0]
@@ -112,6 +112,12 @@ def _rime_fused_dispatch(psky, freqs, conj, mp_idx, blvecs, s_c, tau):
 
     if mp_idx is None or nmp == 1:
         out = run(psky.reshape(-1, npx))                  # (L*nf, nb)
+    elif isinstance(mp_idx, torch.Tensor):
+        stack = torch.stack([run(psky[..., m, :, :].reshape(-1, npx))
+                             for m in range(nmp)])        # (nmp, L*nf, nb)
+        sel = mp_idx.to(psky.device)[None, None, :] == torch.arange(
+            nmp, device=psky.device)[:, None, None]
+        out = torch.sum(stack * sel.to(stack.real.dtype), dim=0)
     else:
         mp = np.asarray(mp_idx)
         dev = psky.device
@@ -264,8 +270,8 @@ def rime_reduce(psky, tau, freqs, mp_idx=None, conj=False, chunk=1024,
 
     tau may be None when (blvecs, s_c) are given: tau = blvecs @ s_c is
     then built inside the fused Function's passes, or here for the
-    chunked path. mp_idx: a host (Nbls,) baseline -> model-pair index
-    (None: psky shared across baselines). use_kernel: "auto" takes the
+    chunked path. mp_idx: a (Nbls,) baseline -> model-pair index, host
+    array or device tensor (None: psky shared across baselines). use_kernel: "auto" takes the
     fused kernel for eligible problems on CUDA, True forces the fused
     Functions (their plain version on the CPU), False disables them.
     """

@@ -274,7 +274,37 @@ Phases, one line each; any failure exits non-zero:
    loss bit-equal to the kwargs build's; an HDF5 write raising
    ImportError naming h5py where h5py is absent; step walls (CUDA events), the checkpoint and pickle write /
    read times and sizes, the calfits round trip's time, peak memory and
-   the card's name and power limit.
+   the card's name and power limit;
+23. main path 16, hera-shard, config #5 run whole over ranks
+   (bayeslim_tpu_torch/parallel/ on torch.distributed): ranks spawned
+   on the card, sharing it over gloo (a file:// store under build/shard/,
+   a timeout on every collective; a rank that fails or hangs fails the
+   phase, the others killed), each building the whole posterior and
+   keeping its shard, rank 0 also evaluating it whole for the
+   reference. Stage A, 2 ranks on {'data': 2}: hera-filt's chain at
+   hera-avg's 4 times, 2 a rank (its filter's noise SHARD_FILT_NOISE,
+   a suppression of 100: stage A checks the sharding, not config #5's
+   own filter of 1e9, where the float32 gradient is at its rounding
+   noise, ROADMAP C10), under
+   torch.use_deterministic_algorithms (two whole evaluations the same
+   bits): the sharded loss within SHARD_LOSS_TOL and each gradient leaf
+   within TOL of its max of the whole evaluation, SHARD_EVALS timed
+   evaluations, SHARD_STEPS L-BFGS steps through ShardedLogProb (losses
+   and a digest of the parameters after each step the same on every
+   rank), then the filtered cube imaged by VisMapper with the channels
+   split over the ranks, the gathered maps within TOL of the whole
+   map's max. Stages B and C, 3 ranks: B hera-cal's chain on {'model':
+   3} (210 of the 630 groups simulated a rank, the cube gathered and
+   expanded onto its 18,205 of the 54,615 baselines, the Jones indices
+   pinned and cut) to the same bars; C build_nmp's hex-3 posterior (3
+   model pairs) baseline-sharded on {'model': 3} (each rank regroups its
+   baselines by pair on the host), with the device baseline -> pair map
+   pinned (the dispatch's device branch, against the host grouping),
+   and shard_pixels over the 3 ranks (the kernel on a third of the
+   pixels). Each rank's rime_fwd and rime_dtau launches equal to its
+   local times x pixel chunks x evaluations (by model pair in C), its
+   walls, the collectives' host time and bytes and its peak memory;
+   with two or more cards stage A again over NCCL, one rank a card.
    Then the JSON line of all nine kernels.
 
 Each torch.profiler run launches PROFILE_MARKS spin kernels before the
@@ -343,6 +373,22 @@ COUPLING_MAX_LEN = 46.0
 # and time_average are held against the CPU in float64, and float32's
 # unit roundoff (the bar of the float32 sufficient-statistics identity)
 AVG = dict(HERA, ntime=4)
+# hera-shard (phase 23), config #5 sharded over ranks that share the card
+# over gloo: stage A hera-filt's chain at hera-avg's 4 times on {'data':
+# 2}, stage B hera-cal's chain on {'model': 3}, stage C the hex-3 Nmp > 1
+# posterior on {'data': 2, 'model': 2}; the loss's bar against the
+# single-process evaluation (the gradients': TOL of each leaf's max), the
+# sharded evaluations and L-BFGS steps timed, and the limits [s] of a
+# stage's ranks and of one collective
+SHARD = AVG
+SHARD_LOSS_TOL, SHARD_EVALS, SHARD_STEPS = 1e-6, 3, 3
+# stage A's filter noise (a suppression of 100, as phase 7's hera-filt
+# case): at hera-filt's 1e-9 the float32 gradient is at its rounding
+# noise (phase 17 prints two evaluations' difference), and the times'
+# sums in another order move it by tens of per cent; so stage A checks
+# the sharding, not config #5's own filter (ROADMAP C10)
+SHARD_FILT_NOISE = 1e-2
+SHARD_STAGE_S, SHARD_COLL_S = 300, 120
 AVG_BINS = [[0, 1], [2, 3]]
 AVG_SUB_BLS, AVG_SUB_FREQS = 2048, (0, 341, 682, 1023)
 AVG_F64_CHUNK = 256
@@ -3374,6 +3420,16 @@ def phase_hera_filt(bt, torch, rime_cuda, pix_chunks, size=HERA, steps=3):
           f"inversions {info['inv_s']:.2f} s", flush=True)
     nchunks = len(pix_chunks(nsim, rime.Npix_cut))
     loss0, g0 = prob.value_and_grad()
+    # a second evaluation at the same parameters: the backward's
+    # index_add adds with atomics in no fixed order, and what the filter
+    # leaves of the float32 gradient is near its rounding noise
+    g1 = prob.value_and_grad()[1]
+    rep = {k: relerr(g1[k].cpu().numpy(), g0[k].cpu().numpy()) for k in g0}
+    print(f"phase 17 hera-filt: two evaluations at the start with "
+          f"PyTorch's default algorithms, their gradients differ by "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rep.items())
+          + " of each leaf's max (reported, not gated)", flush=True)
+    del g1
     first = {ANTVECS: 1e-3, GAINS: 1e-3}
     opt = bt.LBFGS(prob, H0=first_step_H0(bt, torch, g0, first))
     torch.cuda.synchronize()
@@ -4649,6 +4705,505 @@ def phase_hera_io(bt, torch, rime_cuda, pix_chunks, size=HERA, device=None):
     return fwd, dtau
 
 
+def shard_rank(rank, world, stage, workdir, backend):
+    """One rank of phase 23 (a spawned process): on card rank % count,
+    joins the stage's process group through a file:// store in workdir
+    with a timeout on every collective, runs SHARD_STAGES[stage] and
+    pickles its report (peak memory added). A failure writes the
+    traceback and exits non-zero; the parent then kills the other
+    ranks."""
+    import pickle
+    import traceback
+    try:
+        import torch
+        sys.path.insert(0, ROOT)
+        import bayeslim_tpu_torch as bt
+        from bayeslim_tpu_torch.parallel import multihost
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+        multihost.initialize(
+            init_method="file://" + os.path.join(workdir, "store"),
+            world_size=world, rank=rank, backend=backend,
+            timeout=SHARD_COLL_S, device=dev)
+        rep = SHARD_STAGES[stage](bt, torch, rank, world)
+        rep["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        rep["card"] = str(dev)
+        with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(rep, f)
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(workdir, f"err{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+
+
+def run_shard_stage(stage, world, backend="gloo"):
+    """Spawn the stage's ranks, join them within SHARD_STAGE_S, kill any
+    still running; fail with the ranks' tracebacks. Returns (the ranks'
+    reports, seconds)."""
+    import multiprocessing as mp
+    import pickle
+    import shutil
+    workdir = os.path.join(ROOT, "build", "shard", f"{stage}-{backend}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    ctx = mp.get_context("spawn")
+    t0 = time.time()
+    procs = [ctx.Process(target=shard_rank,
+                         args=(r, world, stage, workdir, backend))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(max(t0 + SHARD_STAGE_S - time.time(), 0.0))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    errs = [open(os.path.join(workdir, f"err{r}.txt")).read()
+            for r in range(world)
+            if os.path.exists(os.path.join(workdir, f"err{r}.txt"))]
+    codes = [p.exitcode for p in procs]
+    check(not hung and not errs and all(c == 0 for c in codes),
+          f"phase 23 stage {stage} ({backend}): ranks still running after "
+          f"{SHARD_STAGE_S} s {hung} (killed), exit codes {codes}\n"
+          + "\n".join(errs))
+    reps = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"rank{r}.pkl"), "rb") as f:
+            reps.append(pickle.load(f))
+    return reps, time.time() - t0
+
+
+def _shard_evals(torch, rime_cuda, C, sprob, n):
+    """n timed evaluations of a sharded posterior: (loss, gradients,
+    walls [s], (rime_fwd, rime_dtau) launches, collective stats)."""
+    rime_cuda.launches = rime_cuda.dtau_launches = 0
+    C.reset_stats()
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t1 = time.time()
+        v, g = sprob.value_and_grad()
+        torch.cuda.synchronize()
+        walls.append(time.time() - t1)
+    return (v, g, walls, (rime_cuda.launches, rime_cuda.dtau_launches),
+            dict(C.STATS))
+
+
+def _shard_errs(v, g, ref):
+    """(loss rel. error, {leaf: max |dg| / max |g_ref|}) against the
+    single-process (loss, gradients)."""
+    return (abs(float(v) - ref[0]) / abs(ref[0]),
+            {k: relerr(g[k].cpu().numpy(), ref[1][k].cpu().numpy())
+             for k in ref[1]})
+
+
+def shard_stage_a(bt, torch, rank, world):
+    """Stage A (rank side): hera-filt's chain (build_filt, its filter at
+    SHARD_FILT_NOISE, a suppression of 100: this checks the sharding,
+    not config #5's own 1e9 filter, whose float32 gradient is rounding
+    noise, ROADMAP C10) at 4 times, built whole on every rank, its times
+    over {'data': world}, under torch.use_deterministic_algorithms (the
+    backward's index_add then adds in a fixed order). Rank 0 evaluates
+    the whole chain twice (the same bits), the single-process reference.
+    Then SHARD_EVALS timed sharded evaluations and SHARD_STEPS L-BFGS
+    steps (a digest of the parameters after each), then the filtered
+    target imaged with the channels split over the ranks, against rank
+    0's whole map."""
+    import gc
+    import hashlib
+    import torch.distributed as dist
+    from bayeslim_tpu_torch.ops import rime_cuda
+    from bayeslim_tpu_torch.ops.rime_cuda import _pix_chunks
+    from bayeslim_tpu_torch.parallel import ShardedLogProb, make_mesh
+    from bayeslim_tpu_torch.parallel import collectives as C
+    from bayeslim_tpu_torch.parallel.multihost import local_block
+    from bayeslim_tpu_torch.utils import healpix as hp
+    t0 = time.time()
+    prob, _, info = build_filt(bt, device=None, dtype=torch.float32,
+                               noise=SHARD_FILT_NOISE, **SHARD)
+    torch.cuda.synchronize()
+    rep = dict(build_s=time.time() - t0)
+    filt = prob.target[0]
+    del info
+    mesh = make_mesh({"data": world})
+    ref = None
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    if rank == 0:
+        (v, g), (v2, g2) = prob.value_and_grad(), prob.value_and_grad()
+        rep["deterministic_repeat"] = float(v) == float(v2) and all(
+            torch.equal(g[k], g2[k]) for k in g)
+        ref = (float(v), g)
+        del g2
+    sprob = ShardedLogProb(prob, mesh)
+    del prob
+    rime = sprob.model.rime
+    nt = len(rime.sim_times)
+    nchunks = len(_pix_chunks(len(rime.sim_bls), rime.Npix_cut))
+    rep.update(mesh=dict(mesh.axis_sizes), times=nt, chunks=nchunks,
+               data_shape=tuple(sprob.prob.target[0].data.shape))
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    v, g, walls, launches, coll = _shard_evals(torch, rime_cuda, C, sprob,
+                                               SHARD_EVALS)
+    rep.update(loss=float(v), eval_walls_s=walls, eval_launches=launches,
+               eval_expect=nt * nchunks * SHARD_EVALS, eval_coll=coll)
+    if ref is not None:
+        rep["errs"] = _shard_errs(v, g, ref)
+        del ref
+    first = {ANTVECS: 1e-3, GAINS: 1e-3}
+    opt = bt.LBFGS(sprob, H0=first_step_H0(bt, torch, g, first))
+    rime_cuda.launches = rime_cuda.dtau_launches = 0
+    C.reset_stats()
+    losses, walls, digests = [], [], []
+    for _ in range(SHARD_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.time()
+        losses.append(float(opt.step()))
+        torch.cuda.synchronize()
+        walls.append(time.time() - t1)
+        digests.append(hashlib.sha256(b"".join(
+            p.detach().cpu().numpy().tobytes()
+            for p in opt.pdict.values())).hexdigest())
+    rep.update(start_loss=float(v), lbfgs_losses=losses,
+               lbfgs_walls_s=walls, digests=digests, evals=opt.func_evals,
+               lbfgs_launches=(rime_cuda.launches, rime_cuda.dtau_launches),
+               lbfgs_expect=nt * nchunks * opt.func_evals,
+               lbfgs_coll=dict(C.STATS))
+    beam = rime.beam
+    del opt, sprob, rime, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    theta, phi = hp.pix2ang(SHARD["nside"],
+                            np.arange(hp.nside2npix(SHARD["nside"])))
+    mapper = bt.VisMapper(filt, np.rad2deg(phi), 90 - np.rad2deg(theta),
+                          beam=beam)
+    lo, hi = local_block(mapper.Nfreqs, world, rank)
+    mapper.set_freq_inds(np.arange(lo, hi))
+    rime_cuda.launches = 0
+    C.reset_stats()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t1 = time.time()
+        maps, _ = mapper.make_map(return_P=True, contract="diag")
+        torch.cuda.synchronize()
+        rep.update(img_s=time.time() - t1, img_launches=rime_cuda.launches,
+                   img_expect=len(mapper.times) * len(mapper._chunks(True)),
+                   img_chans=(lo, hi))
+        allmaps = torch.cat(C.all_gather(maps, mesh.group("data")), dim=-2)
+        rep["img_coll"] = dict(C.STATS)
+        if rank == 0:
+            mapper.set_freq_inds(None)
+            full, _ = mapper.make_map(return_P=True, contract="diag")
+            d = torch.abs(allmaps.double() - full.double())
+            at = np.unravel_index(int(torch.argmax(d)), tuple(d.shape))
+            rep.update(
+                img_err=float(d.max()) / float(full.abs().max()),
+                img_err_rms=float(d.max()) / float(
+                    torch.sqrt(torch.mean(full.double() ** 2))),
+                img_worst=(tuple(int(i) for i in at), float(full[at])),
+                img_shape=tuple(full.shape))
+    torch.use_deterministic_algorithms(det)
+    return rep
+
+
+def shard_stage_b(bt, torch, rank, world):
+    """Stage B (rank side): hera-cal's chain (build_cal) at full width,
+    its 630 simulated groups and 54,615 data baselines over {'model':
+    world}: each rank simulates its groups, gathers the simulated cube
+    and expands onto its data baselines; the Jones block auto-pinned and
+    cut. Rank 0 also evaluates the whole chain. SHARD_EVALS timed
+    evaluations."""
+    import gc
+    import torch.distributed as dist
+    from bayeslim_tpu_torch.ops import rime_cuda
+    from bayeslim_tpu_torch.ops.rime_cuda import _pix_chunks
+    from bayeslim_tpu_torch.parallel import ShardedLogProb, make_mesh
+    from bayeslim_tpu_torch.parallel import collectives as C
+    t0 = time.time()
+    prob, _ = build_cal(bt, device=None, dtype=torch.float32, **HERA)
+    torch.cuda.synchronize()
+    rep = dict(build_s=time.time() - t0)
+    mesh = make_mesh({"model": world})
+    ref = None
+    if rank == 0:
+        v, g = prob.value_and_grad()
+        ref = (float(v), g)
+    sprob = ShardedLogProb(prob, mesh, time_axis=None, bl_axis="model")
+    del prob
+    seq = sprob.model
+    rime = seq.rime
+    nt = len(rime.sim_times)
+    nchunks = len(_pix_chunks(len(rime.sim_bls), rime.Npix_cut))
+    rep.update(mesh=dict(mesh.axis_sizes), times=nt, chunks=nchunks,
+               sim=len(rime.sim_bls), data=len(rime.data_bls),
+               gain_idx=len(seq.cal._g1_idx),
+               data_shape=tuple(sprob.prob.target[0].data.shape))
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    v, g, walls, launches, coll = _shard_evals(torch, rime_cuda, C, sprob,
+                                               SHARD_EVALS)
+    rep.update(loss=float(v), eval_walls_s=walls, eval_launches=launches,
+               eval_expect=nt * nchunks * SHARD_EVALS, eval_coll=coll)
+    if ref is not None:
+        rep["errs"] = _shard_errs(v, g, ref)
+    return rep
+
+
+def shard_stage_c(bt, torch, rank, world):
+    """Stage C (rank side), build_nmp's hex-3 posterior (2 Gaussian beam
+    models, Nmp > 1; sky, beams and antennas trainable) on {'model':
+    world}: baseline-sharded (each rank regroups its baselines by
+    model pair on the host), then with the device baseline -> pair map
+    pinned (the dispatch's device branch: every pair over all local
+    baselines, mask-selected) against the host grouping, then
+    shard_pixels over 'model' (the kernel on the local pixels). Rank 0
+    evaluates the whole posterior for the reference."""
+    from bayeslim_tpu_torch.ops import rime_cuda
+    from bayeslim_tpu_torch.ops.rime_cuda import _pix_chunks
+    from bayeslim_tpu_torch.parallel import (ShardedLogProb, make_mesh,
+                                             shard_pixels)
+    from bayeslim_tpu_torch.parallel import collectives as C
+    prob, nmp = build_nmp(bt, None, torch.float32)
+    mesh = make_mesh({"model": world})
+    ref = None
+    if rank == 0:
+        v, g = prob.value_and_grad()
+        ref = (float(v), g)
+
+    def expect(rime, mp_idx, passes, npairs=None):
+        """Launches of one evaluation of the grouped dispatch: one a
+        pair (every pair with a device map), time and pixel chunk,
+        times passes."""
+        K = rime.Npix_cut
+        mp = np.asarray(mp_idx)
+        pairs = range(npairs) if npairs else np.unique(mp)
+        nb = [len(mp) if npairs else int((mp == m).sum()) for m in pairs]
+        return passes * len(rime.sim_times) * sum(
+            len(_pix_chunks(n, K)) for n in nb)
+
+    rep = dict(mesh=dict(mesh.axis_sizes), nmp=nmp)
+    sprob = ShardedLogProb(prob, mesh, time_axis=None, bl_axis="model")
+    rime = sprob.model
+    mp_loc = rime._mp_groups[0][2]
+    torch.distributed.barrier()
+    v, g, walls, launches, coll = _shard_evals(torch, rime_cuda, C, sprob, 1)
+    rep.update(
+        host=dict(loss=float(v), launches=launches, walls_s=walls,
+                  coll=coll, times=len(rime.sim_times),
+                  bls=len(rime.sim_bls), pairs=len(np.unique(mp_loc)),
+                  expect=(expect(rime, mp_loc, 2), expect(rime, mp_loc, 1))))
+    if ref is not None:
+        rep["host"]["errs"] = _shard_errs(v, g, ref)
+    host = (float(v), g)
+    npairs = int(rime._mp_groups[0][0].shape[0])
+    rime._mp_idx_dev = {0: torch.as_tensor(
+        mp_loc, device=prob.target[0].data.device)}
+    v2, g2, walls, launches, coll = _shard_evals(torch, rime_cuda, C, sprob,
+                                                 1)
+    rep["devmap"] = dict(
+        launches=launches, walls_s=walls, coll=coll,
+        errs=_shard_errs(v2, g2, host),
+        expect=(expect(rime, mp_loc, 2, npairs),
+                expect(rime, mp_loc, 1, npairs)))
+    del rime._mp_idx_dev
+    rime_px = shard_pixels(prob.model, mesh, pix_axis="model")
+    ppx = bt.LogProb(rime_px, prob.target)
+    mp_all = rime_px._mp_groups[0][2]
+    rime_cuda.launches = rime_cuda.dtau_launches = 0
+    C.reset_stats()
+    torch.cuda.synchronize()
+    t1 = time.time()
+    v3, g3 = ppx.value_and_grad()
+    torch.cuda.synchronize()
+    rep["pixels"] = dict(
+        loss=float(v3), walls_s=[time.time() - t1],
+        launches=(rime_cuda.launches, rime_cuda.dtau_launches),
+        coll=dict(C.STATS), K=(prob.model.Npix_cut, rime_px.Npix_cut),
+        expect=(expect(rime_px, mp_all, 2), expect(rime_px, mp_all, 1)))
+    if ref is not None:
+        rep["pixels"]["errs"] = _shard_errs(v3, g3, ref)
+    return rep
+
+
+def shard_stage_bc(bt, torch, rank, world):
+    """Stages B and C in one spawn of ranks (one start-up)."""
+    return {"b": shard_stage_b(bt, torch, rank, world),
+            "c": shard_stage_c(bt, torch, rank, world)}
+
+
+SHARD_STAGES = {"a": shard_stage_a, "bc": shard_stage_bc}
+
+
+def _shard_rank_line(label, r, rep, part):
+    """One rank's report line of a stage part."""
+    c = part.get("coll", {})
+    return (f"phase 23 hera-shard {label} rank {r} ({rep['card']}): "
+            f"walls {[round(w * 1e3, 2) for w in part['walls_s']]} ms, "
+            f"launches rime_fwd {part['launches'][0]}, rime_dtau "
+            f"{part['launches'][1]} (expected {part['expect']}), "
+            f"collectives {c.get('calls', 0)} calls {c.get('ms', 0.0):.2f} "
+            f"ms {c.get('bytes', 0)} B (host wall, waits for the peers "
+            f"included), peak {rep['peak_gib']:.2f} GiB")
+
+
+def _shard_check_errs(label, errs, against="single-process (rank 0)"):
+    loss, grads = errs
+    print(f"phase 23 hera-shard {label} vs {against}: loss "
+          f"rel {loss:.2e} (bar {SHARD_LOSS_TOL:g}), gradients " + ", ".join(
+              f"{k} {v:.2e}" for k, v in grads.items())
+          + f" of each leaf's max (bar {TOL:g})", flush=True)
+    check(loss <= SHARD_LOSS_TOL and all(v <= TOL for v in grads.values()),
+          f"hera-shard {label} sharded vs single-process: {errs}")
+
+
+def phase_hera_shard(bt, torch, rime_cuda):
+    """Phase 23: main path 16, hera-shard, config #5 run whole over
+    ranks (parallel/ on torch.distributed): stage A on 2 ranks, stages B
+    and C on 3 (the SHARD_STAGES functions), ranks that share the card
+    over gloo, then stage A over NCCL with one rank a card where two or
+    more cards are visible. Returns (rime_fwd, rime_dtau) launches of
+    the ranks' sharded paths, summed."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    ndev = torch.cuda.device_count()
+    print(f"phase 23 hera-shard: backend gloo, the ranks of each stage "
+          f"sharing cuda:0 ({smi()}); {ndev} card(s) visible; the "
+          f"collectives all-gathers of the card's tensors "
+          f"(parallel/collectives.py)", flush=True)
+    fwd = dtau = 0
+
+    def stage_a(backend, world):
+        nonlocal fwd, dtau
+        reps, secs = run_shard_stage("a", world, backend)
+        label = f"A ({backend}, {world} ranks, mesh {reps[0]['mesh']})"
+        print(f"phase 23 hera-shard {label}: hera-filt's chain at "
+              f"{SHARD['ntime']} times, {reps[0]['times']} a rank, local "
+              f"target {reps[0]['data_shape']}, {reps[0]['chunks']} pixel "
+              f"chunk(s); builds {[round(r['build_s'], 1) for r in reps]} s; "
+              f"stage {secs:.1f} s", flush=True)
+        for r, rep in enumerate(reps):
+            ev = dict(walls_s=rep["eval_walls_s"],
+                      launches=rep["eval_launches"],
+                      expect=rep["eval_expect"], coll=rep["eval_coll"])
+            print(_shard_rank_line(label + " evaluations", r, rep, ev),
+                  flush=True)
+            lb = dict(walls_s=rep["lbfgs_walls_s"],
+                      launches=rep["lbfgs_launches"],
+                      expect=rep["lbfgs_expect"], coll=rep["lbfgs_coll"])
+            print(_shard_rank_line(label + " L-BFGS", r, rep, lb)
+                  + f"; losses {rep['lbfgs_losses']} from "
+                  f"{rep['start_loss']}, {rep['evals']} evaluations",
+                  flush=True)
+            for part in (ev, lb):
+                check(part["launches"] == (part["expect"],) * 2,
+                      f"hera-shard {label} rank {r} launches "
+                      f"{part['launches']} != {part['expect']}")
+            fwd += rep["eval_launches"][0] + rep["lbfgs_launches"][0] \
+                + rep["img_launches"]
+            dtau += rep["eval_launches"][1] + rep["lbfgs_launches"][1]
+            print(f"phase 23 hera-shard {label} imaging rank {r}: channels "
+                  f"{rep['img_chans']} in {rep['img_s'] * 1e3:.1f} ms, "
+                  f"rime_fwd launches {rep['img_launches']} (expected "
+                  f"{rep['img_expect']}: times x pixel chunks), the maps "
+                  f"gathered in {rep['img_coll']['ms']:.2f} ms", flush=True)
+            check(rep["img_launches"] == rep["img_expect"],
+                  f"hera-shard {label} imaging rank {r} launches "
+                  f"{rep['img_launches']} != {rep['img_expect']}")
+        print(f"phase 23 hera-shard {label}: the filter's noise "
+              f"{SHARD_FILT_NOISE:g} I; under "
+              f"torch.use_deterministic_algorithms two single-process "
+              f"evaluations the same bits: "
+              f"{reps[0]['deterministic_repeat']}", flush=True)
+        check(reps[0]["deterministic_repeat"],
+              f"hera-shard {label}: deterministic evaluations differ")
+        _shard_check_errs(label, reps[0]["errs"])
+        same = all(r["digests"] == reps[0]["digests"]
+                   and r["lbfgs_losses"] == reps[0]["lbfgs_losses"]
+                   and r["loss"] == reps[0]["loss"] for r in reps)
+        print(f"phase 23 hera-shard {label}: losses and parameters after "
+              f"each L-BFGS step the same bits on every rank: {same}; the "
+              f"channel-split maps {reps[0]['img_shape']} against the "
+              f"single-process make_map: {reps[0]['img_err']:.2e} of its "
+              f"max |m| (bar {TOL:g}), {reps[0]['img_err_rms']:.2e} of its "
+              f"rms, the largest difference at (channel, pixel) "
+              f"{reps[0]['img_worst'][0]} where the map is "
+              f"{reps[0]['img_worst'][1]:.4g}", flush=True)
+        check(same, f"hera-shard {label}: ranks differ")
+        check(reps[0]["lbfgs_losses"][-1] < reps[0]["start_loss"],
+              f"hera-shard {label}: L-BFGS loss did not fall")
+        check(reps[0]["img_err"] <= TOL,
+              f"hera-shard {label} maps: {reps[0]['img_err']}")
+
+    stage_a("gloo", 2)
+    reps, secs = run_shard_stage("bc", 3)
+    print(f"phase 23 hera-shard B and C (gloo, 3 ranks): one spawn, "
+          f"{secs:.1f} s", flush=True)
+    reps_b = [r["b"] for r in reps]
+    label = f"B (gloo, 3 ranks, mesh {reps_b[0]['mesh']})"
+    print(f"phase 23 hera-shard {label}: hera-cal's chain, "
+          f"{reps_b[0]['sim']} simulated groups and {reps_b[0]['data']} data "
+          f"baselines a rank (Jones indices pinned and cut: "
+          f"{reps_b[0]['gain_idx']}), local target {reps_b[0]['data_shape']}; "
+          f"builds {[round(r['build_s'], 1) for r in reps_b]} s", flush=True)
+    for r, rep in enumerate(reps_b):
+        rep["card"], rep["peak_gib"] = reps[r]["card"], reps[r]["peak_gib"]
+        ev = dict(walls_s=rep["eval_walls_s"], launches=rep["eval_launches"],
+                  expect=rep["eval_expect"], coll=rep["eval_coll"])
+        print(_shard_rank_line(label, r, rep, ev), flush=True)
+        check(ev["launches"] == (ev["expect"],) * 2,
+              f"hera-shard {label} rank {r} launches {ev['launches']}")
+        check(rep["loss"] == reps_b[0]["loss"], f"hera-shard {label}: rank "
+              f"{r}'s loss differs")
+        fwd += ev["launches"][0]
+        dtau += ev["launches"][1]
+    _shard_check_errs(label, reps_b[0]["errs"])
+    reps_c = [r["c"] for r in reps]
+    label = f"C (gloo, 3 ranks, mesh {reps_c[0]['mesh']})"
+    print(f"phase 23 hera-shard {label}: build_nmp's hex-3 posterior, "
+          f"{reps_c[0]['nmp']} model pairs, {reps_c[0]['host']['bls']} "
+          f"baselines and {reps_c[0]['host']['times']} time(s) a rank",
+          flush=True)
+    for r, rep in enumerate(reps_c):
+        rep["card"], rep["peak_gib"] = reps[r]["card"], reps[r]["peak_gib"]
+        for part in ("host", "devmap", "pixels"):
+            p = rep[part]
+            print(_shard_rank_line(f"{label} {part}", r, rep, p), flush=True)
+            check(p["launches"] == p["expect"], f"hera-shard {label} "
+                  f"{part} rank {r} launches {p['launches']} != "
+                  f"{p['expect']}")
+            fwd += p["launches"][0]
+            dtau += p["launches"][1]
+    _shard_check_errs(f"{label} Nmp > 1 baseline-sharded",
+                      reps_c[0]["host"]["errs"])
+    for r, rep in enumerate(reps_c):
+        _shard_check_errs(f"{label} rank {r} device mp_idx", rep["devmap"]
+                          ["errs"], "the host grouping")
+    print(f"phase 23 hera-shard {label} shard_pixels: padded FOV cut "
+          f"{reps_c[0]['pixels']['K'][0]} pixels, "
+          f"{reps_c[0]['pixels']['K'][1]} a rank", flush=True)
+    _shard_check_errs(f"{label} shard_pixels", reps_c[0]["pixels"]["errs"])
+    if ndev >= 2:
+        stage_a("nccl", 2)
+    else:
+        print("phase 23 hera-shard NCCL: not run (one card visible; NCCL "
+              "takes one rank a card)", flush=True)
+    print(f"phase 23 hera-shard: {time.time() - t0:.1f} s; launches on "
+          f"the sharded paths, summed over the ranks: rime_fwd {fwd}, "
+          f"rime_dtau {dtau}", flush=True)
+    return fwd, dtau
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4812,6 +5367,7 @@ def main():
     hess_fwd, hess_dtau = phase_hera_hess(bt, torch, rime_cuda, _pix_chunks)
     avg_fwd = phase_hera_avg(bt, torch, rime_cuda, _pix_chunks)
     io_fwd, io_dtau = phase_hera_io(bt, torch, rime_cuda, _pix_chunks)
+    shard_fwd, shard_dtau = phase_hera_shard(bt, torch, rime_cuda)
 
     # rime_fwd: the two shapes are launched equally often on hera-stat:
     # report the mean per launch (hera-prod's and hera-alm's shapes beside
@@ -4823,7 +5379,7 @@ def main():
         "replaces": "bayeslim_tpu/ops/rime_pallas.py:298",
         "launches": stat_launches + cal_fwd + prod_fwd + redcal_fwd
         + hmc_fwd + alm_fwd + sfb_fwd + hmca_fwd + filt_fwd + img_fwd
-        + coup_fwd + hess_fwd + avg_fwd + io_fwd,
+        + coup_fwd + hess_fwd + avg_fwd + io_fwd + shard_fwd,
         "launches_by_path": {"hera-stat": stat_launches, "hera-cal": cal_fwd,
                              "hera-prod": prod_fwd,
                              "hera-redcal": redcal_fwd,
@@ -4833,7 +5389,7 @@ def main():
                              "hera-filt": filt_fwd, "hera-img": img_fwd,
                              "hera-coupling": coup_fwd,
                              "hera-hess": hess_fwd, "hera-avg": avg_fwd,
-                             "hera-io": io_fwd},
+                             "hera-io": io_fwd, "hera-shard": shard_fwd},
         "max_abs_err": max(worst_fwd["hera-fwd"], worst_fwd["hera-bwd"]),
         "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[2],
         "bound_by": timing[0][3] if timing[0][3] == timing[1][3]
@@ -4849,7 +5405,7 @@ def main():
         "source": "bayeslim_tpu_torch/csrc/rime_dtau.cu",
         "replaces": "bayeslim_tpu/ops/rime_pallas.py:693",
         "launches": cal_dtau + prod_dtau + alm_dtau + sfb_dtau + hmca_dtau
-        + filt_dtau + img_dtau + hess_dtau + io_dtau,
+        + filt_dtau + img_dtau + hess_dtau + io_dtau + shard_dtau,
         "launches_by_path": {"hera-stat": 0, "hera-cal": cal_dtau,
                              "hera-prod": prod_dtau, "hera-redcal": 0,
                              "hera-hmc": 0, "hera-alm": alm_dtau,
@@ -4857,7 +5413,8 @@ def main():
                              "hera-hmc-alm": hmca_dtau,
                              "hera-filt": filt_dtau, "hera-img": img_dtau,
                              "hera-coupling": 0, "hera-hess": hess_dtau,
-                             "hera-avg": 0, "hera-io": io_dtau},
+                             "hera-avg": 0, "hera-io": io_dtau,
+                             "hera-shard": shard_dtau},
         "max_abs_err": worst_dtau, "ms": dms, "plain_ms": dpms,
         "bound_ms": dbms, "bound_by": dby, "library_ms": None}]
     kernels += spikes

@@ -200,11 +200,13 @@ def cal_target(prob, truth, noise=0.01, seed=2):
 def build_production_torch(Ntimes_per_batch=4, Nbatch=2, hexN=2, nfreq=4,
                            nside=4, fmax=120e6, device="cpu",
                            dtype=torch.float64, use_kernel="auto",
-                           targets=None, pix_chunk=512):
-    """__graft_entry__._build_production() through the port (its
-    bl_axis_n baseline-sharding variant is not ported). targets: one
-    data tensor per batch (default: the chain's own forward + 0.01, as
-    the entry makes them)."""
+                           targets=None, pix_chunk=512, bl_axis_n=None):
+    """__graft_entry__._build_production() through the port. targets:
+    one data tensor per batch (default: the chain's own forward + 0.01,
+    as the entry makes them). bl_axis_n: the redundant groups restricted
+    to the first subset whose sim and data baseline counts both divide
+    bl_axis_n (baseline shards are equal), and the Jones block's
+    baseline indices pinned (set_bls), as the entry's variant does."""
     rng = np.random.default_rng(0)
     kw = dict(device=device, dtype=dtype)
     T = bt.TelescopeModel(LOC)
@@ -214,9 +216,24 @@ def build_production_torch(Ntimes_per_batch=4, Nbatch=2, hexN=2, nfreq=4,
                         **kw)
     bls = arr.get_bls(keep_autos=False)
     red_groups = [r for r in arr.reds if r[0][0] != r[0][1]]
-    sim_bls = [r[0] for r in red_groups]
-    gids = {arr.bl2red[b] for b in sim_bls}
-    data_bls = [b for b in bls if arr.bl2red[b] in gids]
+    if bl_axis_n:
+        chosen = None
+        for k in range(bl_axis_n, len(red_groups) + 1):
+            cand = red_groups[:k]
+            gids_k = {arr.bl2red[r[0]] for r in cand}
+            data_k = [b for b in bls if arr.bl2red[b] in gids_k]
+            if k % bl_axis_n == 0 and len(data_k) % bl_axis_n == 0 \
+                    and len(data_k) > k:
+                chosen = (cand, data_k)
+                break
+        assert chosen is not None, \
+            f"no divisible redundant subset for bl_axis_n={bl_axis_n}"
+        red_groups, data_bls = chosen
+        sim_bls = [r[0] for r in red_groups]
+    else:
+        sim_bls = [r[0] for r in red_groups]
+        gids = {arr.bl2red[b] for b in sim_bls}
+        data_bls = [b for b in bls if arr.bl2red[b] in gids]
 
     npix = hp.nside2npix(nside)
     th, ph = hp.pix2ang(nside, np.arange(npix))
@@ -248,6 +265,8 @@ def build_production_torch(Ntimes_per_batch=4, Nbatch=2, hexN=2, nfreq=4,
     J = bt.JonesModel(gains + 0j, ants=list(ants),
                       R=bt.JonesResponse(param_type="com"), polmode="4pol",
                       parameter=True, **kw)
+    if bl_axis_n:
+        J = J.set_bls(data_bls)
     seq = bt.Sequential({"rime": rime, "cal": J})
 
     tgts = []

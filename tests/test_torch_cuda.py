@@ -609,14 +609,23 @@ def test_rime_pallas_reduce_on_card(cuda):
 
 @pytest.mark.cuda
 def test_device_mp_idx_raises_on_card(cuda):
-    from bayeslim_tpu_torch.ops import rime_kernel
+    """A device mp_idx on the card: one rime_fwd launch a model pair over
+    all the baselines, mask-selected, equal to the host grouping's (the
+    kernel's K split depends on the baseline count, so to float32's
+    bar)."""
+    from bayeslim_tpu_torch.ops import rime_cuda, rime_kernel
     psky, blvecs, s_c, mp_idx, _, freqs = _dispatch_case(16)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        rime_kernel.rime_reduce(
-            torch.as_tensor(psky, dtype=torch.complex64, device=cuda), None,
-            freqs, mp_idx=torch.as_tensor(mp_idx, device=cuda),
-            blvecs=torch.as_tensor(blvecs, dtype=torch.float32, device=cuda),
-            s_c=torch.as_tensor(s_c, dtype=torch.float32, device=cuda))
+    args = (torch.as_tensor(psky, dtype=torch.complex64, device=cuda), None,
+            freqs)
+    kw = dict(blvecs=torch.as_tensor(blvecs, dtype=torch.float32,
+                                     device=cuda),
+              s_c=torch.as_tensor(s_c, dtype=torch.float32, device=cuda))
+    n0 = rime_cuda.launches
+    dev = rime_kernel.rime_reduce(
+        *args, mp_idx=torch.as_tensor(mp_idx, device=cuda), **kw)
+    assert rime_cuda.launches == n0 + psky.shape[-3]
+    host = rime_kernel.rime_reduce(*args, mp_idx=mp_idx, **kw)
+    assert _relerr(dev.cpu().numpy(), host.cpu().numpy()) <= 1e-4
 
 
 @pytest.mark.cuda

@@ -235,9 +235,16 @@ def test_compute_hessian_row_block_vs_jax():
 
 
 def test_compute_hessian_refuses_a_sharded_posterior():
+    """A ShardedLogProb is taken (tests/test_torch_parallel_opt.py), but
+    not one whose parameters are cut over the ranks (param_shardings):
+    its rows would be the local slice's."""
     class ShardedLogProb:
-        prob = None
-    with pytest.raises(NotImplementedError, match="A10"):
+        Nbatch = 1
+        param_shardings = {"models.cal.params": (None, None, None, "data")}
+
+        def local_objective(self, pdict=None, idx=None):
+            raise AssertionError("not reached")
+    with pytest.raises(NotImplementedError, match="param_shardings"):
         th.compute_hessian(ShardedLogProb())
 
 

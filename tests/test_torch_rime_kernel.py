@@ -163,11 +163,22 @@ def test_kernel_eligibility():
 
 
 def test_device_mp_idx_waits_for_baseline_sharding():
-    freqs = np.linspace(100e6, 120e6, 5)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        trk.rime_reduce(torch.zeros(1, 1, 2, 5, 7), None, freqs,
-                        mp_idx=torch.tensor([0, 1, 1]), use_kernel=True,
-                        blvecs=torch.zeros(3, 3), s_c=torch.zeros(3, 7))
+    """A device mp_idx (a tensor) takes the dispatch's device branch,
+    which baseline sharding in the JAX package needed (every pair over
+    all baselines, mask-selected): on the fused Functions' plain
+    versions it equals the host grouping, value and gradients."""
+    psky, blvecs, s_c, _, mp_idx, ct = _dispatch_inputs(4, "mp", False)
+    freqs = np.linspace(100e6, 120e6, psky.shape[-2])
+
+    def run(mp):
+        ps = torch.tensor(psky, requires_grad=True)
+        bv = torch.tensor(blvecs, requires_grad=True)
+        out = trk.rime_reduce(ps, None, freqs, mp_idx=mp, use_kernel=True,
+                              blvecs=bv, s_c=torch.as_tensor(s_c))
+        g = torch.autograd.grad(out, (ps, bv), torch.as_tensor(ct))
+        return (out.detach(),) + g
+    for a, b in zip(run(torch.as_tensor(mp_idx)), run(mp_idx)):
+        assert torch.allclose(a, b, rtol=0, atol=1e-12 * b.abs().max())
 
 
 def _dispatch_inputs(seed, kind, ps_real, f32=False):

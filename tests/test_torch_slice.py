@@ -111,7 +111,9 @@ def test_port_never_imports_jax():
             "bayeslim_tpu_torch/models/cosmology.py",
             "bayeslim_tpu_torch/models/beam_ylm.py",
             "bayeslim_tpu_torch/models/linear_model.py",
-            "bayeslim_tpu_torch/utils/multires.py"} <= names
+            "bayeslim_tpu_torch/utils/multires.py",
+            "bayeslim_tpu_torch/parallel/sharding.py",
+            "bayeslim_tpu_torch/parallel/multihost.py"} <= names
     banned = ("jax", "jaxlib", "optax", "bayeslim_tpu")
     for f in files:
         for mod in _imports(f):
@@ -149,6 +151,9 @@ def test_port_imports_h5py_and_mpmath_only_inside_functions():
     lambda: bt.JonesModel(np.ones((1, 1, 2, 1, 2, 2)), [0, 1]),
     lambda: mosaic_spike.main(device=None),
     lambda: bt.inference.ZeroMat((2, 2)).to_dense(),
+    lambda: bt.parallel.multihost.rank_device(None),
+    lambda: bt.parallel.replicate(np.ones(3),
+                                  bt.parallel.make_mesh({"data": 1})),
 ])
 def test_default_device_is_cuda(make):
     """device=None means CUDA; without a GPU that raises rather than
