@@ -333,8 +333,11 @@ class LBFGS(_QuasiNewtonBase):
             self._Hdiag = self._Hdiag * (ys / float(y @ (self._Hdiag * y)))
 
 
-def lbfgs_approx_cov(obj, Nsteps=5, H0=None, **kwargs):
+def lbfgs_approx_cov(obj, Nsteps=5, as_dense=True, H0=None, **kwargs):
     """Approximate covariance (inverse Hessian) from L-BFGS curvature.
+    as_dense is accepted, as in the JAX package, where neither form
+    reads it: the LogProb form returns a DiagMat and the LBFGS form a
+    dense matrix whatever its value.
 
     - obj a LogProb: a short L-BFGS run of Nsteps on each trainable leaf
       alone (the others held), whose running starting diagonal (LBFGS.H,

@@ -22,5 +22,6 @@ from .imaging import (VisMapper, VisData2MapData, make_map, compute_P,
 from .rime import RIME
 from .sky import (PixelSky, PixelSkyResponse, PointSky, PointSkyResponse,
                   CompositeModel, Stokes2Coherency, CoherencySky,
-                  stokes2coherency, SphHarmSky, pixelsky_Ylm_cut)
+                  stokes2coherency, SphHarmSky, pixelsky_Ylm_cut, Jy2K,
+                  InterpSky, ang_index, eqarea_grid, index_sky_pixels)
 from .telescope import TelescopeModel, ArrayModel, build_reds

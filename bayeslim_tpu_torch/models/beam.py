@@ -4,7 +4,8 @@ Primary-beam models evaluated on sky pixels.
 Counterpart of bayeslim_tpu/models/beam.py (cut_sky_fov :43,
 pointing_offset :53, beam_edge_taper :80, airy_disk :109, GaussResponse
 :161, AiryResponse :187, UniformResponse :220, PixelResponse :237,
-PixelBeam :306-496, _expand_2pol :513, and the host rotation helpers
+PixelBeam :306-496 with freq_interp :498, _expand_2pol :513, and the
+host rotation helpers
 R_eq_to_xyz, rotation, R_beta, R_XYZ_to_top and R_chi :525-583). Beam
 tensors are (Npol, Nvec,
 Nmodel, Nfreqs, Npix). Polarization modes:
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from ..utils.dtypes import D2R, C_MS, _float, resolve_device, viewcomp
+from ..utils.indexing import freq_interp as _interp_freqs
 from ..utils.interp import PixInterp
 from ..utils.module import Module
 from ..ops.special import j1_integral
@@ -418,6 +420,30 @@ class PixelBeam(Module):
                                                          cut_t))
         return dict(sky=psky, angs=np.asarray(sky_comp.angs)[:, cut],
                     zenaz=torch.stack([zt, at]), cut=cut, mask=mask)
+
+    def freq_interp(self, freqs, kind="linear"):
+        """Move the beam onto the channels freqs [Hz]. A channel-mode
+        beam whose params hold one entry a channel (axis 3) has them
+        interpolated by scipy's interp1d of this kind, extrapolating, on
+        the host in float64, written back on their device in their dtype
+        (a trainable one stays the same nn.Parameter); any other beam
+        (an Airy or Gaussian one) keeps its params. freqs, the channels
+        gen_beam evaluates at, and R.freqs where R has them become
+        freqs."""
+        freqs = np.asarray(freqs, dtype=np.float64)
+        if getattr(self.R, "freq_mode", "channel") == "channel" and \
+                self.params.shape[3] == len(self.freqs):
+            new = _interp_freqs(self.params, self.freqs, freqs, kind, 3)
+            if isinstance(self.params, torch.nn.Parameter):
+                with torch.no_grad():
+                    self.params.data = new
+            else:
+                self.params = new
+        self.freqs = freqs
+        self._freqs_t = torch.as_tensor(freqs, dtype=self._freqs_t.dtype,
+                                        device=self._freqs_t.device)
+        if hasattr(self.R, "freqs"):
+            self.R.freqs = freqs
 
 
 def _expand_2pol(psky):

@@ -2,7 +2,8 @@
 RIME forward model: V_pq(t, f) = sum_pix A_p(pix) B(pix) A_q^H(pix)
 exp(2 pi i f b_pq.s/c).
 
-Counterpart of bayeslim_tpu/models/rime.py (setup_sim_bls :86,
+Counterpart of bayeslim_tpu/models/rime.py (setup_freqs :74,
+setup_sim_bls :86,
 setup_sim_times :140, the batching API :161-210, precompute :203-260,
 `_sim_component` :313, forward :369 with the beam's prior :394,
 run_batches :405).
@@ -105,14 +106,22 @@ class RIME(Module):
         self.time_mode = time_mode
         self.use_kernel = use_kernel
         self.vis_sharding = vis_sharding
-        self.freqs = np.asarray(freqs, dtype=np.float64)
-        self.Nfreqs = len(self.freqs)
-        self.array.set_freqs(self.freqs)
+        self.setup_freqs(freqs)
         self.setup_sim_bls(sim_bls, data_bls)
         self.setup_sim_times(times)
         self.precompute()
 
     # ------------------------------------------------------------ setup
+    def setup_freqs(self, freqs):
+        """The channels [Hz] to simulate (the array gets them too). The
+        precompute does not depend on them, so a frequency minibatch is
+        setup_freqs(f[idx]) with the sky's R.set_freq_index(idx) and the
+        beam's freq_interp(f[idx]); a regular grid keeps the fused
+        kernel."""
+        self.freqs = np.asarray(freqs, dtype=np.float64)
+        self.Nfreqs = len(self.freqs)
+        self.array.set_freqs(self.freqs)
+
     def setup_sim_bls(self, sim_bls, data_bls=None):
         """Baseline groups (a dict, a list of lists, or one list of
         baselines), their antenna indices on the device, and per group

@@ -3,10 +3,15 @@ Sky models: point-source and pixelized skies with a frequency response,
 several components, and the Stokes -> coherency conversion.
 
 Counterpart of bayeslim_tpu/models/sky.py (DefaultResponse :33, SkyBase
-:49, PointSky :108, PointSkyResponse :115, PixelSky :158,
-PixelSkyResponse :178, CompositeModel :275, stokes2coherency :328,
-Stokes2Coherency :363, read_catalogue :375, write_catalogue :434,
-SphHarmSky :499, pixelsky_Ylm_cut :559).
+:49 with freq_interp :92, PointSky :108, PointSkyResponse :115,
+PixelSky :158, PixelSkyResponse :178, CompositeModel :275,
+stokes2coherency :328, Stokes2Coherency :363, read_catalogue :375,
+write_catalogue :434, Jy2K :485, SphHarmSky :499, InterpSky :523,
+ang_index :541, pixelsky_Ylm_cut :559, eqarea_grid :586,
+index_sky_pixels :598). Frequency minibatching: every response's
+set_freq_index selects channels of its output (the identity's is a
+no-op), and SkyBase.freq_interp moves channel-mode params onto new
+channels.
 Conventions kept: sky data (Nstokes, 1, Nfreqs, Npix) or a (2, 2,
 Nfreqs, Npix) coherency; angs (2, Npix) equatorial [RA, Dec] in
 degrees; PixelSky multiplies by the pixel solid angle so the output is
@@ -29,6 +34,7 @@ from torch import nn
 
 from ..data.containers import MapData
 from ..utils.dtypes import _float, resolve_device, viewcomp
+from ..utils.indexing import freq_interp as _interp_freqs
 from ..utils.module import Module
 from ..ops.sph_harm import SFBModel
 
@@ -36,7 +42,8 @@ __all__ = ["SkyBase", "DefaultResponse", "PointSky", "PointSkyResponse",
            "PixelSky", "PixelSkyResponse", "CompositeModel",
            "Stokes2Coherency", "CoherencySky", "stokes2coherency",
            "SphHarmSky", "pixelsky_Ylm_cut", "read_catalogue",
-           "write_catalogue"]
+           "write_catalogue", "Jy2K", "InterpSky", "ang_index",
+           "eqarea_grid", "index_sky_pixels"]
 
 
 class DefaultResponse(Module):
@@ -47,8 +54,23 @@ class DefaultResponse(Module):
         self.freqs = None if freqs is None else np.asarray(freqs)
         self.freq_mode = "channel"
 
+    def set_freq_index(self, idx=None):
+        """No-op for the identity response."""
+
     def forward(self, params):
         return params
+
+
+def _select_freqs(resp, params):
+    """The channels resp.set_freq_index chose, along axis -2 (all when
+    none were chosen); the index goes to params' device once."""
+    if resp._freq_idx is None:
+        return params
+    if resp._freq_idx_dev is None \
+            or resp._freq_idx_dev.device != params.device:
+        resp._freq_idx_dev = torch.as_tensor(resp._freq_idx,
+                                             device=params.device)
+    return params.index_select(params.ndim - 2, resp._freq_idx_dev)
 
 
 class PointSkyResponse(Module):
@@ -60,7 +82,8 @@ class PointSkyResponse(Module):
     coefficients; 'powerlaw': params hold amplitude and spectral index,
     out = amp (f / f0) ** spix. log: the amplitude (powerlaw) or the
     output (channel, linear) is exp of the params. LM: an optional
-    callable applied to the params first.
+    callable applied to the params first. set_freq_index selects
+    channels of the output.
     """
 
     def __init__(self, freqs, freq_mode="channel", log=False, LM=None,
@@ -77,19 +100,27 @@ class PointSkyResponse(Module):
         self.register_buffer("_freqs_arr", torch.as_tensor(
             self.freqs, dtype=dtype or _float(),
             device=resolve_device(device)))
+        self.set_freq_index(None)
+
+    def set_freq_index(self, idx=None):
+        """Select these channels of the output (None: all)."""
+        self._freq_idx = None if idx is None else np.asarray(idx)
+        self._freq_idx_dev = None
 
     def forward(self, params):
         if self.LM is not None:
             params = self.LM(params)
         if self.freq_mode == "linear":
             params = self.freq_LM(params)
-        elif self.freq_mode == "powerlaw":
+        if self.freq_mode == "powerlaw":
             amp = params[..., 0:1, :]
             if self.log:
                 amp = torch.exp(amp)
-            return amp * (self._freqs_arr[:, None] / self.f0) \
+            params = amp * (self._freqs_arr[:, None] / self.f0) \
                 ** params[..., 1:2, :]
-        return torch.exp(params) if self.log else params
+        elif self.log:
+            params = torch.exp(params)
+        return _select_freqs(self, params)
 
 
 class PixelSkyResponse(Module):
@@ -194,13 +225,7 @@ class PixelSkyResponse(Module):
             params = params + self.sky0
         if self.abs_output:
             params = torch.abs(params)
-        if self._freq_idx is not None:
-            if self._freq_idx_dev is None \
-                    or self._freq_idx_dev.device != params.device:
-                self._freq_idx_dev = torch.as_tensor(self._freq_idx,
-                                                     device=params.device)
-            params = params.index_select(params.ndim - 2, self._freq_idx_dev)
-        return params
+        return _select_freqs(self, params)
 
     def set_freq_index(self, idx=None):
         """Select these channels of the output (None: all)."""
@@ -245,6 +270,29 @@ class SkyBase(Module):
         md.setup_meta(name=self.name)
         md.setup_data(freqs=self.R.freqs, data=sky, angs=self.angs_np)
         return md
+
+    def freq_interp(self, freqs, kind="linear"):
+        """Move the sky onto the channels freqs [Hz]: for a 'channel'
+        response the params are interpolated along their frequency axis
+        (2) by scipy's interp1d of this kind, extrapolating, on the host
+        in float64, and written back on their device in their dtype (a
+        trainable one stays the same nn.Parameter); R.freqs becomes
+        freqs. Nothing happens when freqs already match R.freqs to 1 Hz.
+        Other responses keep their params and, as in the JAX package,
+        evaluate at their own channels."""
+        freqs = np.asarray(freqs, dtype=np.float64)
+        cur = np.asarray(self.R.freqs)
+        if len(freqs) == len(cur) and np.allclose(cur, freqs, atol=1.0):
+            return
+        if self.R.freq_mode == "channel":
+            new = _interp_freqs(self.params, cur.astype(np.float64), freqs,
+                              kind, 2)
+            if isinstance(self.params, nn.Parameter):
+                with torch.no_grad():
+                    self.params.data = new
+            else:
+                self.params = new
+        self.R.freqs = freqs
 
 
 class PointSky(SkyBase):
@@ -542,3 +590,73 @@ def pixelsky_Ylm_cut(obj, lmin=None, lmax=None, mmin=None, mmax=None,
     else:
         obj.params = new
     return idx
+
+
+def Jy2K(freqs, steradians=None, px_area=None):
+    """Jy -> K conversion factor at each frequency [Hz] for a pixel of
+    solid angle steradians (px_area its other name): 1e-26 c^2 / (2 kB
+    nu^2 Omega), host float64."""
+    px_area = steradians if steradians is not None else px_area
+    kb = 1.380649e-23
+    c = 2.99792458e8
+    freqs = np.asarray(freqs, dtype=np.float64)
+    return 1e-26 * c ** 2 / (2 * kb * freqs ** 2 * px_area)
+
+
+class InterpSky(Module):
+    """A sky model whose output map goes through freq_interp (a callable
+    on MapData, e.g. onto new channels) at forward time; the result's
+    freqs become new_freqs."""
+
+    def __init__(self, sky, freq_interp=None, new_freqs=None, name=None):
+        super().__init__(name=name)
+        self.sky = sky
+        self.freq_interp = freq_interp
+        self.new_freqs = None if new_freqs is None else np.asarray(new_freqs)
+
+    def forward(self, *args, prior_cache=None, **kwargs):
+        skymap = self.sky(prior_cache=prior_cache)
+        if self.freq_interp is not None:
+            skymap = self.freq_interp(skymap)
+            skymap.freqs = self.new_freqs
+        return skymap
+
+
+def ang_index(theta, phi, theta_min=None, theta_max=None, phi_min=None,
+              phi_max=None):
+    """Indices of the angles within the cuts (a cut of 0 or None is not
+    applied), host numpy."""
+    theta = np.asarray(theta)
+    phi = np.asarray(phi)
+    idx = np.ones(len(theta), dtype=bool)
+    if phi_min:
+        idx &= phi >= phi_min
+    if phi_max:
+        idx &= phi <= phi_max
+    if theta_min:
+        idx &= theta >= theta_min
+    if theta_max:
+        idx &= theta <= theta_max
+    return np.where(idx)[0]
+
+
+def eqarea_grid(resol):
+    """Equal-area (theta, phi) grid [rad] with a cell side of resol
+    degrees at the equator: theta from equal steps in cos theta."""
+    n = int(2 * np.pi / (resol * np.pi / 180))
+    phi, dphi = np.linspace(0, 2 * np.pi, n, endpoint=False, retstep=True)
+    t = np.arange(0, 1, dphi)
+    t = np.concatenate([t[::-1], -t[1:]])
+    theta = np.arccos(t)
+    return theta, phi
+
+
+def index_sky_pixels(angs_large, angs_small):
+    """For each angle of angs_small (2, N) [deg], the index of the
+    nearest angle of angs_large (2, M), host numpy."""
+    large = np.asarray(angs_large, dtype=np.float64).T
+    idx = []
+    for ph, th in zip(*np.asarray(angs_small)):
+        target = np.asarray([ph % 360 % 360, th])
+        idx.append(int(np.argmin(np.linalg.norm(large - target, axis=1))))
+    return np.asarray(idx)

@@ -3,8 +3,10 @@ Telescope location, ephemeris, redundant groups and the antenna array.
 
 Counterpart of bayeslim_tpu/models/telescope.py (ephemeris :44-277,
 top2eq :280, JD2LST / JD2RA :315-327, eq2top_m / top2eq_m :328-353,
-vis_rephase :354, TelescopeModel :377, build_reds :441, ArrayModel
-:615 with get_bls :750, match_red_blvec :788). The ephemeris
+vis_rephase :354, TelescopeModel :377 with hash, clear_cache and the
+cached eq2top / top2eq :394-420, build_reds :441, ArrayModel :615
+with set_freq_index :662, match_bl_len :675, gen_fringe :712 and
+get_bls :750, match_red_blvec :788). The ephemeris
 (sidereal time, IAU 1976 precession, IAU 1980 nutation, annual
 aberration) is host numpy, copied from the JAX package so the port
 needs no astropy and gives the same angles: it is a precompute stage
@@ -19,8 +21,9 @@ import itertools
 import numpy as np
 import torch
 
+from ..ops.phase import fringe_phasor
 from ..utils.dtypes import C_MS, D2R, R2D, _float, resolve_device
-from ..utils.indexing import AntposDict
+from ..utils.indexing import AntposDict, ants2blnum
 from ..utils.module import Module
 
 __all__ = ["TelescopeModel", "ArrayModel", "build_reds", "eq2top",
@@ -376,20 +379,49 @@ def vis_rephase(dlst, lat, blvecs, freqs, device=None, dtype=None):
 
 class TelescopeModel(Module):
     """Earth location (lon_deg, lat_deg, alt_m) and the host-side
-    RA/Dec -> zen/az conversion. Holds no tensors."""
+    RA/Dec <-> zen/az conversions, with a cache of conversions
+    (conv_cache). Holds no tensors."""
 
     def __init__(self, location, name=None, apparent=True):
         super().__init__(name=name)
         self.location = tuple(float(x) for x in location)
         self.apparent = apparent
+        self.conv_cache = {}
 
-    def eq2top(self, time, ra, dec):
-        """RA/Dec [deg] -> zen/az [deg] (host numpy)."""
-        return eq2top(self.location, time, ra, dec, apparent=self.apparent)
+    @staticmethod
+    def hash(time, arr):
+        """Cache key of a conversion: the time and the angle array's
+        first and last values and size."""
+        a = np.atleast_1d(np.asarray(arr))
+        return hash((float(time), float(a[0]), float(a[-1]), a.size))
 
-    def top2eq(self, time, zen, az):
-        """zen/az [deg] -> RA/Dec [deg] (host numpy)."""
-        return top2eq(self.location, time, zen, az, apparent=self.apparent)
+    def clear_cache(self, key=None):
+        """Drop one cached conversion (None: all)."""
+        if key is None:
+            self.conv_cache.clear()
+        else:
+            self.conv_cache.pop(key, None)
+
+    def _cached(self, fn, time, a, b, store, key):
+        key = key if key is not None else self.hash(
+            np.atleast_1d(np.asarray(time))[0], a)
+        if key in self.conv_cache:
+            return self.conv_cache[key]
+        out = fn(self.location, time, a, b, apparent=self.apparent)
+        if store:
+            self.conv_cache[key] = out
+        return out
+
+    def eq2top(self, time, ra, dec, store=False, key=None, **kwargs):
+        """RA/Dec [deg] -> zen/az [deg] (host numpy). A conversion cached
+        under key (default: hash(time, ra)) is returned from the cache;
+        store=True caches this one."""
+        return self._cached(eq2top, time, ra, dec, store, key)
+
+    def top2eq(self, time, zen, az, store=False, key=None, **kwargs):
+        """zen/az [deg] -> RA/Dec [deg] (host numpy), cached as eq2top
+        (default key: hash(time, zen))."""
+        return self._cached(top2eq, time, zen, az, store, key)
 
     def JD2RA(self, jd):
         return JD2RA(self.location, jd)
@@ -403,16 +435,28 @@ class TelescopeModel(Module):
 # ---------------------------------------------------------------------------
 
 def build_reds(antpos, bls=None, red_bls=None, redtol=1.0, min_len=None,
-               max_len=None, skip_reds=False):
+               max_len=None, min_EW_len=None, exclude_reds=None,
+               skip_reds=False, norm_vec=False, use_blnums=False,
+               use_2d=False, fcluster=False, red_info=None):
     """Redundant baseline groups by quantizing baseline vectors onto a
     redtol lattice and merging neighbouring cells within redtol. The
     groups are sorted by length (angle breaking ties), or, with red_bls,
     in the order of the groups holding those baselines (either
     orientation).
 
-    Returns (reds, redvecs, bl2red, bls, redlens, redangs, redtags),
-    as the JAX package's build_reds does for these options.
+    Cuts: min_len < |b| < max_len, |b_E| > min_EW_len, and no baseline
+    within redtol of an exclude_reds baseline (either orientation).
+    use_2d groups by the EN components alone; norm_vec by length alone
+    (the vectors become (|b|, 0, 0)). skip_reds makes every baseline
+    its own group (bl2red empty). use_blnums returns the groups and bls
+    as baseline integers. fcluster (scipy's hierarchical clustering) is
+    accepted: the lattice gives the same redtol partition. red_info, a
+    previous result, is returned as it is.
+
+    Returns (reds, redvecs, bl2red, bls, redlens, redangs, redtags).
     """
+    if red_info is not None:
+        return red_info
     ap = antpos if isinstance(antpos, AntposDict) else AntposDict(
         list(antpos.keys()), np.stack([np.asarray(v)
                                        for v in antpos.values()]))
@@ -422,16 +466,31 @@ def build_reds(antpos, bls=None, red_bls=None, redtol=1.0, min_len=None,
     bls = [tuple(bl) for bl in bls]
 
     antvecs = ap.asnumpy()
-    bl_vecs = antvecs[ap.index([bl[1] for bl in bls])] - \
+    raw_vecs = antvecs[ap.index([bl[1] for bl in bls])] - \
         antvecs[ap.index([bl[0] for bl in bls])]
+    bl_vecs = raw_vecs[:, :2] if use_2d else raw_vecs
     bl_lens = np.linalg.norm(bl_vecs, axis=1)
+    if norm_vec:
+        bl_vecs = np.zeros_like(bl_vecs)
+        bl_vecs[:, 0] = bl_lens
     keep = np.ones(len(bls), dtype=bool)
     if min_len is not None:
         keep &= bl_lens > min_len
     if max_len is not None:
         keep &= bl_lens < max_len
+    if min_EW_len is not None:
+        keep &= np.abs(bl_vecs[:, 0]) > min_EW_len
+    if exclude_reds is not None:
+        evecs = antvecs[ap.index([bl[1] for bl in exclude_reds])] - \
+            antvecs[ap.index([bl[0] for bl in exclude_reds])]
+        if use_2d:
+            evecs = evecs[:, :2]
+        for ev in evecs:
+            keep &= np.linalg.norm(bl_vecs - ev, axis=1) > redtol
+            keep &= np.linalg.norm(bl_vecs + ev, axis=1) > redtol
     bls = [bl for bl, k in zip(bls, keep) if k]
     bl_vecs = bl_vecs[keep]
+    raw_vecs = raw_vecs[keep]
     blpos = {bl: i for i, bl in enumerate(bls)}
 
     if skip_reds:
@@ -479,8 +538,13 @@ def build_reds(antpos, bls=None, red_bls=None, redtol=1.0, min_len=None,
     reds = [sorted(r) for r in reds]
     rvec, lens, angs, tags = [], [], [], []
     for r in reds:
-        v = bl_vecs[blpos[r[0]]].copy()
+        v = raw_vecs[blpos[r[0]]].copy()
+        if use_2d:
+            v = v[:2]
         ln = np.linalg.norm(v)
+        if norm_vec:
+            v = np.zeros_like(v)
+            v[0] = ln
         ang = np.arctan2(v[1], v[0]) * R2D
         if v[1] < 0:
             ang += 180.0
@@ -511,6 +575,9 @@ def build_reds(antpos, bls=None, red_bls=None, redtol=1.0, min_len=None,
     bl2red = {bl: i for i, red in enumerate(reds) for bl in red}
     if skip_reds:
         bl2red = {}
+    if use_blnums:
+        reds = [list(ants2blnum(red)) for red in reds]
+        out_bls = np.asarray(ants2blnum(out_bls))
     return reds, rvec, bl2red, out_bls, lens, angs, tags
 
 
@@ -525,12 +592,23 @@ class ArrayModel(Module):
     parameter=True; its gradient flows through tau = b.s/c (on CUDA
     through the tau-cotangent kernel, csrc/rime_dtau.cu). Baseline
     bookkeeping (redundant groups, get_bls) uses the positions given at
-    construction.
+    construction. cache_s, cache_depth, cache_f, cache_f_angs and
+    interp_mode (the reference's run-time fringe and pointing caches)
+    are accepted and stored, as in the JAX package: the angle work is
+    precomputed once on the host (RIME.precompute), so nothing is
+    cached at run time. red_kwargs go to build_reds.
     """
 
     def __init__(self, antpos, freqs=None, parameter=False, redtol=1.0,
-                 name=None, device=None, dtype=None, **red_kwargs):
+                 name=None, device=None, dtype=None, cache_s=True,
+                 cache_depth=None, cache_f=False, cache_f_angs=None,
+                 interp_mode="bilinear", **red_kwargs):
         super().__init__(name=name)
+        self.cache_s = cache_s
+        self.cache_depth = cache_depth
+        self.cache_f = cache_f
+        self.cache_f_angs = cache_f_angs
+        self.interp_mode = interp_mode
         if isinstance(antpos, dict):
             antpos = AntposDict(list(antpos.keys()),
                                 np.stack([np.asarray(v)
@@ -550,8 +628,36 @@ class ArrayModel(Module):
                                                   **red_kwargs)
 
     def set_freqs(self, freqs):
-        self.freqs = None if freqs is None \
+        """The full frequency grid [Hz] (None: none); drops any index."""
+        self._freqs_full = None if freqs is None \
             else np.asarray(freqs, dtype=np.float64)
+        self.freqs = self._freqs_full
+        self._freq_idx = None
+
+    def set_freq_index(self, idx=None):
+        """freqs becomes the full grid's channels idx; every call indexes
+        the full grid, and None restores it."""
+        if not hasattr(self, "_freqs_full"):
+            # an array pickled before the index existed: its grid is full
+            self._freqs_full = self.freqs
+        self._freq_idx = None if idx is None else np.asarray(idx)
+        self.freqs = self._freqs_full if idx is None \
+            else self._freqs_full[self._freq_idx]
+
+    def match_bl_len(self, bl, bls):
+        """The first baseline of bls whose redundant group's length is
+        within redtol of bl's: (its group's angle minus bl's [deg], that
+        baseline), or (0, False) when none is."""
+        match, ang = False, 0.0
+        bllen = self.redlens[self.bl2red[bl]]
+        blang = self.redangs[self.bl2red[bl]]
+        for _bl in bls:
+            i = self.bl2red[_bl]
+            if np.isclose(bllen, self.redlens[i], atol=self.redtol):
+                ang = self.redangs[i] - blang
+                match = _bl
+                break
+        return ang, match
 
     def to_antpos(self):
         """The current (possibly trained) antenna positions."""
@@ -576,6 +682,29 @@ class ArrayModel(Module):
         differentiable."""
         a1, a2 = self.bl_index(bls)
         return self.antvecs[a2] - self.antvecs[a1]
+
+    def gen_fringe(self, blvecs, s=None, zen=None, az=None, conj=False,
+                   freqs=None):
+        """Fringe exp(2 pi i f b.s / c), (Nbls, Nfreqs, Npix), on blvecs'
+        device in its precision (complex), through ops/phase.py's
+        reduced phase; differentiable in blvecs.
+
+        blvecs (Nbls, 3) [m]; s (3, Npix) unit pointing vectors (a tensor
+        or an array), or zen, az (Npix,) [deg] from which s is formed on
+        the device, (sin zen sin az, sin zen cos az, cos zen); conj
+        conjugates; freqs [Hz] overrides the array's."""
+        dev, rdt = blvecs.device, blvecs.dtype
+        if s is None:
+            zr = torch.as_tensor(zen, dtype=rdt, device=dev) * D2R
+            ar = torch.as_tensor(az, dtype=rdt, device=dev) * D2R
+            s = torch.stack([torch.sin(zr) * torch.sin(ar),
+                             torch.sin(zr) * torch.cos(ar), torch.cos(zr)])
+        else:
+            s = torch.as_tensor(s, dtype=rdt, device=dev)
+        f = self.freqs if freqs is None \
+            else np.asarray(freqs, dtype=np.float64)
+        tau = (blvecs @ s) / C_MS                   # (Nbls, Npix)
+        return fringe_phasor(tau, f, conj=conj).movedim(-1, 1)
 
     @staticmethod
     def s_vector(zen, az):

@@ -1,7 +1,7 @@
 """
 Default dtype and device policy, physical constants, complex views.
 
-Counterpart of bayeslim_tpu/utils/dtypes.py.
+Counterpart of bayeslim_tpu/utils/dtypes.py (isreal_view :75).
 
 - The default real dtype is float32 (the working type on the card);
   float64 is asked for explicitly (the CPU parity tests do so).
@@ -16,7 +16,7 @@ import torch
 
 __all__ = [
     "_float", "set_default_dtype", "resolve_device",
-    "viewreal", "viewcomp", "D2R", "R2D", "C_MS",
+    "viewreal", "viewcomp", "isreal_view", "D2R", "R2D", "C_MS",
 ]
 
 D2R = np.pi / 180.0
@@ -63,3 +63,12 @@ def viewreal(x):
     if not x.is_complex():
         return x
     return torch.stack([x.real, x.imag], dim=-1)
+
+
+def isreal_view(x):
+    """True if x (a tensor or an array) looks like a real-pair view of
+    a complex array: real, with a trailing axis of 2."""
+    if isinstance(x, torch.Tensor):
+        return (not x.is_complex()) and x.ndim > 0 and x.shape[-1] == 2
+    x = np.asarray(x)
+    return (not np.iscomplexobj(x)) and x.ndim > 0 and x.shape[-1] == 2

@@ -188,8 +188,13 @@ Phases, one line each; any failure exits non-zero:
    GPFilter(residual=True), one a bin of baseline length (sinc
    covariance of half-width tau = the bin's longest b / c + 100 ns, Cn =
    1e-9 I); the target the chain at a seeded truth plus unit noise,
-   filtered; 3 L-BFGS steps whose loss falls, rime_fwd and rime_dtau
-   launches exactly times x chunks x evaluations; build seconds (of
+   filtered; then the filter at FILT_LBFGS_SUPPRESSION (1e4; at 1e9
+   the float32 gradient is rounding noise, ROADMAP C10), where two
+   evaluations' gradients must differ by at most C10_SPREAD and the
+   float64 chain's (build_filt in float64 on the card, the same start,
+   filter and noisy cube) by at most C10_ERR of each leaf's max before 3
+   L-BFGS steps whose loss falls, rime_fwd and rime_dtau launches
+   exactly times x chunks x evaluations; build seconds (of
    them the host float64 inversions), peak memory, chi^2/dof; the
    float32 filtered cube within 1e-5 of the input's rms of the float64
    filter on the card (and with G in float32), each bin's in-band
@@ -304,7 +309,26 @@ Phases, one line each; any failure exits non-zero:
    pixels). Each rank's rime_fwd and rime_dtau launches equal to its
    local times x pixel chunks x evaluations (by model pair in C), its
    walls, the collectives' host time and bytes and its peak memory;
-   with two or more cards stage A again over NCCL, one rank a card.
+   with two or more cards stage A again over NCCL, one rank a card;
+24. main path 17, hera-fmb, frequency minibatching at hera-stat's full
+   width (build_fmb): the sky in channel mode at FMB["nknots"] knots
+   over 100-200 MHz (hera-stat's power law sampled there), moved onto
+   the 1024 channels by PixelSky.freq_interp; every Adam step sums the
+   gradients of FMB_BATCHES contiguous minibatches of 256 channels,
+   before each RIME.setup_freqs, the sky response's set_freq_index and
+   the beam's freq_interp (fmb_point), the target's channels selected
+   (fmb_probs); the summed loss within TOL and the summed gradient
+   within FMB_GRAD_TOL of each leaf's max of one full-band evaluation;
+   the first minibatch's loss within TOL of the CPU float64 plain path
+   at full width; FMB_STEPS + 1 steps whose loss falls, rime_fwd
+   launches exactly 2 x times x pixel chunks a minibatch (R = 256 rows)
+   and no rime_dtau; the four strided minibatches (every fourth channel
+   from each offset, still regular grids) summed against the same
+   full-band evaluation at the same bars, with their launches; step
+   walls (the first, then the
+   median), CUDA-event ms a minibatch and peak memory, and the same for
+   full-band steps beside them; one minibatch's and one full-band
+   evaluation under torch.profiler.
    Then the JSON line of all nine kernels.
 
 Each torch.profiler run launches PROFILE_MARKS spin kernels before the
@@ -365,6 +389,18 @@ STAT_STEPS_BEFORE_MS, STAT_PEAK_BEFORE_GIB = (22.8, 19.4), 2.15
 # baseline length, and the delay [s] each bin's filter keeps beyond its
 # longest horizon delay
 FILT_NDEG, FILT_BINS, FILT_BUFFER = 16, 8, 100e-9
+# hera-filt's L-BFGS (ROADMAP C10): the float32 gradient counts only
+# where two evaluations differ by at most C10_SPREAD of each leaf's max
+# and the float64 chain's by at most C10_ERR. At config #5's suppression
+# of 1e9 neither holds, whatever stage runs in float64
+# (bayeslim_tpu_torch/scripts/c10_stages.py on an NVIDIA H100 80GB HBM3
+# at 700 W: the antennas' error 0.22-0.39 for every stage); the largest
+# suppression at which the chain as built meets both is 1e4 (at 1e5 the
+# antennas' spread read 1.13e-3). So the L-BFGS filters at
+# FILT_LBFGS_SUPPRESSION, gated on both bars against the float64 chain
+# (its pixel chunk FILT_F64_CHUNK)
+FILT_LBFGS_SUPPRESSION, C10_SPREAD, C10_ERR = 1e4, 1e-3, 1e-2
+FILT_F64_CHUNK = 256
 # hera-coupling (phase 19): the longest antenna separation [m] that
 # couples (three hex spacings of 15 m, plus a margin)
 COUPLING_MAX_LEN = 46.0
@@ -384,11 +420,19 @@ SHARD = AVG
 SHARD_LOSS_TOL, SHARD_EVALS, SHARD_STEPS = 1e-6, 3, 3
 # stage A's filter noise (a suppression of 100, as phase 7's hera-filt
 # case): at hera-filt's 1e-9 the float32 gradient is at its rounding
-# noise (phase 17 prints two evaluations' difference), and the times'
-# sums in another order move it by tens of per cent; so stage A checks
-# the sharding, not config #5's own filter (ROADMAP C10)
+# noise (no stage in float64 brings it within C10_ERR of the float64
+# chain's, FILT_LBFGS_SUPPRESSION above), and the times' sums in another
+# order move it by tens of per cent; so stage A checks the sharding, not
+# config #5's own filter (ROADMAP C10)
 SHARD_FILT_NOISE = 1e-2
 SHARD_STAGE_S, SHARD_COLL_S = 300, 120
+# hera-fmb (phase 24): hera-stat's case with the sky in channel mode at
+# FMB_KNOTS channels over the band, interpolated onto its channels, and
+# every Adam step FMB_BATCHES contiguous frequency minibatches; the
+# steps after the first that are timed, and the bar of the summed
+# gradient against one full-band evaluation (of each leaf's max)
+FMB = dict(HERA, nknots=128)
+FMB_BATCHES, FMB_STEPS, FMB_GRAD_TOL = 4, 10, 1e-5
 AVG_BINS = [[0, 1], [2, 3]]
 AVG_SUB_BLS, AVG_SUB_FREQS = 2048, (0, 341, 682, 1023)
 AVG_F64_CHUNK = 256
@@ -523,6 +567,89 @@ def build_posterior(bt, hexN, nside, nfreq, fmax, ntime, stat, pix_chunk,
     tgt.setup_meta(T, arr.to_antpos())
     tgt.setup_data(bls, times, freqs, pol="ee", data=data, icov=icov)
     return bt.LogProb(rime, tgt), bls
+
+
+def build_fmb(bt, hexN, nside, nfreq, fmax, ntime, pix_chunk, device,
+              dtype, nknots, seed=0):
+    """hera-fmb: build_posterior's hera-stat case (stat=True: the same
+    array, times, Airy beam, redundant groups and noise target with
+    icov = group counts) whose sky is in channel mode: hera-stat's
+    power law sampled at nknots channels over the band
+    (PixelSkyResponse(freq_mode='channel')), moved onto the nfreq
+    channels by PixelSky.freq_interp (linear). Returns (prob, sim_bls)
+    at the whole band."""
+    import torch
+    device = bt.resolve_device(device)
+    rng = np.random.default_rng(seed)
+    T, arr, pl, beam, freqs = build_sky_beam(
+        bt, hexN, nside, nfreq, fmax, 0.5, False, device, dtype, rng)
+    knots = np.linspace(100e6, fmax, nknots)
+    amp = pl.params.detach()[0, 0, 0].cpu().numpy().astype(np.float64)
+    params = (amp * (knots[:, None] / knots[0]) ** -2.5)[None, None]
+    R = bt.PixelSkyResponse(knots, spatial_mode="pixel",
+                            freq_mode="channel", device=device, dtype=dtype)
+    sky = bt.PixelSky(params, pl.angs_np, pl.px_area, R=R, device=device,
+                      dtype=dtype)
+    sky.freq_interp(freqs)
+    times = 2458168.3 + np.arange(ntime) * 5e-4
+    reds = [r for r in arr.reds if r[0][0] != r[0][1]]
+    bls = [r[0] for r in reds]
+    rime = bt.RIME(sky, T, beam, arr, bls, times, freqs,
+                   pix_chunk=pix_chunk)
+    shp = (1, 1, len(bls), ntime, nfreq)
+    cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
+    noise = rng.standard_normal(shp) + 1j * rng.standard_normal(shp)
+    counts = np.asarray([len(r) for r in reds], dtype=np.float64)
+    tgt = bt.VisData()
+    tgt.setup_meta(T, arr.to_antpos())
+    tgt.setup_data(bls, times, freqs, pol="ee",
+                   data=torch.as_tensor(noise, dtype=cdt, device=device),
+                   icov=torch.as_tensor(np.broadcast_to(
+                       counts[None, None, :, None, None], shp).copy(),
+                       dtype=dtype, device=device))
+    return bt.LogProb(rime, tgt), bls
+
+
+def fmb_point(rime, freqs, idx):
+    """Point hera-fmb's RIME at the channels idx of freqs (None: all):
+    the RIME's channels (setup_freqs), the sky's output channels
+    (R.set_freq_index) and the beam's (freq_interp)."""
+    f = freqs if idx is None else freqs[idx]
+    rime.setup_freqs(f)
+    rime.sky.R.set_freq_index(idx)
+    rime.beam.freq_interp(f)
+
+
+def fmb_probs(bt, prob, batches):
+    """One LogProb a minibatch of channels: the model and its target's
+    channels selected to match, the normalisation (ndim and log det of
+    the diagonal icov) that of the selection, so that the minibatches'
+    losses add up to the whole band's."""
+    probs = []
+    for idx in batches:
+        tgt = prob.target[0].select(freq_inds=idx, inplace=False)
+        tgt.set_cov(None, None, icov=tgt.icov)
+        probs.append(bt.LogProb(prob.model, tgt))
+    return probs
+
+
+def fmb_value_and_grad(prob, probs, batches, pdict, freqs, timer=None):
+    """The minibatched evaluation at pdict: each minibatch's loss and
+    gradients (the RIME pointed at its channels first), summed; the RIME
+    is left at the whole band. timer(fn) -> (result, ms) times each."""
+    loss = grads = None
+    ms = []
+    for p, idx in zip(probs, batches):
+        fmb_point(prob.model, freqs, idx)
+        if timer is None:
+            v, g = p.value_and_grad(pdict)
+        else:
+            (v, g), t = timer(lambda: p.value_and_grad(pdict))
+            ms.append(t)
+        loss = v if loss is None else loss + v
+        grads = g if grads is None else grads + g
+    fmb_point(prob.model, freqs, None)
+    return loss, grads, ms
 
 
 def cal_truth(ants, antvecs, nfreq, ant_sigma, gain_sigma, seed=1):
@@ -3419,17 +3546,49 @@ def phase_hera_filt(bt, torch, rime_cuda, pix_chunks, size=HERA, steps=3):
           f"{build_s:.1f} s, of them the {len(wedge.filters)} host float64 "
           f"inversions {info['inv_s']:.2f} s", flush=True)
     nchunks = len(pix_chunks(nsim, rime.Npix_cut))
+    # the L-BFGS filters at FILT_LBFGS_SUPPRESSION, gated on the spread
+    # of two evaluations and on the float64 chain's gradient (the same
+    # start, filter and noisy cube, the target in float64)
+    t1 = time.time()
+    lwedge = filt_wedge(bt, np.asarray(rime.freqs), rime.data_bls,
+                        info["antpos"], tgt.data.device,
+                        noise=1.0 / FILT_LBFGS_SUPPRESSION)[0]
+    vd64 = vd.copy()
+    vd64.data = vd.data.to(torch.complex128)
+    with torch.no_grad():
+        tgt64 = lwedge(vd64).data
+    seq.models["filt"] = lwedge
+    tgt.data = tgt64.to(tgt.data.dtype)
+    p64, _, _ = build_filt(bt, device=None, dtype=torch.float64,
+                           **dict(size, pix_chunk=FILT_F64_CHUNK))
+    bt.load_numpy_pdict(p64.model, {k: v.detach().double().cpu().numpy()
+                                    for k, v in seq.named_parameters()})
+    p64.model.models["filt"] = lwedge
+    p64.target[0].data = tgt64
+    g64 = p64.value_and_grad()[1]
+    del p64, vd64, tgt64
     loss0, g0 = prob.value_and_grad()
-    # a second evaluation at the same parameters: the backward's
-    # index_add adds with atomics in no fixed order, and what the filter
-    # leaves of the float32 gradient is near its rounding noise
     g1 = prob.value_and_grad()[1]
-    rep = {k: relerr(g1[k].cpu().numpy(), g0[k].cpu().numpy()) for k in g0}
-    print(f"phase 17 hera-filt: two evaluations at the start with "
-          f"PyTorch's default algorithms, their gradients differ by "
-          + ", ".join(f"{k} {v:.2e}" for k, v in rep.items())
-          + " of each leaf's max (reported, not gated)", flush=True)
-    del g1
+    spread = {k: relerr(g1[k].cpu().numpy(), g0[k].cpu().numpy())
+              for k in g0}
+    err64 = {k: relerr(g0[k].cpu().numpy(), g64[k].cpu().numpy())
+             for k in g0}
+    del g1, g64
+    print(f"phase 17 hera-filt L-BFGS at a suppression of "
+          f"{FILT_LBFGS_SUPPRESSION:g} (Cn = I / {FILT_LBFGS_SUPPRESSION:g}"
+          f"), not config #5's 1e9, where no float32 gradient meets these "
+          f"bars (ROADMAP C10): two evaluations' gradients differ by "
+          + ", ".join(f"{k} {v:.2e}" for k, v in spread.items())
+          + f" (tol {C10_SPREAD:g}), the float64 chain's by "
+          + ", ".join(f"{k} {v:.2e}" for k, v in err64.items())
+          + f" (tol {C10_ERR:g}) of each leaf's max; the filter and the "
+          f"float64 chain {time.time() - t1:.1f} s", flush=True)
+    check(all(v <= C10_SPREAD for v in spread.values()),
+          f"hera-filt gradient spread {spread}")
+    check(all(v <= C10_ERR for v in err64.values()),
+          f"hera-filt gradient vs float64 {err64}")
+    gc.collect()
+    torch.cuda.empty_cache()
     first = {ANTVECS: 1e-3, GAINS: 1e-3}
     opt = bt.LBFGS(prob, H0=first_step_H0(bt, torch, g0, first))
     torch.cuda.synchronize()
@@ -3452,7 +3611,7 @@ def phase_hera_filt(bt, torch, rime_cuda, pix_chunks, size=HERA, steps=3):
         # baselines x times x |I - G|_F^2
         eye = torch.eye(nf, device=tgt.data.device)
         noise_chi2 = sum(n * nt * float(torch.sum((eye - f.G) ** 2))
-                         for n, f in zip(bins["counts"], wedge.filters))
+                         for n, f in zip(bins["counts"], lwedge.filters))
     dof = noise_chi2 - nparams / 2
     print(f"phase 17 hera-filt main path: L-BFGS (strong Wolfe, lr 1, H0 a "
           f"DiagMat giving a first trial step of at most "
@@ -3463,7 +3622,8 @@ def phase_hera_filt(bt, torch, rime_cuda, pix_chunks, size=HERA, steps=3):
           f"{dtau} (each expected {nt} times x {nchunks} chunks x "
           f"{opt.func_evals} evaluations = {expect}); peak device memory "
           f"{peak:.2f} GiB", flush=True)
-    print(f"phase 17 hera-filt result: chi^2 {chi2:.6e} over "
+    print(f"phase 17 hera-filt result (suppression "
+          f"{FILT_LBFGS_SUPPRESSION:g}): chi^2 {chi2:.6e} over "
           f"{tgt.data.numel()} filtered visibilities; the filtered noise "
           f"alone gives {noise_chi2:.6e} (the bins' baselines x times x "
           f"|I - G|_F^2); chi^2/dof {chi2 / dof:.4f} (dof = that - "
@@ -5204,6 +5364,180 @@ def phase_hera_shard(bt, torch, rime_cuda):
     return fwd, dtau
 
 
+def phase_hera_fmb(bt, torch, rime_cuda, pix_chunks, size=FMB,
+                   steps=FMB_STEPS, nbatch=FMB_BATCHES, cpu_chunk=512):
+    """Phase 24: hera-fmb, hera-stat's case at full width run through the
+    frequency hooks (build_fmb): every Adam step sums the gradients of
+    nbatch contiguous minibatches of channels (fmb_point before each,
+    its target's channels selected). Returns rime_fwd's launches."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    prob, bls = build_fmb(bt, device=None, dtype=torch.float32, **size)
+    rime = prob.model
+    freqs = np.asarray(rime.freqs)
+    nf, nt = len(freqs), len(rime.sim_times)
+    torch.cuda.synchronize()
+    print(f"phase 24 hera-fmb build: {len(rime.array.ants)} antennas, "
+          f"{len(bls)} redundant groups, {nf} channels over "
+          f"{freqs[0] / 1e6:g}-{freqs[-1] / 1e6:g} MHz, {nt} times, "
+          f"{rime.Npix_cut} FOV pixels; the sky's params "
+          f"{tuple(rime.sky.params.shape)}, moved by PixelSky.freq_interp "
+          f"from {size['nknots']} channel-mode knots; "
+          f"{time.time() - t0:.1f} s", flush=True)
+    n = nf // nbatch
+    batches = [np.arange(i * n, (i + 1) * n) for i in range(nbatch)]
+    probs = fmb_probs(bt, prob, batches)
+    nchunks = len(pix_chunks(len(bls), rime.Npix_cut))
+    per_batch = 2 * nt * nchunks
+    pdict = prob.collect_main_params().operator(
+        lambda v: v.detach().clone().requires_grad_(True))
+
+    def timer(fn):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b)
+
+    # the summed gradient against one full-band evaluation (the chi^2 is
+    # additive over channels: only float32's summation order differs)
+    loss_mb, g_mb, _ = fmb_value_and_grad(prob, probs, batches, pdict, freqs)
+    loss_full, g_full = prob.value_and_grad(pdict)
+    gerr = {k: relerr(g_mb[k].cpu().numpy(), g_full[k].cpu().numpy())
+            for k in g_full}
+    lerr = abs(float(loss_mb) - float(loss_full)) / abs(float(loss_full))
+    print(f"phase 24 hera-fmb: {nbatch} minibatches of {n} channels summed "
+          f"against one full-band evaluation: loss {float(loss_mb)!r} vs "
+          f"{float(loss_full)!r} (rel {lerr:.2e}), gradients "
+          + ", ".join(f"{k} {v:.2e}" for k, v in gerr.items())
+          + f" of each leaf's max (tol {FMB_GRAD_TOL:g})", flush=True)
+    check(all(v <= FMB_GRAD_TOL for v in gerr.values()),
+          f"hera-fmb summed gradient vs the full band {gerr}")
+    check(lerr <= TOL, f"hera-fmb summed loss vs the full band {lerr:.2e}")
+
+    # strided minibatches: every nbatch-th channel from each offset, still
+    # regular grids (df nbatch times the band's, f0 the offset's), so the
+    # kernel runs; summed, they are the full band again
+    strided = [np.arange(j, nf, nbatch) for j in range(nbatch)]
+    rime_cuda.launches = 0
+    loss_st, g_st, _ = fmb_value_and_grad(
+        prob, fmb_probs(bt, prob, strided), strided, pdict, freqs)
+    torch.cuda.synchronize()
+    sfwd = rime_cuda.launches
+    serr = {k: relerr(g_st[k].cpu().numpy(), g_full[k].cpu().numpy())
+            for k in g_full}
+    slerr = abs(float(loss_st) - float(loss_full)) / abs(float(loss_full))
+    print(f"phase 24 hera-fmb {nbatch} strided minibatches (every "
+          f"{nbatch}th channel, df {freqs[nbatch] - freqs[0]:.1f} Hz) summed "
+          f"against the full band: loss {float(loss_st)!r} (rel "
+          f"{slerr:.2e}), gradients "
+          + ", ".join(f"{k} {v:.2e}" for k, v in serr.items())
+          + f" of each leaf's max (tol {FMB_GRAD_TOL:g}); rime_fwd launches "
+          f"{sfwd} (expected {nbatch * per_batch})", flush=True)
+    check(all(v <= FMB_GRAD_TOL for v in serr.values()),
+          f"hera-fmb strided summed gradient vs the full band {serr}")
+    check(slerr <= TOL,
+          f"hera-fmb strided summed loss vs the full band {slerr:.2e}")
+    check(sfwd == nbatch * per_batch,
+          f"strided launches {sfwd} != {nbatch * per_batch}")
+    del g_mb, g_full, g_st
+
+    # the first minibatch's loss against the CPU float64 plain path
+    fmb_point(rime, freqs, batches[0])
+    v32 = float(probs[0].value_and_grad(pdict)[0])
+    fmb_point(rime, freqs, None)
+    t1 = time.time()
+    p64, _ = build_fmb(bt, device="cpu", dtype=torch.float64,
+                       **dict(size, pix_chunk=cpu_chunk))
+    fmb_point(p64.model, freqs, batches[0])
+    with torch.no_grad():
+        v64 = float(fmb_probs(bt, p64, batches[:1])[0]())
+    del p64
+    err64 = abs(v32 - v64) / abs(v64)
+    print(f"phase 24 hera-fmb first minibatch's loss on the card (float32, "
+          f"kernels) {v32!r} vs the CPU float64 plain path {v64!r}: rel "
+          f"{err64:.2e} (tol {TOL:g}); the CPU build and evaluation "
+          f"{time.time() - t1:.1f} s", flush=True)
+    check(err64 <= TOL, f"hera-fmb card vs CPU loss {err64:.2e}")
+
+    # Adam steps of summed minibatches
+    opt = torch.optim.Adam(pdict.values(), lr=1e-3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rime_cuda.launches = rime_cuda.dtau_launches = 0
+    losses, walls, mb_ms = [], [], []
+    for _ in range(steps + 1):
+        t1 = time.time()
+        loss, grads, ms = fmb_value_and_grad(prob, probs, batches, pdict,
+                                             freqs, timer)
+        for p, g in zip(pdict.values(), grads.values()):
+            p.grad = g
+        opt.step()
+        torch.cuda.synchronize()
+        walls.append((time.time() - t1) * 1e3)
+        losses.append(float(loss))
+        mb_ms.extend(ms)
+    fwd, dtau = rime_cuda.launches, rime_cuda.dtau_launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    expect = (steps + 1) * nbatch * per_batch
+    print(f"phase 24 hera-fmb main path: Adam (lr 1e-3), {steps + 1} steps "
+          f"of {nbatch} minibatches: losses {losses}; step wall first "
+          f"{walls[0]:.1f} ms, median of the next {steps} "
+          f"{np.median(walls[1:]):.1f} ms (walls {np.round(walls, 1)}); "
+          f"ms a minibatch by CUDA events (host gaps included) median "
+          f"{np.median(mb_ms):.3f}, first {mb_ms[0]:.3f}; rime_fwd launches "
+          f"{fwd} (expected {per_batch} a minibatch, "
+          f"{nbatch * per_batch} a step: {expect}), rime_dtau {dtau} "
+          f"(expected 0); peak device memory {peak:.2f} GiB", flush=True)
+    check(all(np.isfinite(losses)), "non-finite hera-fmb loss")
+    check(losses[-1] < losses[0], "hera-fmb loss did not decrease")
+    check(fwd == expect, f"hera-fmb launches {fwd} != {expect}")
+    check(dtau == 0, f"hera-fmb launched rime_dtau {dtau} times")
+    fwd += sfwd
+
+    # full-band steps beside them, from the same start
+    full = prob.collect_main_params().operator(
+        lambda v: v.detach().clone().requires_grad_(True))
+    fopt = torch.optim.Adam(full.values(), lr=1e-3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rime_cuda.launches = 0
+    fwalls, fms = [], []
+    for _ in range(steps + 1):
+        t1 = time.time()
+        (loss, grads), ms = timer(lambda: prob.value_and_grad(full))
+        for p, g in zip(full.values(), grads.values()):
+            p.grad = g
+        fopt.step()
+        torch.cuda.synchronize()
+        fwalls.append((time.time() - t1) * 1e3)
+        fms.append(ms)
+    ffwd = rime_cuda.launches
+    fpeak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase 24 hera-fmb full-band steps beside them: step wall first "
+          f"{fwalls[0]:.1f} ms, median of the next {steps} "
+          f"{np.median(fwalls[1:]):.1f} ms; ms an evaluation by CUDA events "
+          f"median "
+          f"{np.median(fms[1:]):.3f}; rime_fwd launches {ffwd} (expected "
+          f"{(steps + 1) * per_batch}); peak device memory {fpeak:.2f} GiB",
+          flush=True)
+    check(ffwd == (steps + 1) * per_batch,
+          f"hera-fmb full-band launches {ffwd}")
+    fwd += ffwd
+    # device busy against the wall: one minibatch and one full band
+    fmb_point(rime, freqs, batches[0])
+    profile(torch, lambda: probs[0].value_and_grad(pdict),
+            "phase 24 profile of one minibatch's evaluation")
+    fmb_point(rime, freqs, None)
+    profile(torch, lambda: prob.value_and_grad(full),
+            "phase 24 profile of one full-band evaluation")
+    print(f"phase 24 wall {time.time() - t0:.1f} s", flush=True)
+    return fwd
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5368,6 +5702,7 @@ def main():
     avg_fwd = phase_hera_avg(bt, torch, rime_cuda, _pix_chunks)
     io_fwd, io_dtau = phase_hera_io(bt, torch, rime_cuda, _pix_chunks)
     shard_fwd, shard_dtau = phase_hera_shard(bt, torch, rime_cuda)
+    fmb_fwd = phase_hera_fmb(bt, torch, rime_cuda, _pix_chunks)
 
     # rime_fwd: the two shapes are launched equally often on hera-stat:
     # report the mean per launch (hera-prod's and hera-alm's shapes beside
@@ -5379,7 +5714,7 @@ def main():
         "replaces": "bayeslim_tpu/ops/rime_pallas.py:298",
         "launches": stat_launches + cal_fwd + prod_fwd + redcal_fwd
         + hmc_fwd + alm_fwd + sfb_fwd + hmca_fwd + filt_fwd + img_fwd
-        + coup_fwd + hess_fwd + avg_fwd + io_fwd + shard_fwd,
+        + coup_fwd + hess_fwd + avg_fwd + io_fwd + shard_fwd + fmb_fwd,
         "launches_by_path": {"hera-stat": stat_launches, "hera-cal": cal_fwd,
                              "hera-prod": prod_fwd,
                              "hera-redcal": redcal_fwd,
@@ -5389,7 +5724,8 @@ def main():
                              "hera-filt": filt_fwd, "hera-img": img_fwd,
                              "hera-coupling": coup_fwd,
                              "hera-hess": hess_fwd, "hera-avg": avg_fwd,
-                             "hera-io": io_fwd, "hera-shard": shard_fwd},
+                             "hera-io": io_fwd, "hera-shard": shard_fwd,
+                             "hera-fmb": fmb_fwd},
         "max_abs_err": max(worst_fwd["hera-fwd"], worst_fwd["hera-bwd"]),
         "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[2],
         "bound_by": timing[0][3] if timing[0][3] == timing[1][3]
@@ -5414,7 +5750,7 @@ def main():
                              "hera-filt": filt_dtau, "hera-img": img_dtau,
                              "hera-coupling": 0, "hera-hess": hess_dtau,
                              "hera-avg": 0, "hera-io": io_dtau,
-                             "hera-shard": shard_dtau},
+                             "hera-shard": shard_dtau, "hera-fmb": 0},
         "max_abs_err": worst_dtau, "ms": dms, "plain_ms": dpms,
         "bound_ms": dbms, "bound_by": dby, "library_ms": None}]
     kernels += spikes

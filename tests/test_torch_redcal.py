@@ -354,12 +354,19 @@ def test_redcal_lbfgs_trajectory_vs_jax(redcal_case):
     assert float(aa.abs().max()) <= 1e-12 and float(ps.abs().max()) <= 1e-12
 
 
-@pytest.mark.parametrize("form", ["per-leaf", "dense"])
-def test_lbfgs_approx_cov_vs_jax(redcal_case, form):
+@pytest.mark.parametrize("form,as_dense", [
+    ("per-leaf", True), ("dense", True), ("per-leaf", False),
+    ("dense", False)], ids=["per-leaf", "dense", "per-leaf-as_dense=False",
+                            "dense-as_dense=False"])
+def test_lbfgs_approx_cov_vs_jax(redcal_case, form, as_dense):
+    """Both forms against the JAX package at 1e-8; as_dense is accepted
+    and read by neither form, in both packages (the per-leaf form gives
+    a DiagMat, the dense form a matrix)."""
     tp, jp = _pair(redcal_case)
     if form == "per-leaf":
-        tc = bt.lbfgs_approx_cov(tp, Nsteps=2, H0=1e-3)
-        jc = jbfgs.lbfgs_approx_cov(jp, Nsteps=2, H0=1e-3)
+        tc = bt.lbfgs_approx_cov(tp, Nsteps=2, H0=1e-3, as_dense=as_dense)
+        jc = jbfgs.lbfgs_approx_cov(jp, Nsteps=2, H0=1e-3, as_dense=as_dense)
+        assert type(tc).__name__ == type(jc).__name__ == "DiagMat"
         assert tc.shape == jc.shape
         assert _relerr(tc.diag.numpy(), jc.diag) <= 1e-8
         # the probe steps moved the model, as in the JAX package
@@ -372,7 +379,8 @@ def test_lbfgs_approx_cov_vs_jax(redcal_case, form):
         to, jo = bt.LBFGS(tp, H0=1e-3), jbfgs.LBFGS(jp, H0=1e-3)
         to.minimize(3)
         jo.minimize(3)
-        tH, jH = bt.lbfgs_approx_cov(to), jbfgs.lbfgs_approx_cov(jo)
+        tH = bt.lbfgs_approx_cov(to, as_dense=as_dense)
+        jH = jbfgs.lbfgs_approx_cov(jo, as_dense=as_dense)
         assert tH.shape == jH.shape == (to.x.numel(),) * 2
         assert _relerr(tH.numpy(), jH) <= 1e-8
         np.testing.assert_allclose(tH.numpy(), tH.numpy().T, rtol=1e-12,
