@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.logging import span
 from ..utils.paramdict import ParamDict
 from .hmat import DiagMat
 
@@ -200,6 +201,7 @@ class _QuasiNewtonBase:
     def _update_curvature(self, s, y, ys, t):
         raise NotImplementedError
 
+    @span("bl.opt")
     def step(self):
         """One outer iteration (direction, line search, curvature
         update); returns the loss at the new point."""

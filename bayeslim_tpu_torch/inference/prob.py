@@ -23,6 +23,7 @@ import torch
 from ..data.containers import TensorData
 from ..data.dataset import Dataset
 from ..ops.linalg import pinv
+from ..utils.logging import span
 from ..utils.module import Module, model2pdict
 from ..utils.paramdict import ParamDict
 
@@ -560,12 +561,13 @@ class LogProb(Module):
                                     prior_cache=prior_cache)
         if isinstance(out, TensorData):
             out = out.data
-        res = out - data
-        chisq = apply_icov(res, icov, tgt.cov_axis)
-        if sum_chisq:
-            chisq = _sum_chisq(chisq)
-        if chisq.is_complex():
-            chisq = chisq.real
+        with span("bl.chisq"):
+            res = out - data
+            chisq = apply_icov(res, icov, tgt.cov_axis)
+            if sum_chisq:
+                chisq = _sum_chisq(chisq)
+            if chisq.is_complex():
+                chisq = chisq.real
         return chisq, res, prior_cache
 
     def forward_like(self, pdict=None, idx=None, main_params=None,
@@ -653,6 +655,7 @@ class LogProb(Module):
                  for k, g in zip(keys, grads)]
         return loss.detach(), ParamDict(dict(zip(keys, grads)))
 
+    @span("bl.eval")
     def value_and_grad(self, pdict=None):
         """Loss and the ParamDict of its gradients with respect to
         pdict (default: the main params), after grad_modify;

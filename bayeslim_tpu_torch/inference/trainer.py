@@ -7,7 +7,8 @@ Counterpart of bayeslim_tpu/inference/trainer.py (Trainer :22, set_opt
 its reporting: every Nreport epochs a structured event to logger
 (utils.logging.log_event) or, without one, a printed line when verbose;
 each epoch's loss and time into metrics (utils.logging.Metrics); a
-torch.profiler trace of train into profile_dir. The
+torch.profiler trace of train into profile_dir (utils.logging.trace_profile:
+its Chrome trace holds the program's bl.* spans, one bl.opt a step). The
 JAX Trainer keeps a ParamDict and an optax state; here the ParamDict's
 tensors are the leaves that a torch.optim optimizer steps in place. The
 optimizer is a factory params -> torch.optim.Optimizer (the default:
@@ -20,6 +21,8 @@ import time
 
 import numpy as np
 import torch
+
+from ..utils.logging import span
 
 __all__ = ["Trainer"]
 
@@ -94,6 +97,7 @@ class Trainer:
             return {k: np.stack(c) for k, c in self.chain.items()}
         return {k: c[idx] for k, c in self.chain.items()}
 
+    @span("bl.opt")
     def step(self):
         """One optimizer step; returns the loss (a 0-d tensor)."""
         loss, grads = self.prob.value_and_grad(self.pdict)

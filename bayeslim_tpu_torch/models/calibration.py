@@ -31,6 +31,7 @@ from ..data.containers import CalData, VisData
 from ..ops.linalg import pinv_rtol
 from ..utils.dtypes import _float, resolve_device, viewcomp, viewreal
 from ..utils.indexing import AntposDict, ants2blnum, blnum2ants, flatten
+from ..utils.logging import span
 from ..utils.module import Module
 
 __all__ = ["params2complex", "complex2params", "BaseResponse",
@@ -434,6 +435,7 @@ class JonesModel(Module, IndexCache):
             self.clear_time_cache()
         return IndexCache.index_params(self, jones, times=times)
 
+    @span("bl.jones")
     def forward(self, vd, undo=False, prior_cache=None, jones=None,
                 **kwargs):
         """Apply the gains to a VisData; returns a new VisData."""

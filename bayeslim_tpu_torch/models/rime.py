@@ -47,6 +47,7 @@ from ..ops.linalg import dual_active
 from ..ops.rime_kernel import rime_reduce
 from ..utils.dtypes import C_MS
 from ..utils.indexing import ants2blnum, flatten
+from ..utils.logging import span
 from ..utils.module import Module
 from .beam import cut_sky_fov
 from .sky import CompositeModel
@@ -286,9 +287,11 @@ class RIME(Module):
         grad = torch.is_grad_enabled() and not dual_active()
 
         def make_psky(sky, zen, az, cut, mask, *ctx):
-            csky = cut_sky_fov(sky, cut) * mask
-            b = beam.gen_beam(zen, az, ctx=ctx or None, angles_offset=True)
-            return beam.apply_beam_mp(b, mp1, mp2, csky)
+            with span("bl.psky"):
+                csky = cut_sky_fov(sky, cut) * mask
+                b = beam.gen_beam(zen, az, ctx=ctx or None,
+                                  angles_offset=True)
+                return beam.apply_beam_mp(b, mp1, mp2, csky)
 
         def one_time(sky, blvecs, pre, nested):
             args = (sky, pre["zen"], pre["az"], pre["cut"], pre["mask"]) \
@@ -298,10 +301,11 @@ class RIME(Module):
             # psky per time and recomputes the rest (the beam and sky
             # hold no randomness)
             psky = _ckpt(make_psky, *args) if nested else make_psky(*args)
-            return rime_reduce(psky, None, self.freqs, mp_idx=mp_idx,
-                               chunk=self.pix_chunk,
-                               use_kernel=self.use_kernel, blvecs=blvecs,
-                               s_c=pre["s_c"])
+            with span("bl.rime"):
+                return rime_reduce(psky, None, self.freqs, mp_idx=mp_idx,
+                                   chunk=self.pix_chunk,
+                                   use_kernel=self.use_kernel,
+                                   blvecs=blvecs, s_c=pre["s_c"])
 
         vis_t = []
         for pre in pres:
@@ -317,7 +321,8 @@ class RIME(Module):
         """Forward model -> VisData (Npol, Npol, Ndata_bls, Ntimes,
         Nfreqs) of the active batch; the sky's and the beam's priors go
         into prior_cache."""
-        comps = self.sky(prior_cache=prior_cache)
+        with span("bl.sky"):
+            comps = self.sky(prior_cache=prior_cache)
         if not isinstance(comps, list):
             comps = [comps]
         bg = self.bl_group_id
@@ -344,10 +349,11 @@ class RIME(Module):
         if pix is not None:
             vis = pix.sum_in(vis)
         if self._sim2data[bg] is not None:
-            gather = getattr(self, "_sim_gather", None)
-            if gather is not None:
-                vis = gather(vis)
-            vis = vis.index_select(2, self._sim2data[bg])
+            with span("bl.expand"):
+                gather = getattr(self, "_sim_gather", None)
+                if gather is not None:
+                    vis = gather(vis)
+                vis = vis.index_select(2, self._sim2data[bg])
         self.beam.eval_prior(prior_cache, inp_params=self.beam.params)
         pol = None
         if self.beam.Npol == 1 and self.beam.pol is not None:

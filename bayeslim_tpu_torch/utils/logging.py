@@ -7,10 +7,14 @@ Counterpart of bayeslim_tpu/utils/logging.py (get_logger :21, log_event
 file; a metrics store; a torch.profiler trace of a block; the CUDA
 caching allocator's memory statistics. Unlike the JAX trace_profile,
 an error of the profiler is raised, not swallowed.
+
+The port's own addition: ``span``, a named range of the program's
+layers in a profiler's trace, recorded only while a profiler runs.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import logging
 import os
@@ -20,9 +24,14 @@ import numpy as np
 import torch
 
 __all__ = ["log", "get_logger", "log_event", "Metrics", "trace_profile",
-           "device_memory_stats"]
+           "device_memory_stats", "span"]
 
 _LOGGER = None
+
+# torch.cuda._sleep kernels launched at the start of a CUDA trace: past a
+# process's first seconds the profiler drops the first kernels it is
+# started on (up to 63 seen), so these are dropped in their place
+PROFILE_MARKS = 1024
 
 
 def get_logger(name="bayeslim_tpu_torch", level=logging.INFO,
@@ -97,20 +106,83 @@ class Metrics:
                             + "\n")
 
 
+class _Span:
+    """What span(name) returns. Recording, it enters a RecordFunction of
+    function scope, an operation's kind of range (record_function's user
+    scope would also make the profiler put a copy of the range, as long
+    as its kernels, among the device's events, where it reads as a
+    kernel); else it does nothing. As a decorator, each call of the
+    function opens span(name) anew, so whether it records follows the
+    profiler at the call, not at the decoration."""
+    __slots__ = ("name", "_record", "_range")
+
+    def __init__(self, name, record):
+        self.name, self._record, self._range = name, record, None
+
+    def __enter__(self):
+        if self._record:
+            self._range = torch._C._profiler._RecordFunctionFast(self.name)
+            self._range.__enter__()
+
+    def __exit__(self, *exc):
+        if self._record:
+            self._range.__exit__(*exc)
+
+    def __call__(self, fn):
+        name = self.name
+
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return spanned
+
+
+_NULL_SPANS = {}
+
+
+def span(name):
+    """A named range of the program, as a context manager or a
+    decorator (``with span("bl.psky"):``, ``@span("bl.eval")``).
+
+    While a torch profiler runs (torch.autograd._profiler_enabled():
+    trace_profile, a Trainer's profile_dir, any torch.profiler),
+    it records a CPU range on the trace's clock, nested as the calls
+    are: the kernels its operations launch follow it by correlation id,
+    and the backward nodes of those operations by sequence number.
+    Otherwise it is one null context shared by every use of the name:
+    nothing is allocated or recorded, and no autograd node is added."""
+    if torch.autograd._profiler_enabled():
+        return _Span(name, True)
+    null = _NULL_SPANS.get(name)
+    if null is None:
+        null = _NULL_SPANS.setdefault(name, _Span(name, False))
+    return null
+
+
 @contextlib.contextmanager
 def trace_profile(logdir=None, enabled=True):
     """torch.profiler trace of the block (CPU, and CUDA when a card is
     present), written as a Chrome trace to logdir/trace.json; nothing
-    when disabled or without logdir."""
+    when disabled or without logdir. The trace holds the program's
+    ``bl.*`` spans (``span``) beside the operations and kernels. On a
+    card, PROFILE_MARKS spin kernels are launched before the block, so
+    that the kernels the profiler drops at its start are those and not
+    the block's first."""
     if not enabled or logdir is None:
         yield
         return
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    cuda = torch.cuda.is_available()
+    if cuda:
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(str(logdir), exist_ok=True)
     with profile(activities=acts) as prof:
+        if cuda:
+            for _ in range(PROFILE_MARKS):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
         yield
     prof.export_chrome_trace(os.path.join(str(logdir), "trace.json"))
 
