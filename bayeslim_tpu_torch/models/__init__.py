@@ -1,8 +1,9 @@
 """Telescope, sky, beam (pixel and Ylm), the RIME forward model, antenna
 gains, the cosmology, the linear models, the delay FFT, the filters,
 antenna cross-coupling and dirty-map imaging."""
-from . import (beam, beam_ylm, bessel, calibration, cosmology, coupling,
-               fft, filt, imaging, linear_model, rime, sky, telescope)
+from . import (airy_psky, beam, beam_ylm, bessel, calibration, cosmology,
+               coupling, fft, filt, imaging, linear_model, rime, sky,
+               telescope)
 from .beam import (PixelBeam, AiryResponse, GaussResponse, UniformResponse,
                    PixelResponse)
 from .beam_ylm import YlmResponse, AlmBeam

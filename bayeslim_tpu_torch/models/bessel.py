@@ -34,23 +34,40 @@ def j0(x):
     return torch.where(ax < 8.0, small, large)
 
 
+# j1's approximant, coefficients lowest order first (csrc/airy_psky.cu
+# holds the same numbers): x J1_P(x^2) / J1_Q(x^2) for |x| < 8 (A&S
+# 9.4.4); for |x| >= 8, with z = 8 / |x|, sign(x) sqrt(J1_K / |x|)
+# (cos(|x| - J1_PHASE) J1_P2(z^2) - z sin(|x| - J1_PHASE) J1_Q2(z^2))
+# (9.4.6)
+J1_P = (72362614232.0, -7895059235.0, 242396853.1, -2972611.439,
+        15704.48260, -30.16036606)
+J1_Q = (144725228442.0, 2300535178.0, 18583304.74, 99447.43394,
+        376.9991397, 1.0)
+J1_P2 = (1.0, 0.183105e-2, -0.3516396496e-4, 0.2457520174e-5,
+         -0.240337019e-6)
+J1_Q2 = (0.04687499995, -0.2002690873e-3, 0.8449199096e-5, -0.88228987e-6,
+         0.105787412e-6)
+J1_K, J1_PHASE = 0.636619772, 2.356194491
+
+
+def _horner(c, y):
+    """c[0] + c[1] y + c[2] y^2 + ... by Horner's rule."""
+    acc = c[-1]
+    for a in reversed(c[:-1]):
+        acc = a + y * acc
+    return acc
+
+
 def j1(x):
     """Bessel J1 via A&S 9.4.4/9.4.6."""
     ax = torch.abs(x)
     y = x * x
-    p1 = x * (72362614232.0 + y * (-7895059235.0 + y * (242396853.1
-         + y * (-2972611.439 + y * (15704.48260 + y * (-30.16036606))))))
-    q1 = (144725228442.0 + y * (2300535178.0 + y * (18583304.74
-          + y * (99447.43394 + y * (376.9991397 + y)))))
-    small = p1 / q1
+    small = x * _horner(J1_P, y) / _horner(J1_Q, y)
     z = 8.0 / torch.where(ax < 1e-30, torch.ones_like(ax), ax)
     y2 = z * z
-    xx = ax - 2.356194491
-    p2 = (1.0 + y2 * (0.183105e-2 + y2 * (-0.3516396496e-4
-          + y2 * (0.2457520174e-5 + y2 * (-0.240337019e-6)))))
-    q2 = (0.04687499995 + y2 * (-0.2002690873e-3 + y2 * (0.8449199096e-5
-          + y2 * (-0.88228987e-6 + y2 * 0.105787412e-6))))
-    large = torch.sqrt(0.636619772 / torch.clamp(ax, min=1e-30)) * \
-        (torch.cos(xx) * p2 - z * torch.sin(xx) * q2)
+    xx = ax - J1_PHASE
+    large = torch.sqrt(J1_K / torch.clamp(ax, min=1e-30)) * \
+        (torch.cos(xx) * _horner(J1_P2, y2)
+         - z * torch.sin(xx) * _horner(J1_Q2, y2))
     large = large * torch.sign(x)
     return torch.where(ax < 8.0, small, large)

@@ -19,13 +19,14 @@ run_batches :405).
 - ``forward`` loops over the active group's times (the JAX package's
   lax.map or vmap: here ``time_mode`` 'scan' and 'vmap' are the same
   eager loop) and sums the sky components: beam evaluation and the
-  beam-weighted sky in model-pair space (``make_psky``, checkpointed as
-  the JAX one is, so the backward keeps only psky per time), then the
-  pixel reduction ``rime_reduce`` with the delay factored as
-  blvecs @ s/c, which on CUDA runs the fused kernel (grouped by model
-  pair when Nmp > 1). ``remat`` checkpoints each whole time step
-  instead. The simulated baselines expand to the data baselines through
-  a host index.
+  beam-weighted sky in model-pair space (``make_psky``: for a float32
+  Airy power beam on CUDA the fused kernels of ``airy_psky``, otherwise
+  eager and checkpointed as the JAX one is, so the backward keeps only
+  psky per time), then the pixel reduction ``rime_reduce`` with the
+  delay factored as blvecs @ s/c, which on CUDA runs the fused kernel
+  (grouped by model pair when Nmp > 1). ``remat`` checkpoints each
+  whole time step instead. The simulated baselines expand to the data
+  baselines through a host index.
 - Sharding (parallel/sharding.py, the JAX package's vis_sharding :46,
   :361-363 and ``_mp_idx_dev`` :379-383): ``shard_rime`` and
   ``shard_pixels`` give a rank's copy its local times, baselines or
@@ -49,6 +50,7 @@ from ..utils.dtypes import C_MS
 from ..utils.indexing import ants2blnum, flatten
 from ..utils.logging import span
 from ..utils.module import Module
+from . import airy_psky
 from .beam import cut_sky_fov
 from .sky import CompositeModel
 
@@ -285,9 +287,13 @@ class RIME(Module):
         # checkpoint has no jvp, and the pixel chunks of rime_reduce
         # still keep only their inputs
         grad = torch.is_grad_enabled() and not dual_active()
+        fused = airy_psky.fused_eligible(beam, sky, pres[0]["zen"])
 
         def make_psky(sky, zen, az, cut, mask, *ctx):
             with span("bl.psky"):
+                if fused:
+                    return airy_psky.airy_psky(beam, sky, zen, az, cut,
+                                               mask, mp1)
                 csky = cut_sky_fov(sky, cut) * mask
                 b = beam.gen_beam(zen, az, ctx=ctx or None,
                                   angles_offset=True)
@@ -296,11 +302,13 @@ class RIME(Module):
         def one_time(sky, blvecs, pre, nested):
             args = (sky, pre["zen"], pre["az"], pre["cut"], pre["mask"]) \
                 + pre.get("ctx", ())
-            # psky's construction chains many (Nfreqs, Ncut)
+            # psky's eager construction chains many (Nfreqs, Ncut)
             # intermediates: checkpoint it, so the backward keeps only
             # psky per time and recomputes the rest (the beam and sky
-            # hold no randomness)
-            psky = _ckpt(make_psky, *args) if nested else make_psky(*args)
+            # hold no randomness); the fused Function saves only its
+            # inputs, so a checkpoint would only add a forward
+            psky = _ckpt(make_psky, *args) if nested and not fused \
+                else make_psky(*args)
             with span("bl.rime"):
                 return rime_reduce(psky, None, self.freqs, mp_idx=mp_idx,
                                    chunk=self.pix_chunk,

@@ -38,7 +38,9 @@ count their calls (one per call, whatever the CUDA launches behind it:
 adds them in a fixed order, with no atomics; ``rime_dtau`` first writes
 w_r ct to a scratch, then walks the rows in the passes of
 ``dtau_plan``). ``SOURCES`` also lists ``csrc/mosaic_spike.cu``,
-the microbenchmark kernels wrapped by ``scripts/mosaic_spike.py``.
+the microbenchmark kernels wrapped by ``scripts/mosaic_spike.py``, and
+``csrc/airy_psky.cu``, the per-time sky and Airy beam wrapped by
+``models/airy_psky.py``.
 """
 from __future__ import annotations
 
@@ -69,7 +71,8 @@ dtau_launches = 0
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("rime_fwd.cu", "rime_dtau.cu", "mosaic_spike.cu")
+SOURCES = ("rime_fwd.cu", "rime_dtau.cu", "mosaic_spike.cu",
+           "airy_psky.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _LIB = {}

@@ -22,9 +22,10 @@ Counterpart of bayeslim_tpu/ops/rime_kernel.py (`_pallas_eligible` :59,
   all the baselines and a mask selects each baseline's. Delays factored as blvecs @ s_c go through
   ``RimeFusedBS``, a given delay matrix tau through ``RimeFused``.
 - ``force_chunked`` (the JAX package's ``force_xla`` :45-56) turns the
-  fused dispatch off inside its block: the fused Functions' backward
-  has no derivative of its own, and second-order differentiation
-  (Hessians, Hessian-vector products) goes through the chunked path.
+  fused dispatch off inside its block (and models/airy_psky.py's): the
+  fused Functions' backward has no derivative of its own, and
+  second-order differentiation (Hessians, Hessian-vector products) goes
+  through the chunked path.
 """
 from __future__ import annotations
 
@@ -45,10 +46,12 @@ _FORCE_CHUNKED = [False]
 @contextlib.contextmanager
 def force_chunked():
     """Run every RIME reduction on the chunked PyTorch path inside the
-    block, whatever its use_kernel (counterpart of the JAX package's
-    ``force_xla``, ops/rime_kernel.py:45-56, which turns the Pallas
-    dispatch off). The fused Functions' backward launches the kernels
-    and is not itself differentiable; the chunked path is, at any order.
+    block, whatever its use_kernel, and the per-time sky and Airy beam
+    on its eager path (models/airy_psky.py): every fused kernel's plain
+    version (counterpart of the JAX package's ``force_xla``,
+    ops/rime_kernel.py:45-56, which turns the Pallas dispatch off). The
+    fused Functions' backward launches the kernels and is not itself
+    differentiable; the chunked path is, at any order.
     ``inference.hessian.compute_hessian`` enters it; a second derivative
     taken through the fused Functions outside it raises an error that
     names it. Nothing enters it on its own when a kernel fails."""

@@ -328,8 +328,19 @@ Phases, one line each; any failure exits non-zero:
    walls (the first, then the
    median), CUDA-event ms a minibatch and peak memory, and the same for
    full-band steps beside them; one minibatch's and one full-band
-   evaluation under torch.profiler.
-   Then the JSON line of all nine kernels.
+   evaluation under torch.profiler;
+25. (run right after phase 1) the per-time sky and Airy power beam
+   (csrc/airy_psky.cu, models/airy_psky.py) at the benchmark cells'
+   per-time shapes (PSKY_SHAPES: hex11's 1024 channels x 6,144 FOV
+   pixels, fixed beam; alm64's 128 x 26,624, trained elliptical beam):
+   the kernels' registers and spills, no FP64 in the forward, psky, the
+   sky gradient and dD against the eager path in float64 (within
+   PSKY_TOL, the eager path in float32 beside them), two backward calls
+   bit-equal, and the forward, the backward call and the eager path
+   timed beside each kernel's bytes bound. Its forward and backward
+   calls are counted on every path from phase 5 on (launches_by_path;
+   hera-shard's ranks run in processes of their own and count apart).
+   Then the JSON line of all ten kernels.
 
 Each torch.profiler run launches PROFILE_MARKS spin kernels before the
 profiled function and prints how many the profiler kept: it often drops
@@ -472,6 +483,14 @@ PROD_SHAPES = (("hera-prod fwd", 6144, 630, False),
 # and the role-swapped backward
 ALM_SHAPES = (("hera-alm fwd", 26624, 630, True, False, True),
               ("hera-alm bwd", 630, 26624, False, True, False))
+# the per-time sky and Airy beam pass (models/airy_psky.py) at the
+# benchmark cells' shapes: (label, channels, HEALPix nside, beam trained);
+# hex11.cal-lbfgs's nside-32 sky and fixed beam (6,144 FOV pixels),
+# alm64.adam's nside-64 sky and trained elliptical beam (26,624)
+PSKY_SHAPES = (("hex11", 1024, 32, False), ("alm64", 128, 64, True))
+# the kernels' largest error against the eager path in float64 (of the
+# same float32 inputs), over each quantity's largest magnitude
+PSKY_TOL = dict(psky=2e-6, dsky=2e-6, dD=1e-5)
 # spin kernels launched as torch.profiler starts, before the profiled
 # function (see profile; 64 once kept only one)
 PROFILE_MARKS = 1024
@@ -1496,6 +1515,54 @@ def rand_case(rng, R, K, N, ps_real, tau_max=1e-6):
     return ps, tauT
 
 
+def psky_case(torch, nf, nside, trained, device, dtype, seed=0):
+    """Inputs of one AiryPsky call as a RIME's first time makes them: a
+    HEALPix sky of U(1, 10) over 100-200 MHz, cut to the pixels above the
+    horizon at LOC (ascending, padded with mask 0 to a multiple of the
+    cells' pix_chunk, 2048, as RIME.precompute does), a 14 m elliptical
+    beam (trained: its two diameters 14 (1 + 0.05 N(0, 1))) and psky's
+    gradient N(0, 1). Returns (args, g), args as AiryPsky.apply takes
+    them."""
+    from bayeslim_tpu_torch.models.telescope import eq2top
+    from bayeslim_tpu_torch.utils import healpix as hp
+    rng = np.random.default_rng(seed)
+    npix = hp.nside2npix(nside)
+    theta, phi = hp.pix2ang(nside, np.arange(npix))
+    zen, az = eq2top(LOC, 2458168.3, np.degrees(phi),
+                     90 - np.degrees(theta))
+    valid = np.flatnonzero(zen < 90)
+    ncut = -(-len(valid) // 2048) * 2048
+    cut = np.zeros(ncut, np.int64)
+    cut[:len(valid)] = valid
+    mask = (np.arange(ncut) < len(valid)).astype(np.float64)
+    D = np.full((1, 2), 14.0)
+    if trained:
+        D = D * (1 + 0.05 * rng.standard_normal((1, 2)))
+    sky = rng.uniform(1, 10, (1, 1, nf, npix))
+    g = rng.standard_normal((1, 1, 1, nf, ncut))
+
+    def t(x, dt=dtype):
+        return torch.as_tensor(x, dtype=dt, device=device)
+    return (t(sky), t(zen[cut]), t(az[cut]), t(cut, torch.int64), t(mask),
+            t(D), t([0], torch.int64), t(np.linspace(100e6, 200e6, nf)),
+            1.0), t(g)
+
+
+def psky_eager(torch, ap, args, g, dtype=None):
+    """psky and the gradients of the sky and D through the eager path
+    (autograd over models/airy_psky.py's airy_psky_plain), with the
+    floating inputs cast to dtype (default: as they are)."""
+    if dtype is not None:
+        args = [a.to(dtype) if torch.is_tensor(a) and a.is_floating_point()
+                else a for a in args]
+        g = g.to(dtype)
+    sky = args[0].detach().clone().requires_grad_(True)
+    D = args[5].detach().clone().requires_grad_(True)
+    psky = ap.airy_psky_plain(sky, *args[1:5], D, *args[6:])
+    dsky, dD = torch.autograd.grad(psky, (sky, D), g)
+    return psky.detach(), dsky, dD
+
+
 def longest_delay():
     """hera-stat's longest delay [s]: its longest baseline over c."""
     from bayeslim_tpu_torch.utils import make_hex
@@ -1663,6 +1730,73 @@ def phase_build(torch, rime_cuda, dev, built):
               + f": {regs} registers, {smem} bytes of shared memory a "
               f"block, {per_sm} blocks per SM on {sms} SMs", flush=True)
         check(per_sm >= 1, f"{kernel} kernel cannot be resident")
+
+
+def phase_airy_psky(torch, dev, built):
+    """Phase 25, the per-time sky and Airy beam (csrc/airy_psky.cu) at
+    PSKY_SHAPES: its kernels' registers and spills and the forward's FP64
+    instructions (none allowed; the backward sums in double by design);
+    psky, the sky gradient and dD (Dew, Dns) of the kernels and of the
+    eager path in float32 against the eager path in float64 (the
+    kernels within PSKY_TOL); two backward calls bit-equal; the forward,
+    the backward call (its kernel, the fixed-order sum and the zeroed
+    sky gradient) and the eager path's forward and backward timed by
+    CUDA events, beside each kernel's bytes bound (models/airy_psky.py's
+    bytes_fwd / bytes_bwd at 3.35 TB/s). Returns {label: times}."""
+    from bayeslim_tpu_torch.models import airy_psky as ap
+    from bayeslim_tpu_torch.ops.rime_cuda import PEAK_BYTES
+    path, _, report = built["airy_psky.cu"]
+    for name, line in ptxas_by_function(report).items():
+        print(f"phase 25 airy_psky.cu ptxas: {name}: {line}", flush=True)
+    fp64 = fp64_by_function(path)
+    print(f"phase 25 airy_psky.cu SASS: FP64 instructions by kernel {fp64}",
+          flush=True)
+    if fp64 is not None:
+        fwd = {k: v for k, v in fp64.items() if "airy_psky_fwd" in k}
+        check(fwd and not any(fwd.values()),
+              f"airy_psky_fwd runs FP64 instructions: {fwd}")
+    out = {}
+    for label, nf, nside, trained in PSKY_SHAPES:
+        a32, g32 = psky_case(torch, nf, nside, trained, dev, torch.float32)
+        npix, ncut = a32[0].shape[-1], a32[3].shape[0]
+        nvalid = int(a32[4].sum())
+        ref = psky_eager(torch, ap, a32, g32, torch.float64)
+        eag = psky_eager(torch, ap, a32, g32)
+        ker = (ap.airy_psky_fwd(*a32),) + ap.airy_psky_bwd(g32, *a32)
+        again = ap.airy_psky_bwd(g32, *a32)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(ker[1:], again)),
+              f"airy_psky {label}: two backward calls differ")
+        errs = {}
+        for q, k, e, r in zip(PSKY_TOL, ker, eag, ref):
+            errs[q] = (relerr(k.cpu().numpy(), r.cpu().numpy()),
+                       relerr(e.cpu().numpy(), r.cpu().numpy()))
+            check(errs[q][0] <= PSKY_TOL[q],
+                  f"airy_psky {label} {q}: kernel error {errs[q][0]:.3g} "
+                  f"above {PSKY_TOL[q]}")
+        fms = cuda_ms(torch, lambda: ap.airy_psky_fwd(*a32), 50)
+        bms = cuda_ms(torch, lambda: ap.airy_psky_bwd(g32, *a32), 50)
+        efms = cuda_ms(torch, lambda: ap.airy_psky_plain(*a32), 5)
+        ebms = cuda_ms(torch, lambda: psky_eager(torch, ap, a32, g32),
+                       5) - efms
+        fb = 1e3 * ap.bytes_fwd(nf, ncut) / PEAK_BYTES
+        bb = 1e3 * ap.bytes_bwd(nf, npix, ncut) / PEAK_BYTES
+        out[label] = dict(ms=fms, bwd_ms=bms, bound_ms=fb, bwd_bound_ms=bb,
+                          eager_ms=efms, eager_bwd_ms=ebms,
+                          max_err={q: e[0] for q, e in errs.items()})
+        print(f"phase 25 airy_psky {label} (Nf={nf}, Npix={npix}, "
+              f"Ncut={ncut}, {nvalid} in the FOV, beam "
+              f"{'trained' if trained else 'fixed'}): errors against the "
+              f"eager path in float64, kernel / eager float32: "
+              + ", ".join(f"{q} {k:.3g} / {e:.3g}"
+                          for q, (k, e) in errs.items())
+              + f"; two backward calls bit-equal; forward {fms:.4f} ms, "
+              f"bound {fb:.4f} ms (bytes), {fb / fms:.1%} of bound; "
+              f"backward {bms:.4f} ms, bound {bb:.4f} ms (bytes), "
+              f"{bb / bms:.1%} of bound; eager path forward {efms:.3f} ms, "
+              f"backward {ebms:.3f} ms; no single PyTorch call computes "
+              f"this function, so no library time", flush=True)
+    return out
 
 
 def phase_fwd_vs_plain(torch, rime_cuda, dev, rng, f0, df):
@@ -1879,8 +2013,8 @@ def phase_hera_stat(bt, torch, rime_cuda, pix_chunks):
           f"launches {launches} (expected {expect}), rime_dtau launches "
           f"{dtau} (expected 0: antenna positions are fixed); peak device "
           f"memory {peak:.2f} GiB", flush=True)
-    print(f"phase 5 hera-stat with psky checkpointed per time: steps 2 and "
-          f"3 {step_s[1] * 1e3:.1f} / {step_s[2] * 1e3:.1f} ms (before: "
+    print(f"phase 5 hera-stat with psky by the fused Airy kernels: steps 2 "
+          f"and 3 {step_s[1] * 1e3:.1f} / {step_s[2] * 1e3:.1f} ms (before: "
           f"{STAT_STEPS_BEFORE_MS[0]} / {STAT_STEPS_BEFORE_MS[1]} ms), peak "
           f"device memory {peak:.2f} GiB (before: {STAT_PEAK_BEFORE_GIB} "
           f"GiB), both before-values on an NVIDIA H100 80GB HBM3 at 700 W; "
@@ -5550,6 +5684,7 @@ def main():
         return 2
     sys.path.insert(0, ROOT)
     import bayeslim_tpu_torch as bt
+    from bayeslim_tpu_torch.models import airy_psky
     from bayeslim_tpu_torch.ops import rime_cuda
     from bayeslim_tpu_torch.ops.rime_cuda import _pix_chunks
     from bayeslim_tpu_torch.scripts import hera_prod
@@ -5569,16 +5704,29 @@ def main():
               f"nvcc {secs:.1f} s; {' | '.join(regs)}", flush=True)
     print(f"phase 1 build total {time.time() - t0:.1f} s", flush=True)
     phase_build(torch, rime_cuda, dev, built)
+    psky_t = phase_airy_psky(torch, dev, built)
+    # the per-time sky and Airy beam kernels' calls by path (forward,
+    # backward)
+    psky_by_path = {}
+
+    def counted(path, fn, *args):
+        n0 = (airy_psky.launches, airy_psky.bwd_launches)
+        out = fn(*args)
+        psky_by_path[path] = [airy_psky.launches - n0[0],
+                              airy_psky.bwd_launches - n0[1]]
+        return out
 
     f0, df = 100e6, 100e6 / 1023
     rng = np.random.default_rng(0)
     worst_fwd = phase_fwd_vs_plain(torch, rime_cuda, dev, rng, f0, df)
     worst_dtau = phase_dtau_vs_plain(torch, rime_cuda, dev, rng, f0, df)
     phase_function(torch, rime_cuda, dev, rng, f0, df)
-    rime, sim_bls, stat_launches = phase_hera_stat(bt, torch, rime_cuda,
-                                                   _pix_chunks)
-    cal_fwd, cal_dtau = phase_hera_cal(bt, torch, rime_cuda, _pix_chunks)
-    phase_small(bt, torch, rime_cuda, dev, hera_prod)
+    rime, sim_bls, stat_launches = counted(
+        "hera-stat", phase_hera_stat, bt, torch, rime_cuda, _pix_chunks)
+    cal_fwd, cal_dtau = counted("hera-cal", phase_hera_cal, bt, torch,
+                                rime_cuda, _pix_chunks)
+    counted("small card vs CPU (phase 7)", phase_small, bt, torch, rime_cuda,
+            dev, hera_prod)
 
     # ---- 8. times at the main paths' shapes and the kernels' bounds
     R, K, N = rime.Nfreqs, rime.Npix_cut, len(sim_bls)
@@ -5682,27 +5830,39 @@ def main():
 
     phase_fwd_beside_spikes(torch, spike, dev, (R, K, N), timing)
     spikes = phase_spike(torch, spike, dev, built)
-    phase_entry_points(bt, torch, rime_cuda, dev, rng, f0, df)
-    prod_fwd, prod_dtau = phase_hera_prod(bt, torch, rime_cuda, _pix_chunks,
-                                          hera_prod)
-    redcal_fwd = phase_hera_redcal(bt, torch, rime_cuda, _pix_chunks)
-    hmc_fwd = phase_hera_hmc(bt, torch, rime_cuda, _pix_chunks)
-    alm_fwd, alm_dtau, sky_ylm = phase_hera_alm(bt, torch, rime_cuda,
-                                                _pix_chunks)
-    sfb_fwd, sfb_dtau, beam_R = phase_hera_sfb(bt, torch, rime_cuda,
-                                               _pix_chunks, sky_ylm)
-    hmca_fwd, hmca_dtau = phase_hera_hmc_alm(bt, torch, rime_cuda,
-                                             _pix_chunks, sky_ylm, beam_R)
+    counted("entry points (phase 10)", phase_entry_points, bt, torch,
+            rime_cuda, dev, rng, f0, df)
+    prod_fwd, prod_dtau = counted("hera-prod", phase_hera_prod, bt, torch,
+                                  rime_cuda, _pix_chunks, hera_prod)
+    redcal_fwd = counted("hera-redcal", phase_hera_redcal, bt, torch,
+                         rime_cuda, _pix_chunks)
+    hmc_fwd = counted("hera-hmc", phase_hera_hmc, bt, torch, rime_cuda,
+                      _pix_chunks)
+    alm_fwd, alm_dtau, sky_ylm = counted("hera-alm", phase_hera_alm, bt,
+                                         torch, rime_cuda, _pix_chunks)
+    sfb_fwd, sfb_dtau, beam_R = counted("hera-sfb", phase_hera_sfb, bt,
+                                        torch, rime_cuda, _pix_chunks,
+                                        sky_ylm)
+    hmca_fwd, hmca_dtau = counted("hera-hmc-alm", phase_hera_hmc_alm, bt,
+                                  torch, rime_cuda, _pix_chunks, sky_ylm,
+                                  beam_R)
     del sky_ylm, beam_R
-    filt_fwd, filt_dtau = phase_hera_filt(bt, torch, rime_cuda, _pix_chunks)
-    img_fwd, img_dtau, img_t = phase_hera_img(bt, torch, rime_cuda,
-                                              _pix_chunks)
-    coup_fwd = phase_hera_coupling(bt, torch, rime_cuda, _pix_chunks)
-    hess_fwd, hess_dtau = phase_hera_hess(bt, torch, rime_cuda, _pix_chunks)
-    avg_fwd = phase_hera_avg(bt, torch, rime_cuda, _pix_chunks)
-    io_fwd, io_dtau = phase_hera_io(bt, torch, rime_cuda, _pix_chunks)
-    shard_fwd, shard_dtau = phase_hera_shard(bt, torch, rime_cuda)
-    fmb_fwd = phase_hera_fmb(bt, torch, rime_cuda, _pix_chunks)
+    filt_fwd, filt_dtau = counted("hera-filt", phase_hera_filt, bt, torch,
+                                  rime_cuda, _pix_chunks)
+    img_fwd, img_dtau, img_t = counted("hera-img", phase_hera_img, bt, torch,
+                                       rime_cuda, _pix_chunks)
+    coup_fwd = counted("hera-coupling", phase_hera_coupling, bt, torch,
+                       rime_cuda, _pix_chunks)
+    hess_fwd, hess_dtau = counted("hera-hess", phase_hera_hess, bt, torch,
+                                  rime_cuda, _pix_chunks)
+    avg_fwd = counted("hera-avg", phase_hera_avg, bt, torch, rime_cuda,
+                      _pix_chunks)
+    io_fwd, io_dtau = counted("hera-io", phase_hera_io, bt, torch,
+                              rime_cuda, _pix_chunks)
+    shard_fwd, shard_dtau = counted("hera-shard", phase_hera_shard, bt,
+                                    torch, rime_cuda)
+    fmb_fwd = counted("hera-fmb", phase_hera_fmb, bt, torch, rime_cuda,
+                      _pix_chunks)
 
     # rime_fwd: the two shapes are launched equally often on hera-stat:
     # report the mean per launch (hera-prod's and hera-alm's shapes beside
@@ -5753,6 +5913,16 @@ def main():
                              "hera-shard": shard_dtau, "hera-fmb": 0},
         "max_abs_err": worst_dtau, "ms": dms, "plain_ms": dpms,
         "bound_ms": dbms, "bound_by": dby, "library_ms": None}]
+    kernels.append({
+        "name": "airy_psky", "route": "cuda",
+        "source": "bayeslim_tpu_torch/csrc/airy_psky.cu",
+        "replaces": None,
+        "launches": sum(f + b for f, b in psky_by_path.values()),
+        "launches_by_path": psky_by_path,
+        "max_abs_err": psky_t["hex11"]["max_err"]["psky"],
+        "library_ms": None, **psky_t["hex11"],
+        "plain_ms": psky_t["hex11"]["eager_ms"], "bound_by": "bytes",
+        "alm64_shape": psky_t["alm64"]})
     kernels += spikes
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi(), flush=True)

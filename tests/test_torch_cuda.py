@@ -1206,3 +1206,103 @@ def test_hera_io_small_on_card(cuda, tmp_path):
     uv.write_calfits(cd, f)
     back = uv.read_calfits(f, device=cuda)
     assert back.data.is_cuda and torch.equal(back.data, cd.data)
+
+
+# ---- the per-time sky and Airy power beam (models/airy_psky.py)
+
+def _psky_case(label, device, dtype):
+    _repo_on_path()
+    from chip_smoke import PSKY_SHAPES, psky_case
+    _, nf, nside, trained = {s[0]: s for s in PSKY_SHAPES}[label]
+    return psky_case(torch, nf, nside, trained, device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["hex11", "alm64"])
+def test_airy_psky_kernels_vs_eager_at_cell_shapes(cuda, label):
+    """The kernels at the benchmark cells' per-time shapes (hex11: 1024
+    channels x 6,144 FOV pixels, a fixed 14 m beam; alm64: 128 x 26,624,
+    an elliptical beam off 14 m): psky, the sky gradient and dD against
+    the eager path in float64 of the same float32 inputs, within
+    chip_smoke.PSKY_TOL (float32 rounding of the approximant, ~4e-7 for
+    the eager path itself); two backward calls bit-equal."""
+    from chip_smoke import PSKY_TOL, psky_eager
+    from bayeslim_tpu_torch.models import airy_psky as ap
+    a32, g32 = _psky_case(label, cuda, torch.float32)
+    ref = psky_eager(torch, ap, a32, g32, torch.float64)
+    ker = (ap.airy_psky_fwd(*a32),) + ap.airy_psky_bwd(g32, *a32)
+    for q, k, r in zip(PSKY_TOL, ker, ref):
+        assert _relerr(k.cpu().numpy(), r.cpu().numpy()) <= PSKY_TOL[q], q
+    again = ap.airy_psky_bwd(g32, *a32)
+    assert all(torch.equal(a, b) for a, b in zip(ker[1:], again))
+
+
+def _psky_rime(bt, ntime, trained, device):
+    """A hex-2 float32 RIME with build_sky_beam's sky and Airy beam:
+    trained (its sky and beam) or fixed (the antennas trained), over
+    ntime times; returns its LogProb at its own forward."""
+    from chip_smoke import build_sky_beam
+    T, arr, sky, beam, freqs = build_sky_beam(
+        bt, 2, 8, 16, 200e6, 1.0, not trained, device, torch.float32,
+        np.random.default_rng(0))
+    bls = arr.get_bls(keep_autos=False)
+    times = 2458168.3 + np.arange(ntime) * 5e-4
+    rime = bt.RIME(sky, T, beam, arr, bls, times, freqs, pix_chunk=256)
+    with torch.no_grad():
+        data = rime().data * 1.1
+    tgt = bt.VisData()
+    tgt.setup_meta(T, arr.to_antpos())
+    tgt.setup_data(bls, times, freqs, pol="ee", data=data)
+    return bt.LogProb(rime, tgt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trained,launches", [(False, (16, 0)),
+                                              (True, (16, 16))])
+def test_airy_psky_counters_at_sixteen_times(cuda, trained, launches):
+    """One evaluation at the cells' 16 times: 16 forward kernel calls
+    and no backward one with the sky and beam fixed (hex11.cal-lbfgs),
+    16 and 16 with both trained (alm64.adam)."""
+    _repo_on_path()
+    import bayeslim_tpu_torch as bt
+    from bayeslim_tpu_torch.models import airy_psky as ap
+    prob = _psky_rime(bt, 16, trained, cuda)
+    n0 = (ap.launches, ap.bwd_launches)
+    prob.value_and_grad()
+    assert (ap.launches - n0[0], ap.bwd_launches - n0[1]) == launches
+
+
+@pytest.mark.cuda
+def test_airy_psky_rime_fused_vs_eager_on_card(cuda, monkeypatch):
+    """A whole RIME forward and backward (sky and beam trained) on the
+    fused path and, with the predicate turned off, on the eager,
+    checkpointed one: the loss and every gradient agree to 1e-5 of their
+    largest magnitude (each path's float32 rounding, ~6e-7 of it)."""
+    _repo_on_path()
+    import bayeslim_tpu_torch as bt
+    from bayeslim_tpu_torch.models import airy_psky as ap
+    prob = _psky_rime(bt, 2, True, cuda)
+    n0 = ap.launches
+    loss, grads = prob.value_and_grad()
+    assert ap.launches == n0 + 2
+    monkeypatch.setattr(ap, "fused_eligible", lambda *a: False)
+    eloss, egrads = prob.value_and_grad()
+    assert ap.launches == n0 + 2
+    assert abs(float(loss) - float(eloss)) <= 1e-5 * abs(float(eloss))
+    for k, v in egrads.items():
+        assert _relerr(grads[k].cpu().numpy(), v.cpu().numpy()) <= 1e-5, k
+
+
+@pytest.mark.cuda
+def test_airy_psky_second_derivative_raises(cuda):
+    """A create_graph backward through the fused path gives first
+    derivatives; differentiating them again raises the error that names
+    force_chunked."""
+    from bayeslim_tpu_torch.models import airy_psky as ap
+    args, _ = _psky_case("alm64", cuda, torch.float32)
+    sky = args[0].clone().requires_grad_(True)
+    D = args[5].clone().requires_grad_(True)
+    psky = ap.AiryPsky.apply(sky, *args[1:5], D, *args[6:])
+    g, = torch.autograd.grad((psky ** 2).sum(), D, create_graph=True)
+    with pytest.raises(RuntimeError, match="force_chunked"):
+        torch.autograd.grad(g.sum(), sky)
